@@ -1,0 +1,68 @@
+"""The port stands alone: it imports and renders with jax and flax
+blocked, no file of it imports either, and its kernel loader fails
+clearly where there is no CUDA toolkit."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from clpathtracer_tpu_torch.ops import _cuda
+
+torch.set_num_threads(2)
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "clpathtracer_tpu_torch"
+
+_RENDER_WITHOUT_JAX = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+import torch
+torch.set_num_threads(2)
+import clpathtracer_tpu_torch
+from clpathtracer_tpu_torch.ops import plist
+from clpathtracer_tpu_torch.render.integrator import RenderOptions, render_image
+from clpathtracer_tpu_torch.scene.procedural import two_triangles
+cpu = torch.device("cpu")
+scene = two_triangles(device=cpu).bake_shading()
+mwin = plist.build_morton_windows(scene.tri_corners(), device=cpu)
+mwin = plist.attach_resolve(plist.attach_so(mwin), scene.shade_rows)
+cam = clpathtracer_tpu_torch.Camera.create([0.0, 0.0, -1.5], [0.0, 0.0, 1.0],
+                                           device=cpu)
+img = render_image(scene, cam, RenderOptions(width=32, height=32), mwin)
+assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
+hit = (img < 1.0).any(dim=-1)
+assert 0 < int(hit.sum()) < 32 * 32
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax")
+               for m in sys.modules if sys.modules[m] is not None)
+print("rendered", int(hit.sum()))
+"""
+
+
+def test_imports_and_renders_with_jax_blocked():
+    out = subprocess.run([sys.executable, "-c", _RENDER_WITHOUT_JAX],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("rendered")
+
+
+def test_no_file_imports_jax_or_flax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b", re.M)
+    # _build/ holds build outputs, not the package's sources
+    files = sorted(f for f in PKG.rglob("*.py")
+                   if "_build" not in f.relative_to(PKG).parts)
+    assert len(files) > 10
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_loader_raises_without_nvcc():
+    if _cuda.find_nvcc() is not None:
+        pytest.skip("a CUDA toolkit is installed: the loader would build")
+    with pytest.raises(_cuda.KernelBuildError, match="nvcc not found"):
+        _cuda.load_kernels()
