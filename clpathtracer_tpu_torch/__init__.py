@@ -6,10 +6,12 @@ It imports torch and numpy, never jax or flax. Every function takes its
 device from its tensor arguments or from an explicit `device` argument;
 nothing picks a device on its own.
 
-This first slice covers the primary-ray frame: pinhole rays, the window
-prepass, the super-list kernel (ops/csrc/plist_super.cu on the GPU, its
-plain torch version on the CPU), fused winner resolution and
-normals-as-color shading.
+It covers normal, mirror and path (no NEE) rendering on the window
+engine: pinhole or jittered primary rays through the gate prepass and the
+super-list kernel's shared-origin form, Morton-sorted bounce bundles
+through the bundle prepass and its general Moller-Trumbore form
+(ops/csrc/plist_super.cu on the GPU, the plain torch versions on the
+CPU), fused winner resolution and the modes' shading.
 """
 
 from clpathtracer_tpu_torch.core.camera import Camera

@@ -122,3 +122,22 @@ def generate_rays(cam_inv: torch.Tensor, width: int, height: int):
     dirs = vm.normalize(fcp - ncp)
     origins = origin.expand_as(dirs)
     return origins, dirs
+
+
+def generate_rays_jittered(cam_inv: torch.Tensor, width: int, height: int,
+                           jitter: torch.Tensor):
+    """generate_rays with per-ray subpixel offsets: jitter [S, H*W, 2] in
+    [0, 1)^2, one set per sample. Returns (origins [S, H*W, 3], dirs
+    [S, H*W, 3])."""
+    dtype, device = cam_inv.dtype, cam_inv.device
+    xs = torch.arange(width, dtype=dtype, device=device) - width / 2.0
+    ys = torch.arange(height, dtype=dtype, device=device) - height / 2.0
+    py, px = torch.meshgrid(ys, xs, indexing="ij")
+    pix = torch.stack([px, py], dim=-1).reshape(-1, 2)[None] + jitter
+
+    origin = cam_inv[:3, 2] / cam_inv[3, 2]
+    z = torch.ones(pix.shape[:-1] + (1,), dtype=dtype, device=device)
+    ncp = _transform_point(cam_inv, torch.cat([pix, -z], dim=-1))
+    fcp = _transform_point(cam_inv, torch.cat([pix, z], dim=-1))
+    dirs = vm.normalize(fcp - ncp)
+    return origin.expand_as(dirs), dirs

@@ -38,6 +38,9 @@ SIGNATURES = {
     # key, sid, bits, rows, dir_t, t0, best_t, best_slot, stats,
     # n_gates, list_len, win_rows, stream
     "plist_super_launch": [_P] * 9 + [_I] * 3 + [_P],
+    # key, sid, bits, rows, orig_t, dir_t, t0, best_t, best_slot, stats,
+    # n_gates, list_len, win_rows, stream
+    "plist_super_mt_launch": [_P] * 10 + [_I] * 3 + [_P],
 }
 
 

@@ -1,44 +1,65 @@
-// Super-list packet kernel (K1), shared-origin (SO) form, for Hopper (sm_90a).
+// Super-list packet kernel for Hopper (sm_90a), in two forms that share one
+// stream loop:
 //
-// Replaces the TPU kernel clpathtracer_tpu/ops/plist.py::_kernel_plist_super
-// (called through _plist_super_call). It computes what that kernel computes,
-// not its schedule: for every 512-ray gate (a 16x32 pixel block with one
-// shared origin), stream the gate's sorted super list, test every needed
+//   K1  (shared-origin, SO): plist_super_launch. Replaces the TPU kernel
+//       clpathtracer_tpu/ops/plist.py::_kernel_plist_super with so=True
+//       (the primary-ray gates of traverse_plist).
+//   K1' (general Moller-Trumbore, MT): plist_super_mt_launch. Replaces the
+//       same TPU kernel with so=False, the form that traverse_plist_bundle
+//       runs on sorted 512-ray bounce bundles (and traverse_plist without
+//       SO tables). Per-lane origins and per-lane t0 seeds.
+//
+// Both compute what the TPU kernel computes, not its schedule: for every
+// 512-ray gate or bundle, stream its sorted super list, test every needed
 // window of each super densely against all 512 rays, and stop as soon as
 // the next super's conservative entry key exceeds the gate's t_upper.
 //
 // Design: one block per gate, 512 threads, one ray per thread. A thread
-// keeps its direction, t0, best t and best slot in registers. For every
-// need bit of the current super the block copies that window's SO records
-// (win_rows*8 records; cols 0-11 of each 16-float record, of which 0-9 are
-// used) into shared memory, synchronises, and each thread runs the
-// signed-volume test of clpathtracer_tpu/ops/packet.py::_mt_chunk_math_so
-// against every record: s1, s2, s3 <= 0, strict dsum < 0, d0 < 0,
-// t = d0 / dsum. The rejection is a branch, never an arithmetic blend: pad
-// records are all zero and dsum == 0 would give inf or NaN.
+// keeps its ray (direction; origin in the MT form), t0, best t and best slot
+// in registers. For every need bit of the current super the block copies
+// that window's records (win_rows*8 records; cols 0-11 of each 16-float
+// record, of which 0-9 are used) into shared memory, synchronises, and each
+// thread tests every record:
+//   SO: the signed-volume test of clpathtracer_tpu/ops/packet.py::
+//       _mt_chunk_math_so: s1, s2, s3 <= 0, strict dsum < 0, d0 < 0,
+//       t = d0 / dsum;
+//   MT: the test of clpathtracer_tpu/ops/packet.py::_mt_chunk_math:
+//       p = d x e2, det = e1.p with backface cull det > 0, invd = 1/det,
+//       u = (o - v0).p * invd, q = (o - v0) x e1, v = d.q * invd,
+//       t = e2.q * invd; accept 0 <= u <= 1, v >= 0, u + v <= 1, t > 0,
+//       tri_id >= 0.
+// Rejection is a branch, never an arithmetic blend: pad records and dead MT
+// lanes (direction exactly 0, so det is exactly 0) would give inf or NaN.
 // After each super a block max-reduction of min(best t, t0) refreshes
 // t_upper (the JAX package's default cadence); the loop goes on while the
 // next entry exists and its key <= t_upper, and starts only if
-// key[0] <= min(BIG, max t0). Culled windows carry key +inf, so the stream stops at the first
-// +inf entry and a gate that needs nothing runs zero supers.
+// key[0] <= min(BIG, max t0). Culled windows carry key +inf, so the stream
+// stops at the first +inf entry. A bundle whose lanes are all dead (t0 = 0)
+// still streams the supers whose key is exactly 0, as the TPU kernel does.
 //
 // Tie rule: lexicographic (min t, then min slot) over every tested pair.
-// It is independent of the order of the tests, so this kernel and its plain
-// torch version (ops/plist.py::plist_super_reference) agree exactly. The TPU
-// kernel's accumulator order picks another winner only at exact-t ties,
-// which are a documented freedom (clpathtracer_tpu/ops/packet.py:21-25).
+// It is independent of the order of the tests, so each form agrees exactly
+// with its plain torch version (ops/plist.py::plist_super_reference,
+// plist_super_mt_reference). The TPU kernel's accumulator order picks another
+// winner only at exact-t ties, which are a documented freedom
+// (clpathtracer_tpu/ops/packet.py:21-25).
 //
-// Rounding: the dense test uses __fmul_rn/__fadd_rn/__fdiv_rn, which are
-// never contracted into FMA, and the library is built with --fmad=false, so
-// every product, sum and quotient rounds as in the plain torch version.
+// Rounding: the tests use __fmul_rn/__fadd_rn/__fsub_rn/__fdiv_rn/__frcp_rn,
+// which are never contracted into FMA, in the order the plain versions use,
+// and the library is built with --fmad=false, so every product, sum,
+// quotient and reciprocal rounds as in the plain torch versions. The MT form
+// computes invd once per pair and multiplies by it, as _mt_chunk_math does.
 //
-// What bounds it on this card: FP32 issue in the dense test (about 35
-// flops per ray-triangle pair as the TPU kernel counts its vector ops; here
-// about 22 FP32 instructions, with no FMA, all threads reading the same
-// shared-memory record as a broadcast), plus the __syncthreads and the load latency of
-// each window, which nothing hides yet. Making it fast is later work:
-// cp.async/TMA double-buffering of windows, several gates per block,
-// persistent blocks.
+// What bounds them on this card: FP32 issue in the dense test, with every
+// thread reading the same shared-memory record as a broadcast. SO: about 22
+// FP32 instructions per ray-triangle pair (9 mul, 8 add, 2 max, 3 compares).
+// MT: 53 FP32 operations per pair on the full path (27 mul, 18 add or sub,
+// 7 compares, 1 reciprocal; the reciprocal is a several-instruction IEEE
+// sequence), and 15, 27 or 45 on the pairs that the det, u or v branch
+// rejects (mt_hit).
+// Besides, the __syncthreads and the load latency of each window, which
+// nothing hides yet. Making them fast is later work: cp.async/TMA
+// double-buffering of windows, several gates per block, persistent blocks.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -64,16 +85,71 @@ __device__ float block_max(float v, float* red) {
   return r;
 }
 
-__device__ __forceinline__ float dot3(float dx, float dy, float dz, float a,
+// (x0*a + x1*b) + x2*c, rounded as the plain torch versions round it
+__device__ __forceinline__ float dot3(float x0, float x1, float x2, float a,
                                       float b, float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, a), __fmul_rn(dy, b)),
-                   __fmul_rn(dz, c));
+  return __fadd_rn(__fadd_rn(__fmul_rn(x0, a), __fmul_rn(x1, b)),
+                   __fmul_rn(x2, c));
 }
 
+// x1*b - x2*a: one component of a cross product
+__device__ __forceinline__ float crs(float x1, float b, float x2, float a) {
+  return __fsub_rn(__fmul_rn(x1, b), __fmul_rn(x2, a));
+}
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// SO record: p = (ab.x, ab.y, ab.z, bc.x), q = (bc.y, bc.z, ca.x, ca.y),
+// w = (ca.z, d0, tri_id, 0). Writes t and returns true on a hit.
+__device__ __forceinline__ bool so_hit(const Ray& ray, float4 p, float4 q,
+                                       float4 w, float* t) {
+  const float s1 = dot3(ray.dx, ray.dy, ray.dz, p.x, p.y, p.z);
+  const float s2 = dot3(ray.dx, ray.dy, ray.dz, p.w, q.x, q.y);
+  const float s3 = dot3(ray.dx, ray.dy, ray.dz, q.z, q.w, w.x);
+  const float dsum = __fadd_rn(__fadd_rn(s1, s2), s3);
+  if (fmaxf(fmaxf(s1, s2), s3) <= 0.f && dsum < 0.f && w.y < 0.f) {
+    *t = __fdiv_rn(w.y, dsum);
+    return true;
+  }
+  return false;
+}
+
+// MT record: a = (v0.x, v0.y, v0.z, e1.x), b = (e1.y, e1.z, e2.x, e2.y),
+// c = (e2.z, tri_id, 0, 0). Writes t and returns true on a hit.
+__device__ __forceinline__ bool mt_hit(const Ray& ray, float4 a, float4 b,
+                                       float4 c, float* t) {
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float px = crs(ray.dy, e2z, ray.dz, e2y);
+  const float py = crs(ray.dz, e2x, ray.dx, e2z);
+  const float pz = crs(ray.dx, e2y, ray.dy, e2x);
+  const float det = dot3(e1x, e1y, e1z, px, py, pz);
+  if (!(det > 0.f)) return false;  // backface cull; dead lanes: det == 0
+  const float invd = __frcp_rn(det);
+  const float tx = __fsub_rn(ray.ox, a.x);
+  const float ty = __fsub_rn(ray.oy, a.y);
+  const float tz = __fsub_rn(ray.oz, a.z);
+  const float u = __fmul_rn(dot3(tx, ty, tz, px, py, pz), invd);
+  if (!(u >= 0.f && u <= 1.f)) return false;
+  const float qx = crs(ty, e1z, tz, e1y);
+  const float qy = crs(tz, e1x, tx, e1z);
+  const float qz = crs(tx, e1y, ty, e1x);
+  const float v = __fmul_rn(dot3(ray.dx, ray.dy, ray.dz, qx, qy, qz), invd);
+  if (!(v >= 0.f && __fadd_rn(u, v) <= 1.f)) return false;
+  const float tt = __fmul_rn(dot3(e2x, e2y, e2z, qx, qy, qz), invd);
+  if (!(tt > 0.f && c.y >= 0.f)) return false;
+  *t = tt;
+  return true;
+}
+
+template <bool kMT>
 __global__ void __launch_bounds__(kGate)
 plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
                    const int* __restrict__ bits,
                    const float4* __restrict__ rows,
+                   const float* __restrict__ orig_t,
                    const float* __restrict__ dir_t,
                    const float* __restrict__ t0, float* __restrict__ best_t,
                    int* __restrict__ best_slot, int* __restrict__ stats,
@@ -83,11 +159,19 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
 
   const int g = blockIdx.x;
   const int lane = threadIdx.x;
-  const int ray = g * kGate + lane;
-  const float dx = dir_t[ray];
-  const float dy = dir_t[n_rays + ray];
-  const float dz = dir_t[2 * n_rays + ray];
-  const float t0r = t0[ray];
+  const int ray_i = g * kGate + lane;
+  Ray ray;
+  ray.dx = dir_t[ray_i];
+  ray.dy = dir_t[n_rays + ray_i];
+  ray.dz = dir_t[2 * n_rays + ray_i];
+  if (kMT) {
+    ray.ox = orig_t[ray_i];
+    ray.oy = orig_t[n_rays + ray_i];
+    ray.oz = orig_t[2 * n_rays + ray_i];
+  } else {
+    ray.ox = ray.oy = ray.oz = 0.f;  // folded into the SO records
+  }
+  const float t0r = t0[ray_i];
   const int win_tris = win_rows * 8;
   const float* gkey = key + (size_t)g * list_len;
   const int* gsid = sid + (size_t)g * list_len;
@@ -109,17 +193,11 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
         win[i] = rows[(rec0 + i / kUsedF4) * kRecF4 + i % kUsedF4];
       __syncthreads();
       for (int r = 0; r < win_tris; ++r) {
-        // p = (ab.x, ab.y, ab.z, bc.x), q = (bc.y, bc.z, ca.x, ca.y),
-        // w = (ca.z, d0, tri_id, 0)
         const float4 p = win[r * kUsedF4];
         const float4 q = win[r * kUsedF4 + 1];
         const float4 w = win[r * kUsedF4 + 2];
-        const float s1 = dot3(dx, dy, dz, p.x, p.y, p.z);
-        const float s2 = dot3(dx, dy, dz, p.w, q.x, q.y);
-        const float s3 = dot3(dx, dy, dz, q.z, q.w, w.x);
-        const float dsum = __fadd_rn(__fadd_rn(s1, s2), s3);
-        if (fmaxf(fmaxf(s1, s2), s3) <= 0.f && dsum < 0.f && w.y < 0.f) {
-          const float tt = __fdiv_rn(w.y, dsum);
+        float tt;
+        if (kMT ? mt_hit(ray, p, q, w, &tt) : so_hit(ray, p, q, w, &tt)) {
           const int slot = (int)(rec0 + r);
           if (tt < bt || (tt == bt && slot < bs)) {
             bt = tt;
@@ -134,8 +212,8 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
     ++j;
     alive = j < list_len && gkey[j] <= tup;
   }
-  best_t[ray] = bt;
-  best_slot[ray] = bt < kBig ? bs : -1;
+  best_t[ray_i] = bt;
+  best_slot[ray_i] = bt < kBig ? bs : -1;
   if (lane == 0) {
     int* st = stats + 5 * g;  // the JAX tile_stats[::8, :5] columns
     st[0] = 0;
@@ -146,10 +224,26 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
   }
 }
 
+template <bool kMT>
+int launch(const void* key, const void* sid, const void* bits,
+           const void* rows, const void* orig_t, const void* dir_t,
+           const void* t0, void* best_t, void* best_slot, void* stats,
+           int n_gates, int list_len, int win_rows, void* stream) {
+  const size_t smem = (size_t)win_rows * 8 * kUsedF4 * sizeof(float4);
+  plist_super_kernel<kMT><<<n_gates, kGate, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(key), static_cast<const int*>(sid),
+      static_cast<const int*>(bits), static_cast<const float4*>(rows),
+      static_cast<const float*>(orig_t), static_cast<const float*>(dir_t),
+      static_cast<const float*>(t0), static_cast<float*>(best_t),
+      static_cast<int*>(best_slot), static_cast<int*>(stats),
+      n_gates * kGate, list_len, win_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// key/sid/bits: [n_gates, list_len] f32/i32/i32, each gate's entries sorted
-// by key; rows: [S, 16] f32 SO records; dir_t: [3, n_gates*512] f32;
+// K1. key/sid/bits: [n_gates, list_len] f32/i32/i32, each gate's entries
+// sorted by key; rows: [S, 16] f32 SO records; dir_t: [3, n_gates*512] f32;
 // t0: [n_gates*512] f32. Outputs best_t [N] f32, best_slot [N] i32 (-1 on a
 // miss), stats [n_gates, 5] i32. Returns cudaGetLastError() after the
 // launch; a refused launch (resources, configuration) shows only there.
@@ -159,12 +253,19 @@ extern "C" int plist_super_launch(const void* key, const void* sid,
                                   void* best_t, void* best_slot, void* stats,
                                   int n_gates, int list_len, int win_rows,
                                   void* stream) {
-  const size_t smem = (size_t)win_rows * 8 * kUsedF4 * sizeof(float4);
-  plist_super_kernel<<<n_gates, kGate, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(key), static_cast<const int*>(sid),
-      static_cast<const int*>(bits), static_cast<const float4*>(rows),
-      static_cast<const float*>(dir_t), static_cast<const float*>(t0),
-      static_cast<float*>(best_t), static_cast<int*>(best_slot),
-      static_cast<int*>(stats), n_gates * kGate, list_len, win_rows);
-  return (int)cudaGetLastError();
+  return launch<false>(key, sid, bits, rows, nullptr, dir_t, t0, best_t,
+                       best_slot, stats, n_gates, list_len, win_rows, stream);
+}
+
+// K1'. As plist_super_launch, with rows the raw [S, 16] triangle records
+// (v0, e1, e2, tri_id) and orig_t [3, n_gates*512] f32 per-lane origins.
+extern "C" int plist_super_mt_launch(const void* key, const void* sid,
+                                     const void* bits, const void* rows,
+                                     const void* orig_t, const void* dir_t,
+                                     const void* t0, void* best_t,
+                                     void* best_slot, void* stats,
+                                     int n_gates, int list_len, int win_rows,
+                                     void* stream) {
+  return launch<true>(key, sid, bits, rows, orig_t, dir_t, t0, best_t,
+                      best_slot, stats, n_gates, list_len, win_rows, stream);
 }

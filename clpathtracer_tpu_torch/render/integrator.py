@@ -1,13 +1,27 @@
 """The rendering integrator: scene + camera -> image (the slice's part of
 clpathtracer_tpu/render/integrator.py).
 
-This slice renders the primary-ray frame in normal mode: pinhole rays,
-the prepass-list engine (ops/plist.py::traverse_plist) on the scene's
-windows, and normals-as-color shading, with miss -> background. Anything
-else raises NotImplementedError naming the ROADMAP queue-1 item that
-ports it; nothing quietly takes another route. Unlike the JAX package,
-the route needs no kd-tree: it takes the windows (MortonWindows with
-shared-origin tables and fused resolve rows attached) directly.
+Three shading modes, all on the prepass-list engine (ops/plist.py) over
+the scene's windows:
+
+* "normal": pinhole rays, first hit -> normals as color, miss ->
+  background.
+* "mirror": the reference's mirror bounces (src/kernel.cl:399-417):
+  blend col = (1 - str) col + str normal_color, str *= 0.2, reflect with a
+  BOUNCE_EPS origin offset; a miss or the last bounce blends toward the
+  background.
+* "path": Lambertian path tracing without next-event estimation:
+  emission of front faces and the background on a miss, weighted by the
+  throughput; cosine-sampled bounces; spp > 1 averages jittered samples.
+
+Primary waves are shared-origin pixel gates (traverse_plist, kernel K1);
+bounce waves are Morton-sorted into 512-ray bundles
+(traverse_plist_bundle, kernel K1'). Random numbers come from the caller
+or from a torch.Generator (torch cannot reproduce jax.random's streams).
+Anything else raises NotImplementedError naming the ROADMAP queue-1 item
+that ports it; nothing quietly takes another route. Unlike the JAX
+package, the routes need no kd-tree: they take the windows (MortonWindows
+with shared-origin tables and fused resolve rows attached) directly.
 """
 
 from __future__ import annotations
@@ -16,9 +30,21 @@ import dataclasses
 
 import torch
 
-from clpathtracer_tpu_torch.core.camera import cam_matrix, generate_rays
-from clpathtracer_tpu_torch.ops.plist import GH, GW, traverse_plist
-from clpathtracer_tpu_torch.render.shading import normal_color
+from clpathtracer_tpu_torch.core import vecmath as vm
+from clpathtracer_tpu_torch.core.camera import (cam_matrix, generate_rays,
+                                                generate_rays_jittered)
+from clpathtracer_tpu_torch.ops.plist import (GH, GW, traverse_plist,
+                                              traverse_plist_bundle)
+from clpathtracer_tpu_torch.ops.sort import sort_rays
+from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
+                                                   normal_color)
+
+MODES = ("normal", "mirror", "path")
+# subpixel jitter bound of spp > 1 samples: jitter is < 1 px, the corner-
+# lane hull under-covers a gate by < 1 px per side, plus 1 px of slack
+JITTER_PX = 3.0
+BOUNCE_EPS = 1e-4  # bounce origin offset along the new direction or normal
+                   # (src/kernel.cl:401)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,20 +54,22 @@ class RenderOptions:
     width: int = 256
     height: int = 256
     mode: str = "normal"       # normal | mirror | path
-    spp: int = 1               # samples per pixel
+    bounces: int = 2           # the reference launches trace_ray(depth=2)
+    spp: int = 1               # samples per pixel (path mode)
     background: float = 1.0    # miss shade
+    nee: bool = False          # path mode: next-event estimation
     differentiable: bool = False
     edge_aware: bool = False
 
 
 def _check_supported(scene, opts: RenderOptions, mwin) -> None:
     """Raise NotImplementedError for what this slice does not carry."""
+    if opts.mode not in MODES:
+        raise ValueError(f"unknown mode {opts.mode!r}")
     todo = None
-    if opts.mode != "normal":
-        todo = (f"mode {opts.mode!r}: mirror mode is ROADMAP queue 1 item "
-                "12, path mode item 10")
-    elif opts.spp != 1:
-        todo = f"spp={opts.spp}: jittered primaries are queue 1 item 9"
+    if opts.mode == "path" and opts.nee:
+        todo = ("next-event estimation (shadow rays through the grid DDA or "
+                "the kd rope walk) is queue 1 item 10")
     elif opts.differentiable or opts.edge_aware:
         todo = "differentiable / edge-aware rendering is queue 1 item 14"
     elif scene.num_spheres:
@@ -57,13 +85,35 @@ def _check_supported(scene, opts: RenderOptions, mwin) -> None:
         raise NotImplementedError(f"not ported yet: {todo}")
 
 
-def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions):
-    """Nearest hit of shared-origin pixel-grid primary rays: the plist
-    branch. Returns hit [N], t [N], tri [N], u/v [N] and the fused shade
-    attributes snormal/salbedo/semission [N, 3]."""
-    rec = traverse_plist(mwin, orig, dir, (opts.height, opts.width))
-    return {k: rec[k] for k in ("hit", "t", "tri", "u", "v", "snormal",
-                                "salbedo", "semission")}
+_REC_KEYS = ("hit", "t", "tri", "u", "v", "snormal", "salbedo", "semission")
+
+
+def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
+                    coherent: bool = True, active=None,
+                    jitter_px: float = 0.0):
+    """Nearest hit. Returns hit [N], t [N], tri [N], u/v [N] and the fused
+    shade attributes snormal/salbedo/semission [N, 3].
+
+    coherent: the wave is the frame's shared-origin pixel-grid primaries
+    (jittered by up to jitter_px pixels): the gate route. Otherwise the
+    wave is scattered: it is Morton-sorted (dead lanes, active False, to
+    the tail), traced in 512-ray bundles and put back in wave order."""
+    if coherent:
+        rec = traverse_plist(mwin, orig, dir, (opts.height, opts.width),
+                             dilate_px=jitter_px)
+        return {k: rec[k] for k in _REC_KEYS}
+    inv, orig, dir, active = sort_wave(orig, dir, active)
+    rec = traverse_plist_bundle(mwin, orig, dir, active=active)
+    return {k: rec[k][inv] for k in _REC_KEYS}
+
+
+def sort_wave(orig, dir, active=None):
+    """Morton-sort a scattered wave into bundle order, dead lanes to the
+    tail: (inv, orig, dir, active) with the rays, and the mask if given, in
+    that order; rec[inv] puts a bundle-order record back in wave order."""
+    perm, inv = sort_rays(orig, dir, alive=active)
+    return (inv, orig[perm], dir[perm],
+            None if active is None else active[perm])
 
 
 def _surface(scene, rec, orig, dir):
@@ -81,16 +131,154 @@ def shade_normal(scene, mwin, orig, dir, opts: RenderOptions):
                        opts.background)
 
 
-def render_rays(scene, mwin, orig, dir, opts: RenderOptions):
+def mirror_wave(rec, orig, dir, alive):
+    """The next wave of a mirror bounce: (hit, orig, dir). Lanes that were
+    alive and hit reflect about the shading normal from the hit point
+    offset by BOUNCE_EPS along the new direction; the others keep their
+    ray. hit is the next wave's live mask."""
+    point, normal, _, _ = _surface(None, rec, orig, dir)
+    hit = rec["hit"] & alive
+    newdir = vm.reflect(dir, normal)
+    return (hit,
+            torch.where(hit[:, None], point + newdir * BOUNCE_EPS, orig),
+            torch.where(hit[:, None], newdir, dir))
+
+
+def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions):
+    """The reference's intended mirror-bounce shading. Per bounce
+    (src/kernel.cl:399-417): col = (1-str) col + str normal_color;
+    str *= 0.2; reflect about the normal (mirror_wave). On a miss or after
+    the last bounce: col = (1-str) col + str background."""
+    n = orig.shape[0]
+    col = torch.zeros((n, 3), device=orig.device)
+    strength = torch.ones((n,), device=orig.device)
+    alive = torch.ones((n,), dtype=torch.bool, device=orig.device)
+    o, d = orig, dir
+    for b in range(opts.bounces):
+        rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
+                              active=None if b == 0 else alive)
+        hit, o, d = mirror_wave(rec, o, d, alive)
+        st = strength[:, None]
+        col = torch.where(hit[:, None], (1.0 - st) * col
+                          + st * normal_color(rec["snormal"]), col)
+        strength = torch.where(hit, strength * 0.2, strength)
+        # rays that were alive but missed: blend toward the background
+        missed = alive & ~rec["hit"]
+        col = torch.where(missed[:, None],
+                          (1.0 - st) * col + st * opts.background, col)
+        alive = hit
+    # the last bounce's still-alive rays (the reference's depth == 0 branch)
+    st = strength[:, None]
+    return torch.where(alive[:, None],
+                       (1.0 - st) * col + st * opts.background, col)
+
+
+def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
+               jitter_px: float = 0.0):
+    """Lambertian path tracing with emissive surfaces, without NEE:
+    radiance += throughput * emission at each front-face hit and
+    throughput * background on a miss; throughput *= albedo; the next
+    direction is cosine-sampled about the shading normal, flipped to face
+    the incoming ray. bounce_u: [bounces, N, 2] uniforms in [0, 1), one
+    pair per lane and bounce."""
+    n = orig.shape[0]
+    dev = orig.device
+    radiance = torch.zeros((n, 3), device=dev)
+    throughput = torch.ones((n, 3), device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    o, d = orig, dir
+    for b in range(opts.bounces):
+        rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
+                              active=None if b == 0 else alive,
+                              jitter_px=jitter_px if b == 0 else 0.0)
+        point, normal, albedo, emission = _surface(scene, rec, o, d)
+        # one-sided emitters: front faces only
+        cos_in = vm.dot(normal, d)
+        front = cos_in < 0.0
+        normal = torch.where(cos_in[:, None] > 0, -normal, normal)
+        hit = rec["hit"] & alive
+        radiance = radiance + torch.where((hit & front)[:, None],
+                                          throughput * emission, 0.0)
+        missed = alive & ~rec["hit"]
+        radiance = radiance + torch.where(
+            missed[:, None], throughput * opts.background, 0.0)
+        alive = hit
+        throughput = torch.where(hit[:, None], throughput * albedo,
+                                 throughput)
+        u12 = bounce_u[b]
+        newdir = cosine_sample_hemisphere(normal, u12[:, 0], u12[:, 1])
+        o = torch.where(hit[:, None], point + normal * BOUNCE_EPS, o)
+        d = torch.where(hit[:, None], newdir, d)
+    return radiance
+
+
+def render_rays(scene, mwin, orig, dir, opts: RenderOptions, bounce_u=None,
+                jitter_px: float = 0.0):
+    """Shade a wave of the frame's primary rays. bounce_u: path mode's
+    [bounces, N, 2] uniforms; jitter_px: the primaries' jitter bound."""
     _check_supported(scene, opts, mwin)
-    return shade_normal(scene, mwin, orig, dir, opts)
+    if opts.mode == "normal":
+        return shade_normal(scene, mwin, orig, dir, opts)
+    if opts.mode == "mirror":
+        return shade_mirror(scene, mwin, orig, dir, opts)
+    if bounce_u is None:
+        raise ValueError("path mode needs its bounce uniforms (bounce_u)")
+    return shade_path(scene, mwin, orig, dir, opts, bounce_u,
+                      jitter_px=jitter_px)
 
 
-def render_image(scene, camera, opts: RenderOptions, mwin=None):
+def path_draws(opts: RenderOptions, generator: torch.Generator, device):
+    """The random numbers of a path-mode frame: (jitter [S, N, 2] or None,
+    bounce [S, bounces, N, 2]), uniforms in [0, 1), with S = spp when
+    spp > 1 (jittered samples) and 1 otherwise (pixel-grid rays)."""
+    n = opts.width * opts.height
+    s = opts.spp if opts.spp > 1 else 1
+    jitter = (torch.rand((s, n, 2), generator=generator, device=device)
+              if opts.spp > 1 else None)
+    bounce = torch.rand((s, opts.bounces, n, 2), generator=generator,
+                        device=device)
+    return jitter, bounce
+
+
+def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
+                 generator: torch.Generator = None, jitter=None, bounce=None):
     """Render an [H, W, 3] image. mwin: the scene's MortonWindows with
     shared-origin tables and fused resolve rows attached
-    (ops/plist.py::build_morton_windows, attach_so, attach_resolve)."""
+    (ops/plist.py::build_morton_windows, attach_so, attach_resolve).
+
+    Path mode draws its random numbers from `generator` (default: a
+    generator on the camera's device seeded 0), or takes them as given:
+    jitter [spp, H*W, 2] (spp > 1 only) and bounce [S, bounces, H*W, 2]
+    (path_draws). spp > 1 averages that many jittered samples; other modes
+    render one pixel-grid sample whatever spp is."""
+    _check_supported(scene, opts, mwin)
+    device = camera.position.device
     cam_inv = cam_matrix(camera, opts.height)
-    orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-    img = render_rays(scene, mwin, orig, dir, opts)
-    return img.reshape(opts.height, opts.width, 3)
+    shape = (opts.height, opts.width, 3)
+    if opts.mode != "path":
+        orig, dir = generate_rays(cam_inv, opts.width, opts.height)
+        return render_rays(scene, mwin, orig, dir, opts).reshape(shape)
+    if bounce is None:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        jitter, bounce = path_draws(opts, generator, device)
+    n = opts.width * opts.height
+    s = opts.spp if opts.spp > 1 else 1
+    if tuple(bounce.shape) != (s, opts.bounces, n, 2) or (
+            s > 1 and (jitter is None or tuple(jitter.shape) != (s, n, 2))):
+        raise ValueError(
+            f"path draws: bounce {tuple(bounce.shape)}, jitter "
+            f"{None if jitter is None else tuple(jitter.shape)}; want "
+            f"{(s, opts.bounces, n, 2)} and, for spp > 1, {(s, n, 2)}")
+    if s == 1:
+        orig, dir = generate_rays(cam_inv, opts.width, opts.height)
+        img = render_rays(scene, mwin, orig, dir, opts, bounce[0])
+    else:
+        samples = []
+        for i in range(s):
+            o, d = generate_rays_jittered(cam_inv, opts.width, opts.height,
+                                          jitter[i:i + 1])
+            samples.append(render_rays(scene, mwin, o[0], d[0], opts,
+                                       bounce[i], jitter_px=JITTER_PX))
+        img = torch.stack(samples).mean(dim=0)
+    return img.reshape(shape)

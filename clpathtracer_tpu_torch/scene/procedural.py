@@ -12,6 +12,29 @@ import numpy as np
 from clpathtracer_tpu_torch.scene.scene import Scene
 
 
+def random_tri_soup(num_tris: int, seed: int = 0, extent: float = 10.0,
+                    tri_size: float = 0.05, emissive_frac: float = 0.0, *,
+                    device) -> Scene:
+    """num_tris random small triangles in a [-extent, extent]^3 cube: the
+    adversarial "fog" scene. emissive_frac > 0 marks that fraction of the
+    triangles as emitters (emission 5)."""
+    r = np.random.default_rng(seed)
+    centers = r.uniform(-extent, extent, size=(num_tris, 3)).astype(np.float32)
+    offsets = r.normal(scale=tri_size * extent,
+                       size=(num_tris, 3, 3)).astype(np.float32)
+    verts = (centers[:, None, :] + offsets).reshape(-1, 3)
+    idx = np.arange(num_tris * 3, dtype=np.int32).reshape(num_tris, 3)
+    f = np.full((num_tris, 3, 3), -1, np.int32)
+    f[:, :, 0] = idx
+    emission = None
+    if emissive_frac > 0:
+        emission = np.zeros((num_tris, 3), np.float32)
+        n_lit = max(1, int(num_tris * emissive_frac))
+        lit = r.choice(num_tris, n_lit, replace=False)
+        emission[lit] = 5.0
+    return Scene.create(verts, f, emission=emission, device=device)
+
+
 def terrain_mesh(num_tris: int, seed: int = 0, extent: float = 10.0,
                  relief: float = 2.5, emissive_frac: float = 0.0, *,
                  device) -> Scene:

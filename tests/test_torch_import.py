@@ -36,6 +36,12 @@ img = render_image(scene, cam, RenderOptions(width=32, height=32), mwin)
 assert img.shape == (32, 32, 3) and bool(torch.isfinite(img).all())
 hit = (img < 1.0).any(dim=-1)
 assert 0 < int(hit.sum()) < 32 * 32
+mirror = render_image(scene, cam,
+                      RenderOptions(width=32, height=32, mode="mirror"), mwin)
+assert bool(torch.isfinite(mirror).all())
+# a mirror bounce off the near triangle leaves the scene (white blend)
+assert bool((mirror[hit] != img[hit]).any())
+assert torch.equal(mirror[~hit], img[~hit])
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax")
                for m in sys.modules if sys.modules[m] is not None)
 print("rendered", int(hit.sum()))

@@ -68,10 +68,13 @@ def test_outside_the_slice_raises(port_scene, case):
     scene, mwin = port_scene
     cam = Camera.create(POS, FWD, device=CPU)
     opts = dict(width=64, height=64)
-    if case in ("mirror", "path"):
-        opts["mode"] = case
-    elif case == "spp":
-        opts["spp"] = 2
+    if case == "mirror":       # without windows: queue 1 items 12-13
+        opts.update(mode="mirror")
+        mwin = None
+    elif case == "path":       # next-event estimation: queue 1 item 10
+        opts.update(mode="path", nee=True)
+    elif case == "spp":        # jittered samples with NEE
+        opts.update(mode="path", spp=2, nee=True)
     elif case in ("differentiable", "edge_aware"):
         opts[case] = True
     elif case == "spheres":
@@ -86,11 +89,15 @@ def test_outside_the_slice_raises(port_scene, case):
 
 
 def test_traverse_plist_without_tables_raises(port_scene):
+    """Without shared-origin tables the gates run K1' on the raw records
+    (the same image up to edge flips and tie winners); without fused
+    resolve rows the render raises."""
     scene, mwin = port_scene
     cam = Camera.create(POS, FWD, device=CPU)
-    with pytest.raises(NotImplementedError):
-        render_image(scene, cam, RenderOptions(width=64, height=64),
-                     mwin.replace(so_base=None))
+    opts = RenderOptions(width=64, height=64)
+    so = render_image(scene, cam, opts, mwin).numpy()
+    mt = render_image(scene, cam, opts, mwin.replace(so_base=None)).numpy()
+    assert (np.abs(mt - so).max(axis=-1) > 1e-5).mean() < 1.5e-2
     with pytest.raises(NotImplementedError):
         render_image(scene, cam, RenderOptions(width=64, height=64),
                      mwin.replace(resolve_rows=None))
