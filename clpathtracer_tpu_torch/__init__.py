@@ -6,12 +6,15 @@ It imports torch and numpy, never jax or flax. Every function takes its
 device from its tensor arguments or from an explicit `device` argument;
 nothing picks a device on its own.
 
-It covers normal, mirror and path (no NEE) rendering on the window
-engine: pinhole or jittered primary rays through the gate prepass and the
-super-list kernel's shared-origin form, Morton-sorted bounce bundles
-through the bundle prepass and its general Moller-Trumbore form
-(ops/csrc/plist_super.cu on the GPU, the plain torch versions on the
-CPU), fused winner resolution and the modes' shading.
+It covers normal, mirror and path (no NEE) rendering on two routes. The
+window engine: pinhole or jittered primary rays through the gate prepass
+and the super-list kernel's shared-origin form, Morton-sorted bounce
+bundles through the bundle prepass and its general Moller-Trumbore form
+(ops/csrc/plist_super.cu), fused winner resolution. The kd-tree stream
+engine: the native SAH builder (accel/native, accel/sah.py), packet tiles
+through the strip prepass or window AABB culls and the stream kernel
+(ops/csrc/packet_stream.cu), resolve_tri_hits. The kernels run as CUDA on
+the GPU and as their plain torch versions on the CPU.
 """
 
 from clpathtracer_tpu_torch.core.camera import Camera

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from clpathtracer_tpu_torch.accel.sah import CHUNK_ROWS, FlatKdTree
 from clpathtracer_tpu_torch.core.camera import Camera
 from clpathtracer_tpu_torch.ops.plist import MortonWindows
 from clpathtracer_tpu_torch.scene.scene import Scene
@@ -49,6 +50,40 @@ def windows_from_numpy(tris128, win_bnd, so_base, resolve_rows, slot_of_tri,
                       dev(np.asarray(resolve_rows, np.float32)
                           .reshape(-1, 32)[:s])),
         win_rows=int(win_rows))
+
+
+def tree_from_numpy(node_table, tri_indices, quads, chunk_start, chunk_bnd,
+                    so_base, max_leaf_tris: int, *, device) -> FlatKdTree:
+    """FlatKdTree from clpathtracer_tpu.accel.sah.FlatKdTree's arrays:
+    node_table [M, 24], tri_indices [T], quads [T/4, 64], chunk_start [M],
+    chunk_bnd [ceil(W/16), 128] (8 lanes per window, padded to whole rows
+    of 16 windows), so_base [4, R, 128] or None."""
+    table = np.array(node_table, np.float32)
+    flags = table[:, 7].astype(np.int32)
+    leaf_start = table[:, 10].astype(np.int32) * 4
+    leaf_count = table[:, 11].astype(np.int32)
+    # the window count W: the leaves' windows on the clamped grid
+    row0 = leaf_start // 8
+    row_end = (leaf_start + leaf_count + 7) // 8
+    n_win = int(np.where((flags >= 4) & (leaf_count > 0),
+                         (row_end - row0 + CHUNK_ROWS - 1) // CHUNK_ROWS,
+                         0).sum())
+
+    def dev(x):  # a writable contiguous copy: JAX's host views are read-only
+        return torch.as_tensor(np.array(x), device=device)
+    return FlatKdTree(
+        node_table=dev(table),
+        tri_indices=dev(np.asarray(tri_indices, np.int32)),
+        node_min=dev(table[:, 0:3]), node_max=dev(table[:, 3:6]),
+        is_leaf=dev(flags >= 4), leaf_start=dev(leaf_start),
+        leaf_count=dev(leaf_count),
+        tris=dev(np.asarray(quads, np.float32).reshape(-1, 16)),
+        chunk_start=dev(np.asarray(chunk_start, np.int32)),
+        chunk_bnd=dev(np.asarray(chunk_bnd, np.float32)
+                      .reshape(-1, 8)[:n_win, :6]),
+        so_base=(None if so_base is None else dev(
+            np.asarray(so_base, np.float32).reshape(4, -1, 16))),
+        max_leaf_tris=int(max_leaf_tris))
 
 
 def camera_from_numpy(position, forward, fov, near, far, *,

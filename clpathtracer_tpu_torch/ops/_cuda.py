@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every ops/csrc/*.cu is compiled by nvcc for sm_90a (Hopper) into one
-shared library with a plain C interface, which is bound with ctypes.
-The library goes to clpathtracer_tpu_torch/_build/<hash>/, keyed by a
-hash of the sources and the flags, so a changed source is rebuilt and an
+Every ops/csrc/*.cu is compiled by its own nvcc process for sm_90a
+(Hopper), all of them started together, into one shared library per
+source with a plain C interface, bound with ctypes. A library goes to
+clpathtracer_tpu_torch/_build/<hash>/, keyed by a hash of its source, the
+shared headers and the flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is. Nothing is downloaded: the build uses
 the repository's sources and the installed CUDA toolkit only.
 """
@@ -22,7 +23,6 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-LIB_NAME = "libclpt_kernels.so"
 
 # --fmad=false: no multiply-add contraction, so the kernels round every
 # product and sum as the plain torch versions do and match them exactly.
@@ -33,14 +33,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: every one returns cudaGetLastError() after its launch
+# C entry points by source: every one returns cudaGetLastError() after its
+# launch
 SIGNATURES = {
-    # key, sid, bits, rows, dir_t, t0, best_t, best_slot, stats,
-    # n_gates, list_len, win_rows, stream
-    "plist_super_launch": [_P] * 9 + [_I] * 3 + [_P],
-    # key, sid, bits, rows, orig_t, dir_t, t0, best_t, best_slot, stats,
-    # n_gates, list_len, win_rows, stream
-    "plist_super_mt_launch": [_P] * 10 + [_I] * 3 + [_P],
+    "plist_super": {
+        # key, sid, bits, rows, dir_t, t0, best_t, best_slot, stats,
+        # n_gates, list_len, win_rows, stream
+        "plist_super_launch": [_P] * 9 + [_I] * 3 + [_P],
+        # key, sid, bits, rows, orig_t, dir_t, t0, best_t, best_slot, stats,
+        # n_gates, list_len, win_rows, stream
+        "plist_super_mt_launch": [_P] * 10 + [_I] * 3 + [_P],
+    },
+    "packet_stream": {
+        # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, frustum, masks,
+        # ten, best_t, best_slot, stats, n_rays, tile, n_rows, n_windows,
+        # mode, n_strips, so, stream
+        "packet_stream_launch": [_P] * 13 + [_I] * 7 + [_P],
+    },
 }
 
 
@@ -50,9 +59,9 @@ class KernelBuildError(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class KernelLibrary:
-    lib: ctypes.CDLL
-    path: Path
-    build_seconds: float   # 0.0 when an existing build was loaded
+    fns: dict              # C entry name -> bound ctypes function
+    paths: tuple           # the shared libraries, one per source
+    build_seconds: float   # wall time of the parallel build (0.0: none)
     build_log: str         # nvcc's output ("" when nothing was built)
 
 
@@ -68,44 +77,60 @@ def find_nvcc():
     return None
 
 
-def _source_hash(sources) -> str:
+def _lib_path(src: Path, headers) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return h.hexdigest()[:16]
+    for f in (src, *headers):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16] / f"lib{src.stem}.so"
 
 
 @functools.lru_cache(maxsize=None)
 def load_kernels() -> KernelLibrary:
-    """Build (if needed) and load the kernel library. Raises
-    KernelBuildError with the compiler's stderr when the build fails."""
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+    """Build what is missing (one nvcc per source, in parallel) and load
+    the libraries. Raises KernelBuildError with the compiler's stderr when
+    a build fails."""
     headers = sorted(CSRC_DIR.glob("*.cuh"))
-    out = BUILD_DIR / _source_hash(sources + headers) / LIB_NAME
+    outs = {stem: _lib_path(CSRC_DIR / f"{stem}.cu", headers)
+            for stem in SIGNATURES}
+    missing = {s: p for s, p in outs.items() if not p.is_file()}
     seconds, log = 0.0, ""
-    if not out.is_file():
+    if missing:
         nvcc = find_nvcc()
         if nvcc is None:
             raise KernelBuildError(
                 "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin):"
                 " the CUDA kernels of clpathtracer_tpu_torch are compiled "
                 f"from {CSRC_DIR} at first use and need the CUDA toolkit")
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = {}
+        for stem, out in missing.items():
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{stem}.cu")]
+            procs[stem] = (cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for stem, (cmd, tmp, proc) in procs.items():
+            text, _ = proc.communicate()
+            log += text
+            if proc.returncode != 0:
+                failed.append(f"nvcc exited with {proc.returncode}:\n"
+                              f"{' '.join(cmd)}\n{text}")
+            else:
+                os.replace(tmp, missing[stem])
         seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc exited with {proc.returncode}:\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return KernelLibrary(lib=lib, path=out, build_seconds=seconds,
-                         build_log=log)
+        if failed:
+            raise KernelBuildError("\n".join(failed))
+    fns = {}
+    for stem, entries in SIGNATURES.items():
+        lib = ctypes.CDLL(str(outs[stem]))
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return KernelLibrary(fns=fns, paths=tuple(outs.values()),
+                         build_seconds=seconds, build_log=log)

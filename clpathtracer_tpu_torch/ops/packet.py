@@ -1,17 +1,64 @@
-"""Shared-origin tables, gate frustum planes and pixel-block layout.
+"""Packet tracing of coherent ray tiles against a kd-tree (the port's part
+of clpathtracer_tpu/ops/packet.py): the stream engine, its host and
+prepass code, and the shared-origin tables, gate frustum planes and
+pixel-block layouts that the window engine (ops/plist.py) shares.
 
-The slice's part of clpathtracer_tpu/ops/packet.py, in plain torch on the
-tensors' device.
+traverse_packet cuts a wave into tiles of `tile` rays (square or 1:2 pixel
+blocks of a frame, else consecutive rays) and runs K3 on them: one
+interval walk of the kd-tree per tile, leaf triangles streamed in windows
+of 128 records, each window culled before its dense test by one of
+
+* the strip prepass (_strip_masks: per-strip slab and corner-frustum
+  tests of every window, on the device, as torch ops) for unjittered
+  shared-origin pixel frames;
+* the packet interval against the window's AABB, with the tile's corner
+  frustum planes for shared-origin pixel tiles;
+* nothing, without window tables.
+
+K3 is CUDA on the GPU (ops/csrc/packet_stream.cu, packet_stream) and its
+plain version (packet_stream_reference) on the CPU. The winners re-resolve
+t/u/v with one exact Moller-Trumbore per ray. The JAX package's other
+engines (queue, legacy, stream2, mxu, wide) and its bf16 preview raise
+NotImplementedError naming their kernels; its TPU scalar-memory packing
+(6-bit window counts, the 900 KB budget) and its environment switches are
+not ported: the culls are explicit arguments at the JAX defaults.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
+from clpathtracer_tpu_torch.accel.sah import CHUNK_ROWS
 from clpathtracer_tpu_torch.core import vecmath as vm
 
 BIG = 3.4e38        # "no hit" distance (f32-representable)
 INV_BIG = 1e30      # clamp for 1/d of a zero direction component
+TILE = 1024         # default rays per packet tile
+STACK_DEPTH = 128   # entries of the walk's stack
+TUP_MASK = 3        # t_upper refreshes after a leaf on every 4th pop
+GATE_LANES = 512    # half-gate mode: the dense test runs per 512-lane gate
+_WIN_RECS = CHUNK_ROWS * 8
+_INT_MAX = torch.iinfo(torch.int32).max
+# (ray, record) pairs per dense step of the plain K3: bounds its
+# temporaries to a few hundred MB
+_REF_PAIRS = 1 << 22
+# kernel modes (ops/csrc/packet_stream.cu)
+_NO_CULL, _CULL, _CULL_FRUSTUM, _STRIPS = range(4)
+# engines of the JAX package's packet_mode that are not ported yet, by the
+# kernel they run
+_OTHER_ENGINES = {"queue": "K5 (_kernel_queue, _kernel_queue_smem)",
+                  "legacy": "K6 (_kernel, _kernel_tri_stream)",
+                  "stream2": "K7 (_kernel_stream2)",
+                  "mxu": "K8 (_kernel_mxu)",
+                  "wide": "K9 (_kernel_wide)"}
+
+
+# ---------------------------------------------------------------------------
+# shared-origin tables
+# ---------------------------------------------------------------------------
 
 
 def so_affine_tables(tris16: torch.Tensor) -> torch.Tensor:
@@ -76,6 +123,177 @@ def so_combine(so_base: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
             + origin[1] * so_base[2] + origin[2] * so_base[3])
 
 
+def pad_records(tris16: torch.Tensor, pad_value: float = -1.0):
+    """Records [T, 16] padded with rows of `pad_value` to a multiple of 8
+    and to at least CHUNK_ROWS*8 rows, so that every window of the clamped
+    grid lies inside (clpathtracer_tpu/ops/packet.py::_pad_rows8, without
+    its fold into 128-lane rows). -1 rows have tri_id < 0; 0 rows are
+    rejected by the SO test's strict d.n < 0."""
+    t_rows = tris16.shape[0]
+    target = max((t_rows + 7) // 8 * 8, CHUNK_ROWS * 8)
+    if target == t_rows:
+        return tris16
+    return torch.cat([tris16, torch.full((target - t_rows, 16), pad_value,
+                                         dtype=tris16.dtype,
+                                         device=tris16.device)])
+
+
+# ---------------------------------------------------------------------------
+# pair tests of the plain kernel versions
+# ---------------------------------------------------------------------------
+
+
+def so_pairs(r, dx, dy, dz):
+    """The shared-origin signed-volume pair test
+    (clpathtracer_tpu/ops/packet.py::_mt_chunk_math_so, its order of
+    operations) over broadcast shapes: r [..., >= 10] SO records, dx/dy/dz
+    direction components. Returns (ok, t) with t = BIG where rejected."""
+    s1 = dx * r[..., 0] + dy * r[..., 1] + dz * r[..., 2]
+    s2 = dx * r[..., 3] + dy * r[..., 4] + dz * r[..., 5]
+    s3 = dx * r[..., 6] + dy * r[..., 7] + dz * r[..., 8]
+    dsum = s1 + s2 + s3
+    d0 = r[..., 9]
+    ok = ((torch.maximum(torch.maximum(s1, s2), s3) <= 0.0)
+          & (dsum < 0.0) & (d0 < 0.0))
+    # rejection by select: dsum == 0 gives inf/nan quotients
+    return ok, torch.where(ok, d0 / dsum, BIG)
+
+
+def mt_pairs(r, ox, oy, oz, dx, dy, dz, tally=None, tested=None):
+    """The general Moller-Trumbore pair test with backface cull
+    (clpathtracer_tpu/ops/packet.py::_mt_chunk_math, its order of
+    operations) over broadcast shapes: r [..., >= 10] records (v0, e1, e2,
+    tri_id). Returns (ok, t) with t = BIG where rejected.
+
+    tally (optional int64 [3] tensor): adds the counts of the pairs that
+    pass det > 0, then also 0 <= u <= 1, then also v >= 0 and u + v <= 1:
+    the CUDA test's early exits, which set the work these inputs need.
+    tested (optional bool, broadcastable): the pairs the kernel tests; the
+    tally counts only those."""
+    e1x, e1y, e1z = r[..., 3], r[..., 4], r[..., 5]
+    e2x, e2y, e2z = r[..., 6], r[..., 7], r[..., 8]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    invd = 1.0 / torch.where(det == 0.0, 1.0, det)
+    tx, ty, tz = ox - r[..., 0], oy - r[..., 1], oz - r[..., 2]
+    u = (tx * px + ty * py + tz * pz) * invd
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * invd
+    tt = (e2x * qx + e2y * qy + e2z * qz) * invd
+    pass_det = det > 0.0
+    pass_u = pass_det & (u >= 0.0) & (u <= 1.0)
+    pass_v = pass_u & (v >= 0.0) & (u + v <= 1.0)
+    ok = pass_v & (tt > 0.0) & (r[..., 9] >= 0.0)
+    if tally is not None:
+        counted = [pass_det, pass_u, pass_v]
+        if tested is not None:
+            counted = [c & tested for c in counted]
+        tally.add_(torch.stack([c.sum() for c in counted]))
+    return ok, torch.where(ok, tt, BIG)
+
+
+# ---------------------------------------------------------------------------
+# packet interval helpers: array-generic (torch tensors for the strip
+# prepass, numpy float32 scalars and arrays for the plain K3's walk), in
+# the JAX package's order of operations
+# ---------------------------------------------------------------------------
+
+
+def _ops(x):
+    """(where, minimum, maximum, -INV_BIG, INV_BIG) for x's library, the
+    constants in f32 for numpy (a float64 constant would promote)."""
+    if isinstance(x, torch.Tensor):
+        return torch.where, torch.minimum, torch.maximum, -INV_BIG, INV_BIG
+    return (np.where, np.minimum, np.maximum, np.float32(-INV_BIG),
+            np.float32(INV_BIG))
+
+
+def _packet_bounds_masked(rays, act):
+    """Conservative bounds of each packet over its ACTIVE lanes: rays =
+    (ox, oy, oz, dx, dy, dz), each [..., L]; act [..., L] (> 0 active).
+    Returns (obnd, ibnd): per axis (origin lo, origin hi) and (clipped
+    inverse-direction lo, hi), each [...]. A packet without an active
+    lane gets (BIG, -BIG) and (INV_BIG, -INV_BIG)."""
+    ox, oy, oz, dx, dy, dz = rays
+    on = act > 0.0
+
+    def mm(x):
+        return (torch.where(on, x, BIG).amin(dim=-1),
+                torch.where(on, x, -BIG).amax(dim=-1))
+
+    def inv_mm(dc):
+        inv = torch.clamp(1.0 / dc, -INV_BIG, INV_BIG)
+        return (torch.where(on, inv, INV_BIG).amin(dim=-1),
+                torch.where(on, inv, -INV_BIG).amax(dim=-1))
+
+    return (mm(ox), mm(oy), mm(oz)), (inv_mm(dx), inv_mm(dy), inv_mm(dz))
+
+
+def _axis_interval(lo_a, hi_a, ob, ib):
+    """Conservative [min t_near, max t_far] for one axis over the whole
+    packet; a non-uniform direction sign leaves the axis unbounded."""
+    where, mn, mx, neg, pos_big = _ops(lo_a)
+    ol, oh = ob
+    il, ih = ib
+    uniform = il * ih > 0.0
+    pos = il > 0.0
+    nearb = where(pos, lo_a, hi_a)
+    farb = where(pos, hi_a, lo_a)
+
+    def prods(b):
+        c1 = (b - ol) * il
+        c2 = (b - ol) * ih
+        c3 = (b - oh) * il
+        c4 = (b - oh) * ih
+        return mn(mn(c1, c2), mn(c3, c4)), mx(mx(c1, c2), mx(c3, c4))
+
+    near_min, _ = prods(nearb)
+    _, far_max = prods(farb)
+    return where(uniform, near_min, neg), where(uniform, far_max, pos_big)
+
+
+def _box_interval(lo_xyz, hi_xyz, obnd, ibnd):
+    """Packet-conservative [t_enter, t_exit] of AABBs given the per-axis
+    packet bounds (lo_xyz / hi_xyz: 3 scalars or arrays each)."""
+    _, mn, mx, _, _ = _ops(lo_xyz[0])
+    ivs = [_axis_interval(lo_xyz[a], hi_xyz[a], obnd[a], ibnd[a])
+           for a in range(3)]
+    return (mx(mx(ivs[0][0], ivs[1][0]), ivs[2][0]),
+            mn(mn(ivs[0][1], ivs[1][1]), ivs[2][1]))
+
+
+def _axinfo(obnd, ibnd):
+    """Per-axis packet constants for split-plane intervals: (inv_lo,
+    inv_hi, orig_lo, orig_hi, sign-uniform, near-is-lo)."""
+    return [(ibnd[a][0], ibnd[a][1], obnd[a][0], obnd[a][1],
+             ibnd[a][0] * ibnd[a][1] > 0.0, ibnd[a][0] + ibnd[a][1] > 0.0)
+            for a in range(3)]
+
+
+def _split_plane_interval(axinfo, axis, split):
+    """Packet-conservative [t_min, t_max] of the crossing of one axis
+    plane, and whether the low child is the near child. A non-uniform
+    direction sign leaves the plane unbounded."""
+    where, mn, mx, neg, pos_big = _ops(split)
+    il, ih, ol, oh, uni, nlo = axinfo[axis]
+    c1 = (split - ol) * il
+    c2 = (split - ol) * ih
+    c3 = (split - oh) * il
+    c4 = (split - oh) * ih
+    tp_min = where(uni, mn(mn(c1, c2), mn(c3, c4)), neg)
+    tp_max = where(uni, mx(mx(c1, c2), mx(c3, c4)), pos_big)
+    return tp_min, tp_max, nlo
+
+
+# ---------------------------------------------------------------------------
+# pixel-block layouts, frustum planes and the strip prepass
+# ---------------------------------------------------------------------------
+
+
 def _frustum_rows(dir_b: torch.Tensor, origin: torch.Tensor, tile: int,
                   th: int, tw: int) -> torch.Tensor:
     """Per-tile pinhole frustum planes: [n_tiles, 16] f32 rows of 4 unit
@@ -115,3 +333,570 @@ def _unblockify(x: torch.Tensor, h: int, w: int, th: int,
     tail = x.shape[1:]
     x = x.reshape(h // th, w // tw, th, tw, *tail)
     return x.transpose(1, 2).reshape(h * w, *tail)
+
+
+def _blockify_strips(x, h, w, th, tw, bh=8, bw=16):
+    """Row-major [h*w, ...] -> tile-major with each (th, tw) tile's lanes
+    grouped into (bh, bw)-pixel strips: tile (ti, tj) holds its
+    (th//bh) x (tw//bw) grid of strips consecutively, each strip
+    row-major. Every aligned bh*bw-lane group of a tile is then a compact
+    pixel block with its own tight direction cone."""
+    tail = x.shape[1:]
+    gh, gw = th // bh, tw // bw
+    x = x.reshape(h // th, gh, bh, w // tw, gw, bw, *tail)
+    x = x.permute(0, 3, 1, 4, 2, 5, *range(6, 6 + len(tail)))
+    return x.reshape(h * w, *tail)
+
+
+def _unblockify_strips(x, h, w, th, tw, bh=8, bw=16):
+    tail = x.shape[1:]
+    gh, gw = th // bh, tw // bw
+    x = x.reshape(h // th, w // tw, gh, gw, bh, bw, *tail)
+    x = x.permute(0, 2, 4, 1, 3, 5, *range(6, 6 + len(tail)))
+    return x.reshape(h * w, *tail)
+
+
+def _strip_masks(chunk_bnd, dir_bs, origin, n_strips, bh=8, bw=16):
+    """The strip prepass of K3's strips mode, as torch ops on the
+    tensors' device: per tile, a window bitmask [n_tiles, W] i32 (bit s:
+    strip s of the tile must test window w) and the conservative entry
+    distance [n_tiles, W] f32 (least t_enter over the keeping strips, BIG
+    when none keeps).
+
+    Every (strip, window) pair gets the slab test over the strip's
+    direction range from the shared origin and the exact 4-plane corner
+    frustum with a relative slack (clpathtracer_tpu/ops/packet.py::
+    _strip_masks, its order of operations). A window is kept on any doubt,
+    so the hits equal an unculled walk's. chunk_bnd: [W, 6]; dir_bs:
+    [N, 3] in strip order (_blockify_strips); origin [3]. Dead lanes are
+    not handled: callers use it on fully active frames."""
+    lanes = bh * bw
+    lo = [chunk_bnd[None, :, j] for j in range(3)]                 # [1, W]
+    hi = [chunk_bnd[None, :, 3 + j] for j in range(3)]
+    o = origin.reshape(3).to(torch.float32)
+    d = dir_bs.reshape(-1, lanes, 3)                               # [S, L, 3]
+    n_s = d.shape[0]
+    t_en = torch.full((n_s, 1), -INV_BIG, device=d.device)
+    t_ex = torch.full((n_s, 1), INV_BIG, device=d.device)
+    for ax in range(3):
+        inv = torch.clamp(1.0 / d[:, :, ax], -INV_BIG, INV_BIG)
+        il = inv.amin(dim=1, keepdim=True)                         # [S, 1]
+        ih = inv.amax(dim=1, keepdim=True)
+        uniform = il * ih > 0.0
+        pos = il > 0.0
+        nearb = torch.where(pos, lo[ax], hi[ax])                   # [S, W]
+        farb = torch.where(pos, hi[ax], lo[ax])
+        near_min = torch.minimum((nearb - o[ax]) * il, (nearb - o[ax]) * ih)
+        far_max = torch.maximum((farb - o[ax]) * il, (farb - o[ax]) * ih)
+        t_en = torch.maximum(t_en, torch.where(uniform, near_min, -INV_BIG))
+        t_ex = torch.minimum(t_ex, torch.where(uniform, far_max, INV_BIG))
+    keep = (t_en <= t_ex) & (t_ex > 0.0)                           # [S, W]
+
+    fr = _frustum_rows(dir_bs, o, lanes, bh, bw)                   # [S, 16]
+    for p in range(4):
+        n = [fr[:, 3 * p + j:3 * p + j + 1] for j in range(3)]     # [S, 1]
+        sup = torch.zeros_like(t_en)
+        slack = torch.zeros_like(t_en)
+        for ax in range(3):
+            c = torch.where(n[ax] > 0.0, lo[ax], hi[ax]) - o[ax]
+            sup = sup + n[ax] * c
+            slack = slack + torch.abs(c)
+        keep = keep & (sup <= 1e-5 * slack)
+
+    n_tiles = n_s // n_strips
+    bits = keep.reshape(n_tiles, n_strips, -1).to(torch.int32)
+    shifts = torch.arange(n_strips, dtype=torch.int32, device=d.device)
+    mask = (bits << shifts[None, :, None]).sum(dim=1, dtype=torch.int32)
+    ten = torch.where(keep, t_en, BIG).reshape(n_tiles, n_strips, -1)
+    return mask.contiguous(), ten.amin(dim=1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# node tables
+# ---------------------------------------------------------------------------
+
+
+def stream_nodes(tree):
+    """K3's node tables from the packed node table, on its device
+    (clpathtracer_tpu/ops/packet.py::_smem_nodes without the TPU's bit
+    packing): nodes_i [M, 4] i32 = (flags, child_lo, child_hi, 0) for a
+    split and (flags, first record row r0, first window win0, window
+    count) for a leaf, flags = axis + 4*is_leaf; nodes_f [6 + M] f32 = the
+    root AABB, then each node's split value."""
+    nt = tree.node_table
+    flags = nt[:, 7].to(torch.int32)
+    is_leaf = flags >= 4
+    cl = nt[:, 8].to(torch.int32)
+    ch = nt[:, 9].to(torch.int32)
+    qs = nt[:, 10].to(torch.int32)
+    cnt = nt[:, 11].to(torch.int32)
+    first = qs * 4
+    r0 = first // 8
+    r_end = (first + cnt + 7) // 8
+    nwin = torch.where(cnt > 0, (r_end - r0 + CHUNK_ROWS - 1) // CHUNK_ROWS,
+                       0)
+    win0 = (tree.chunk_start.to(torch.int32) if tree.chunk_start is not None
+            else torch.zeros_like(flags))
+    nodes_i = torch.stack([flags, torch.where(is_leaf, r0, cl),
+                           torch.where(is_leaf, win0, ch),
+                           torch.where(is_leaf, nwin, 0)], dim=1)
+    nodes_f = torch.cat([nt[0, 0:6], nt[:, 6]])
+    return nodes_i.contiguous(), nodes_f.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# kernel K3 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _kernel_mode(cbnd, frustum, masks):
+    if masks is not None:
+        return _STRIPS
+    if cbnd is None:
+        return _NO_CULL
+    return _CULL_FRUSTUM if frustum is not None else _CULL
+
+
+def _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
+                       cbnd, frustum, masks, ten, n_strips):
+    name = "packet_stream"
+    tensors = dict(nodes_i=nodes_i, nodes_f=nodes_f, rows=rows,
+                   orig_t=orig_t, dir_t=dir_t, act=act, cbnd=cbnd,
+                   frustum=frustum, masks=masks, ten=ten)
+    tensors = {k: v for k, v in tensors.items() if v is not None}
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    for arg, t in tensors.items():
+        want = torch.int32 if arg in ("nodes_i", "masks") else torch.float32
+        if t.dtype != want or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous {want} "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+    n = act.shape[0]
+    m = nodes_i.shape[0]
+    if tile <= 0 or tile % 32 or tile > 4096 or n % tile \
+            or (tile > 512 and tile % 512):
+        raise ValueError(f"{name}: tile {tile} must be a multiple of 32 "
+                         "that divides the rays, at most 4096, and a "
+                         f"multiple of 512 above 512 ({n} rays)")
+    if nodes_i.shape != (m, 4) or nodes_f.shape != (6 + m,):
+        raise ValueError(f"{name}: nodes_i {tuple(nodes_i.shape)} / nodes_f "
+                         f"{tuple(nodes_f.shape)} are not [M, 4] / [6 + M]")
+    if rows.dim() != 2 or rows.shape[1] != 16 or rows.shape[0] % 8 \
+            or rows.shape[0] < _WIN_RECS:
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} is not [T, 16] "
+                         f"with T a multiple of 8 and at least {_WIN_RECS}"
+                         " (pad_records)")
+    if orig_t.shape != (3, n) or dir_t.shape != (3, n) or act.dim() != 1:
+        raise ValueError(f"{name}: orig_t {tuple(orig_t.shape)} / dir_t "
+                         f"{tuple(dir_t.shape)} / act {tuple(act.shape)} "
+                         "do not match")
+    n_tiles = n // tile
+    if masks is not None:
+        w = masks.shape[1] if masks.dim() == 2 else -1
+        if masks.shape != (n_tiles, w) or ten is None \
+                or ten.shape != masks.shape or not 1 <= n_strips <= 31 \
+                or tile % n_strips:
+            raise ValueError(f"{name}: masks / ten / n_strips do not "
+                             f"match {n_tiles} tiles")
+    elif cbnd is not None:
+        if cbnd.dim() != 2 or cbnd.shape[1] != 6:
+            raise ValueError(f"{name}: cbnd {tuple(cbnd.shape)} is not "
+                             "[W, 6]")
+        if frustum is not None and frustum.shape != (n_tiles, 16):
+            raise ValueError(f"{name}: frustum {tuple(frustum.shape)} is "
+                             f"not [{n_tiles}, 16]")
+    elif frustum is not None:
+        raise ValueError(f"{name}: the frustum cull needs cbnd")
+
+
+def packet_stream(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
+                  so: bool, cbnd=None, frustum=None, masks=None, ten=None,
+                  n_strips: int = 0):
+    """Nearest hit of every ray of every packet tile through the kd-tree
+    (K3; replaces clpathtracer_tpu/ops/packet.py::_kernel_stream_smem).
+
+    nodes_i / nodes_f: stream_nodes; rows: [T, 16] padded records
+    (pad_records: SO rows when `so`, else raw (v0, e1, e2, tri_id));
+    orig_t / dir_t: [3, N] tile-major rays; act: [N] f32, > 0 for an
+    active lane (dead lanes take no hits and leave the packet bounds; a
+    tile without an active lane does no walk). The window cull is the
+    strip masks (masks / ten [n_tiles, W] from _strip_masks, n_strips
+    strips per tile; when every strip is a 512-lane gate the dense test
+    of a window runs per gate whose bit is set), else the AABBs cbnd
+    [W, 6] with optional frustum rows [n_tiles, 16] (_frustum_rows), else
+    none.
+
+    Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss, stats
+    [n_tiles, 5] i32 = node pops, windows streamed, active lanes, windows
+    culled, dense executions). Ties: see ops/csrc/packet_stream.cu.
+
+    A CPU tensor runs the plain version (packet_stream_reference); a CUDA
+    tensor launches ops/csrc/packet_stream.cu on the current stream or
+    raises. `packet_stream.launches` counts kernel launches."""
+    _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
+                       cbnd, frustum, masks, ten, n_strips)
+    device = act.device
+    if device.type == "cpu":
+        return packet_stream_reference(
+            nodes_i, nodes_f, rows, orig_t, dir_t, act, tile=tile, so=so,
+            cbnd=cbnd, frustum=frustum, masks=masks, ten=ten,
+            n_strips=n_strips)
+    if device.type != "cuda":
+        raise ValueError(f"packet_stream: no kernel for device {device}")
+    from clpathtracer_tpu_torch.ops._cuda import load_kernels
+    fn = load_kernels().fns["packet_stream_launch"]
+    n = act.shape[0]
+    best_t = torch.empty((n,), dtype=torch.float32, device=device)
+    best_slot = torch.empty((n,), dtype=torch.int32, device=device)
+    stats = torch.empty((n // tile, 5), dtype=torch.int32, device=device)
+    mode = _kernel_mode(cbnd, frustum, masks)
+    n_windows = masks.shape[1] if masks is not None else 0
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(nodes_i.data_ptr(), nodes_f.data_ptr(), rows.data_ptr(),
+                 orig_t.data_ptr(), dir_t.data_ptr(), act.data_ptr(),
+                 ptr(cbnd), ptr(frustum), ptr(masks), ptr(ten),
+                 best_t.data_ptr(), best_slot.data_ptr(), stats.data_ptr(),
+                 n, tile, rows.shape[0] // 8, n_windows, mode,
+                 n_strips if masks is not None else 0, int(so), stream)
+    if err != 0:
+        raise RuntimeError(f"packet_stream launch failed: cudaError {err} "
+                           f"(N={n}, tile={tile}, mode={mode})")
+    packet_stream.launches += 1
+    return best_t, best_slot, stats
+
+
+packet_stream.launches = 0
+
+
+def packet_stream_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
+                            tile: int, so: bool, cbnd=None, frustum=None,
+                            masks=None, ten=None, n_strips: int = 0,
+                            tally=None):
+    """Plain torch version of packet_stream: same signature, same outputs,
+    stats included, on any device.
+
+    The walk runs per tile on the host in numpy float32 scalars (the
+    kernel's f32 arithmetic), a leaf's window decisions as numpy arrays;
+    the kept windows' dense tests run on the tensors' device as torch ops,
+    several windows at a time (within a leaf nothing the decisions read
+    changes). tally: see mt_pairs (MT form only)."""
+    n = act.shape[0]
+    n_tiles = n // tile
+    dev = act.device
+    mode = _kernel_mode(cbnd, frustum, masks)
+    half = mode == _STRIPS and tile // n_strips == GATE_LANES
+    host = {"ni": nodes_i.cpu().numpy(), "nf": nodes_f.cpu().numpy(),
+            "cb": None if cbnd is None else cbnd.cpu().numpy(),
+            "fr": None if frustum is None else frustum.cpu().numpy(),
+            "mk": None if masks is None else masks.cpu().numpy(),
+            "tn": None if ten is None else ten.cpu().numpy()}
+    rays = [orig_t[i].reshape(n_tiles, tile) for i in range(3)] \
+        + [dir_t[i].reshape(n_tiles, tile) for i in range(3)]
+    act_t = act.reshape(n_tiles, tile)
+    obnd, ibnd = _packet_bounds_masked(rays, act_t)
+    obnd = [[b.cpu().numpy() for b in ax] for ax in obnd]
+    ibnd = [[b.cpu().numpy() for b in ax] for ax in ibnd]
+    n_act = (act_t > 0.0).sum(dim=1).cpu().numpy()
+    recs = rows[:, :10]
+    best_t = torch.empty((n_tiles, tile), dtype=torch.float32, device=dev)
+    best_slot = torch.empty((n_tiles, tile), dtype=torch.int32, device=dev)
+    stats = np.zeros((n_tiles, 5), np.int64)
+    for ti in range(n_tiles):
+        ob = [(ax[0][ti], ax[1][ti]) for ax in obnd]
+        ib = [(ax[0][ti], ax[1][ti]) for ax in ibnd]
+        tile_rays = [r[ti] for r in rays]
+        bt, bs, st = _walk_tile(host, ti, ob, ib, int(n_act[ti]), recs,
+                                tile_rays, act_t[ti] > 0.0, so, mode, half,
+                                n_strips, rows.shape[0] // 8, tally)
+        best_t[ti] = bt
+        best_slot[ti] = torch.where(bt < BIG, bs, -1)
+        stats[ti] = st
+    return (best_t.reshape(-1), best_slot.reshape(-1),
+            torch.as_tensor(stats.astype(np.int32), device=dev))
+
+
+def _walk_tile(host, ti, ob, ib, n_act, recs, rays, on, so, mode, half,
+               n_strips, n_rows, tally):
+    """One tile of the plain K3: (best_t [L], best_slot [L], stats [5])."""
+    f32 = np.float32
+    ni, nf = host["ni"], host["nf"]
+    tile = on.shape[0]
+    dev = on.device
+    bt = torch.full((tile,), BIG, dtype=torch.float32, device=dev)
+    bs = torch.full((tile,), -1, dtype=torch.int32, device=dev)
+    axinfo = _axinfo(ob, ib)
+    rt_lo, rt_hi = _box_interval(nf[0:3], nf[3:6], ob, ib)
+    stack = ([(0, rt_lo, rt_hi)]
+             if rt_lo <= rt_hi and rt_hi > 0.0 and n_act > 0 else [])
+    t_upper = f32(BIG)
+    nv = nl = nc = nsm = 0
+    gate_of_lane = torch.arange(tile, device=dev) // GATE_LANES
+    while stack:
+        node, tlo, thi = stack.pop()
+        nv += 1
+        if not (tlo <= np.minimum(thi, t_upper) and thi > 0.0):
+            continue
+        flags, a, b, c = (int(x) for x in ni[node])
+        if flags >= 4:
+            kept = _leaf_windows(host, ti, b, c, ob, ib, tlo, thi, t_upper,
+                                 mode)
+            nl += kept.shape[0]
+            if mode != _NO_CULL:
+                nc += c - kept.shape[0]
+            if half:
+                gates = host["mk"][ti, b + kept].astype(np.int64)
+                nsm += sum(int(((gates >> g) & 1).sum())
+                           for g in range(n_strips))
+                lane_on = ((torch.as_tensor(gates, device=dev)[:, None]
+                            >> gate_of_lane[None, :]) & 1).bool() & on
+            else:
+                nsm += kept.shape[0]
+                lane_on = on.expand(kept.shape[0], tile)
+            row0 = np.minimum(a + kept * CHUNK_ROWS, n_rows - CHUNK_ROWS)
+            bt, bs = _dense_windows(recs, row0, rays, lane_on, so, bt, bs,
+                                    tally)
+            if (nv & TUP_MASK) == 0:
+                t_upper = f32(torch.where(on, bt, -BIG).amax().item())
+        else:
+            tp_min, tp_max, nlo = _split_plane_interval(axinfo, flags & 3,
+                                                        nf[6 + node])
+            near, far = (a, b) if nlo else (b, a)
+            far_lo = np.maximum(tlo, tp_min)
+            near_hi = np.minimum(thi, tp_max)
+            if len(stack) + 2 > STACK_DEPTH:
+                raise AssertionError("packet walk: stack overflow")
+            if far_lo <= np.minimum(thi, t_upper):
+                stack.append((far, far_lo, thi))
+            if tlo <= np.minimum(near_hi, t_upper):
+                stack.append((near, tlo, near_hi))
+    return bt, bs, (nv, nl, n_act, nc, nsm)
+
+
+def _leaf_windows(host, ti, win0, nwin, ob, ib, tlo, thi, t_upper, mode):
+    """The leaf's windows the tile streams, in order ([K] int64 indices
+    into the leaf's windows)."""
+    w = np.arange(nwin)
+    if mode == _NO_CULL or nwin == 0:
+        return w
+    tup = np.minimum(thi, t_upper)
+    if mode == _STRIPS:
+        keep = ((host["mk"][ti, win0 + w] != 0)
+                & (host["tn"][ti, win0 + w] <= tup))
+        return w[keep]
+    cb = host["cb"][win0 + w]                                      # [K, 6]
+    lo = [cb[:, j] for j in range(3)]
+    hi = [cb[:, 3 + j] for j in range(3)]
+    t_en, t_ex = _box_interval(lo, hi, ob, ib)
+    keep = (t_en <= tup) & (t_ex >= tlo) & (t_ex > 0.0)
+    if mode == _CULL_FRUSTUM:
+        fr = host["fr"][ti]
+        for p in range(4):
+            c = [np.where(fr[3 * p + j] > 0.0, lo[j], hi[j]) - fr[12 + j]
+                 for j in range(3)]
+            sup = fr[3 * p] * c[0] + fr[3 * p + 1] * c[1] \
+                + fr[3 * p + 2] * c[2]
+            slack = np.float32(1e-5) * (np.abs(c[0]) + np.abs(c[1])
+                                        + np.abs(c[2]))
+            keep = keep & (sup <= slack)
+    return w[keep]
+
+
+def _dense_windows(recs, row0, rays, lane_on, so, bt, bs, tally):
+    """Dense test of windows (first record rows row0 [K], in stream
+    order) against a tile's rays, merged into (bt, bs) with the kernel's
+    tie rule. lane_on: [K, L] bool, the lanes each window tests."""
+    k_all = row0.shape[0]
+    if k_all == 0:
+        return bt, bs
+    tile = bt.shape[0]
+    dev = bt.device
+    ox, oy, oz, dx, dy, dz = (r[None, None, :] for r in rays)
+    rec_in_win = torch.arange(_WIN_RECS, device=dev)
+    row_ids = torch.arange(CHUNK_ROWS, device=dev)
+    in_row = torch.arange(8, device=dev)
+    step = max(1, _REF_PAIRS // (_WIN_RECS * tile))
+    for k0 in range(0, k_all, step):
+        rec0 = torch.as_tensor(row0[k0:k0 + step] * 8, device=dev)   # [K]
+        k = rec0.shape[0]
+        r = recs[rec0[:, None] + rec_in_win][:, :, None, :]   # [K, 128, 1, 10]
+        tested = lane_on[k0:k0 + k][:, None, :]                # [K, 1, L]
+        if so:
+            ok, t = so_pairs(r, dx, dy, dz)
+        else:
+            ok, t = mt_pairs(r, ox, oy, oz, dx, dy, dz, tally, tested)
+        t = torch.where(ok & tested, t, BIG).reshape(k, CHUNK_ROWS, 8, tile)
+        # per row of 8: least t, the row's last record among equal t
+        t_row = t.amin(dim=2)                                  # [K, 16, L]
+        i_row = torch.where(t == t_row[:, :, None], in_row[:, None],
+                            -1).amax(dim=2)
+        s_row = rec0[:, None, None] + row_ids[:, None] * 8 + i_row
+        # per window: least t, the lowest row among equal t
+        ct = t_row.amin(dim=1)                                 # [K, L]
+        cs = torch.where(t_row == ct[:, None], s_row, _INT_MAX).amin(dim=1)
+        # across windows in order: the later window wins at equal t
+        m = ct.amin(dim=0)                                     # [L]
+        last = torch.where(ct == m, torch.arange(k, device=dev)[:, None],
+                           -1).amax(dim=0)
+        s_m = cs.gather(0, last[None]).squeeze(0).to(torch.int32)
+        take = (m < BIG) & (m <= bt)
+        bt = torch.where(take, m, bt)
+        bs = torch.where(take, s_m, bs)
+    return bt, bs
+
+
+# ---------------------------------------------------------------------------
+# host entry
+# ---------------------------------------------------------------------------
+
+
+def packet_mode(tree, n_rays: int, tile: int = TILE, engine: str = "auto"):
+    """The engine traverse_packet runs, or None when it cannot run (no
+    tree, or a wave that is not whole tiles). "auto" and "stream" select
+    the stream engine (K3); the JAX package's other engines are named as
+    asked and raise in traverse_packet."""
+    if tree is None or tree.node_table is None or n_rays % tile:
+        return None
+    if engine in ("auto", "stream"):
+        return "stream"
+    if engine in _OTHER_ENGINES:
+        return engine
+    raise ValueError(f"unknown packet engine {engine!r}")
+
+
+def tile_shape(tile: int):
+    """A tile's pixel block: square when possible, else 1:2 (512 rays ->
+    16x32 pixels)."""
+    th = tw = math.isqrt(tile)
+    if th * tw != tile:
+        th = math.isqrt(tile // 2)
+        tw = 2 * th
+    return th, tw
+
+
+def stream_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
+                       active=None, shared_origin: bool = False,
+                       grid_dirs: bool = False, strips: bool = True,
+                       frustum: bool = True, chunk_cull: bool = True):
+    """The host side and prepass of traverse_packet's stream branch:
+    (args, kwargs, layout) with packet_stream(*args, **kwargs) the K3 call
+    and layout = None (rays in wave order), ("blocks", h, w, th, tw) or
+    ("strips", h, w, th, tw, bh, bw) for putting the results back in wave
+    order.
+
+    The SO form runs when shared_origin (the caller's promise that every
+    origin equals orig[0]) and the tree has SO tables; otherwise the MT
+    form. Strips mode (strips=True) runs on fully active unjittered
+    (grid_dirs) shared-origin pixel frames with window tables, with
+    512-lane gates when tile >= 1024; else the AABB cull (chunk_cull), with
+    the corner frustum (frustum=True) on such frames."""
+    n = orig.shape[0]
+    th, tw = tile_shape(tile)
+    blocked = (image_shape is not None and th * tw == tile
+               and image_shape[0] % th == 0 and image_shape[1] % tw == 0)
+    h, w = image_shape if blocked else (None, None)
+    cbnd = tree.chunk_bnd if chunk_cull else None
+    so = shared_origin and tree.so_base is not None
+    act = (torch.ones((n,), dtype=torch.float32, device=orig.device)
+           if active is None else active.to(torch.float32))
+    if so:
+        rows = so_combine(tree.so_base, orig[0].to(torch.float32))
+    else:
+        rows = pad_records(tree.tris)
+    nodes_i, nodes_f = stream_nodes(tree)
+    kw = dict(tile=tile, so=so)
+    if (so and blocked and grid_dirs and active is None and cbnd is not None
+            and th % 8 == 0 and tw % 16 == 0 and tile % 128 == 0
+            and strips):
+        bh, bw = ((16, 32) if tile >= 1024 and th % 16 == 0 and tw % 32 == 0
+                  else (8, 16))
+        n_strips = tile // (bh * bw)
+        orig_b = _blockify_strips(orig, h, w, th, tw, bh, bw)
+        dir_b = _blockify_strips(dir, h, w, th, tw, bh, bw).to(torch.float32)
+        masks, ten = _strip_masks(cbnd, dir_b, orig[0], n_strips, bh, bw)
+        kw.update(masks=masks, ten=ten, n_strips=n_strips)
+        layout = ("strips", h, w, th, tw, bh, bw)
+    else:
+        if blocked:
+            orig_b = _blockify(orig, h, w, th, tw)
+            dir_b = _blockify(dir, h, w, th, tw).to(torch.float32)
+            act = _blockify(act, h, w, th, tw)
+            layout = ("blocks", h, w, th, tw)
+        else:
+            orig_b, dir_b, layout = orig, dir.to(torch.float32), None
+        if cbnd is not None:
+            kw["cbnd"] = cbnd
+            if so and blocked and grid_dirs and frustum:
+                kw["frustum"] = _frustum_rows(dir_b, orig[0], tile, th, tw)
+    args = (nodes_i, nodes_f, rows, orig_b.T.to(torch.float32).contiguous(),
+            dir_b.T.contiguous(), act.contiguous())
+    return args, kw, layout
+
+
+def _to_wave_order(x, layout):
+    if layout is None:
+        return x
+    if layout[0] == "strips":
+        return _unblockify_strips(x, *layout[1:])
+    return _unblockify(x, *layout[1:])
+
+
+def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
+                    engine: str = "auto", active=None,
+                    precision: str = "f32", shared_origin: bool = False,
+                    grid_dirs: bool = False, strips: bool = True,
+                    frustum: bool = True, chunk_cull: bool = True):
+    """Packet-trace a coherent wave through the kd-tree (the stream
+    branch of clpathtracer_tpu/ops/packet.py::traverse_packet).
+
+    tree: accel/sah.py::FlatKdTree with window tables (attach_chunk_info)
+    and, for the SO form, SO tables (attach_so_tables). image_shape:
+    (height, width) of a row-major pixel wave; when it divides into
+    tile-sized pixel blocks the tiles are blocks, else consecutive rays.
+    active: optional [N] bool; dead lanes never hit and leave the packet
+    bounds, a tile of dead lanes does no walk (sort dead rays to the tail
+    first). shared_origin, grid_dirs, strips, frustum, chunk_cull: see
+    stream_kernel_args; the defaults are the JAX package's.
+
+    Returns hit, t, tri, u, v ([N]) and tile_stats [n_tiles, 5] (node
+    pops, windows streamed, active lanes, windows culled, dense
+    executions)."""
+    n = orig.shape[0]
+    if precision != "f32":
+        raise NotImplementedError(
+            f"precision={precision!r}: the bf16 preview runs K4 "
+            "(_kernel_stream), not ported yet")
+    mode = packet_mode(tree, n, tile, engine)
+    if mode is None:
+        raise ValueError(f"traverse_packet: {n} rays are not whole tiles of "
+                         f"{tile}, or there is no tree")
+    if mode != "stream":
+        raise NotImplementedError(
+            f"engine={engine!r} runs {_OTHER_ENGINES[mode]}, not ported yet")
+    args, kw, layout = stream_kernel_args(
+        tree, orig, dir, image_shape, tile, active, shared_origin, grid_dirs,
+        strips, frustum, chunk_cull)
+    _, best_slot, tile_stats = packet_stream(*args, **kw)
+    best_slot = _to_wave_order(best_slot, layout)
+    return _resolve_stream_winners(tree, best_slot, orig, dir, tile_stats)
+
+
+def _resolve_stream_winners(tree, best_slot, orig, dir, tile_stats):
+    """Re-resolve the winner slots (wave order): exact f32 t/u/v from one
+    Moller-Trumbore per ray on the winner's record."""
+    from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
+    hit = best_slot >= 0
+    sel = tree.tris[best_slot.clamp(0, tree.tris.shape[0] - 1).long()]
+    _, t, u, v = _mt_pre(sel[:, 0:3], sel[:, 3:6], sel[:, 6:9], orig, dir)
+    return {
+        "hit": hit,
+        "t": torch.where(hit, t, BIG),
+        "tri": torch.where(hit, sel[:, 9].to(torch.int32), -1),
+        "u": torch.where(hit, u, 0.0),
+        "v": torch.where(hit, v, 0.0),
+        "tile_stats": tile_stats,
+    }

@@ -46,8 +46,8 @@ from clpathtracer_tpu_torch.accel.sah import pack_quads_host
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.struct import TensorStruct
 from clpathtracer_tpu_torch.ops.packet import (
-    BIG, INV_BIG, _blockify, _frustum_rows, _unblockify, so_affine_tables,
-    so_combine)
+    BIG, INV_BIG, _blockify, _frustum_rows, _unblockify, mt_pairs,
+    so_affine_tables, so_combine, so_pairs)
 from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
 
 GATE = 512        # rays per gate: a GH x GW pixel block
@@ -368,7 +368,7 @@ def _launch(entry, name, key, sid, bits, rows, ray_t, t0, win_rows):
     """Launch a C entry of ops/csrc/plist_super.cu on the current stream.
     ray_t: the [3, N] ray arrays the entry takes after `rows`."""
     from clpathtracer_tpu_torch.ops._cuda import load_kernels
-    lib = load_kernels().lib
+    fn = load_kernels().fns[entry]
     device = key.device
     n_gates, list_len = key.shape
     n = n_gates * GATE
@@ -377,7 +377,7 @@ def _launch(entry, name, key, sid, bits, rows, ray_t, t0, win_rows):
     stats = torch.empty((n_gates, 5), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(
+        err = fn(
             key.data_ptr(), sid.data_ptr(), bits.data_ptr(), rows.data_ptr(),
             *(t.data_ptr() for t in ray_t), t0.data_ptr(), best_t.data_ptr(),
             best_slot.data_ptr(), stats.data_ptr(), n_gates, list_len,
@@ -460,49 +460,17 @@ def _so_test(recs, d):
     """Plain SO test of K1: t per (gate ray, record), BIG where rejected."""
     def test(g, win):
         r = recs[win][:, None]                             # [A, 1, win, 10]
-        dx, dy, dz = (d[ax, g][:, :, None] for ax in range(3))
-        s1 = dx * r[..., 0] + dy * r[..., 1] + dz * r[..., 2]
-        s2 = dx * r[..., 3] + dy * r[..., 4] + dz * r[..., 5]
-        s3 = dx * r[..., 6] + dy * r[..., 7] + dz * r[..., 8]
-        dsum = s1 + s2 + s3
-        d0 = r[..., 9]
-        ok = ((torch.maximum(torch.maximum(s1, s2), s3) <= 0.0)
-              & (dsum < 0.0) & (d0 < 0.0))
-        # rejection by select: dsum == 0 gives inf/nan quotients
-        return ok, torch.where(ok, d0 / dsum, BIG)
+        return so_pairs(r, *(d[ax, g][:, :, None] for ax in range(3)))
     return test
 
 
 def _mt_test(recs, o, d, tally=None):
-    """Plain MT test of K1' (clpathtracer_tpu/ops/packet.py::
-    _mt_chunk_math, its order of operations): t per (bundle ray, record),
-    BIG where rejected. tally: see plist_super_mt_reference."""
+    """Plain MT test of K1': t per (bundle ray, record), BIG where
+    rejected. tally: see plist_super_mt_reference."""
     def test(g, win):
         r = recs[win][:, None]                             # [A, 1, win, 10]
-        ox, oy, oz = (o[ax, g][:, :, None] for ax in range(3))
-        dx, dy, dz = (d[ax, g][:, :, None] for ax in range(3))
-        e1x, e1y, e1z = r[..., 3], r[..., 4], r[..., 5]
-        e2x, e2y, e2z = r[..., 6], r[..., 7], r[..., 8]
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        invd = 1.0 / torch.where(det == 0.0, 1.0, det)
-        tx, ty, tz = ox - r[..., 0], oy - r[..., 1], oz - r[..., 2]
-        u = (tx * px + ty * py + tz * pz) * invd
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        v = (dx * qx + dy * qy + dz * qz) * invd
-        tt = (e2x * qx + e2y * qy + e2z * qz) * invd
-        pass_det = det > 0.0
-        pass_u = pass_det & (u >= 0.0) & (u <= 1.0)
-        pass_v = pass_u & (v >= 0.0) & (u + v <= 1.0)
-        ok = pass_v & (tt > 0.0) & (r[..., 9] >= 0.0)
-        if tally is not None:
-            tally.add_(torch.stack([pass_det.sum(), pass_u.sum(),
-                                    pass_v.sum()]))
-        return ok, torch.where(ok, tt, BIG)
+        return mt_pairs(r, *(o[ax, g][:, :, None] for ax in range(3)),
+                        *(d[ax, g][:, :, None] for ax in range(3)), tally)
     return test
 
 

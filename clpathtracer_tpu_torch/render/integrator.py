@@ -14,14 +14,23 @@ the scene's windows:
   emission of front faces and the background on a miss, weighted by the
   throughput; cosine-sampled bounces; spp > 1 averages jittered samples.
 
-Primary waves are shared-origin pixel gates (traverse_plist, kernel K1);
-bounce waves are Morton-sorted into 512-ray bundles
-(traverse_plist_bundle, kernel K1'). Random numbers come from the caller
-or from a torch.Generator (torch cannot reproduce jax.random's streams).
-Anything else raises NotImplementedError naming the ROADMAP queue-1 item
-that ports it; nothing quietly takes another route. Unlike the JAX
-package, the routes need no kd-tree: they take the windows (MortonWindows
-with shared-origin tables and fused resolve rows attached) directly.
+Two routes, in the JAX package's order (render/integrator.py:197-309):
+
+* windows (MortonWindows with shared-origin tables and fused resolve rows
+  attached), when given: primary waves are shared-origin pixel gates
+  (traverse_plist, kernel K1), bounce waves Morton-sorted 512-ray bundles
+  (traverse_plist_bundle, kernel K1'); unlike the JAX package this route
+  needs no kd-tree;
+* else a kd-tree (accel/sah.py::FlatKdTree with window and SO tables):
+  the stream packet engine (ops/packet.py::traverse_packet, kernel K3),
+  primary waves as shared-origin pixel tiles of opts.packet_tile rays
+  (strip masks on unjittered frames), bounce waves Morton-sorted and
+  traced with their active mask; surface attributes from resolve_tri_hits.
+
+Random numbers come from the caller or from a torch.Generator (torch
+cannot reproduce jax.random's streams). Anything else raises
+NotImplementedError naming the ROADMAP queue-1 item that ports it;
+nothing quietly takes another route.
 """
 
 from __future__ import annotations
@@ -33,11 +42,13 @@ import torch
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (cam_matrix, generate_rays,
                                                 generate_rays_jittered)
+from clpathtracer_tpu_torch.ops.packet import traverse_packet
 from clpathtracer_tpu_torch.ops.plist import (GH, GW, traverse_plist,
                                               traverse_plist_bundle)
 from clpathtracer_tpu_torch.ops.sort import sort_rays
 from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
-                                                   normal_color)
+                                                   normal_color,
+                                                   resolve_tri_hits)
 
 MODES = ("normal", "mirror", "path")
 # subpixel jitter bound of spp > 1 samples: jitter is < 1 px, the corner-
@@ -60,9 +71,13 @@ class RenderOptions:
     nee: bool = False          # path mode: next-event estimation
     differentiable: bool = False
     edge_aware: bool = False
+    packet_tile: int = 1024    # kd-tree route: rays per packet tile
+    packet_strips: bool = True   # kd-tree route: the strip-mask prepass on
+    packet_frustum: bool = True  # unjittered primaries, else the corner
+    #   frustum cull (the JAX package's CLPT_STRIPS / CLPT_FRUSTUM)
 
 
-def _check_supported(scene, opts: RenderOptions, mwin) -> None:
+def _check_supported(scene, opts: RenderOptions, mwin, tree=None) -> None:
     """Raise NotImplementedError for what this slice does not carry."""
     if opts.mode not in MODES:
         raise ValueError(f"unknown mode {opts.mode!r}")
@@ -74,9 +89,14 @@ def _check_supported(scene, opts: RenderOptions, mwin) -> None:
         todo = "differentiable / edge-aware rendering is queue 1 item 14"
     elif scene.num_spheres:
         todo = "sphere primitives come with queue 1 item 12"
+    elif mwin is None and tree is None:
+        todo = ("rendering without windows or a kd-tree (the flat scan and "
+                "the brute force) is queue 1 item 12")
     elif mwin is None:
-        todo = ("rendering without windows (kd-tree and stream engines) is "
-                "queue 1 items 12-13")
+        if (opts.width * opts.height) % opts.packet_tile:
+            todo = (f"a {opts.width}x{opts.height} frame is not whole "
+                    f"packet tiles of {opts.packet_tile} rays; the JAX "
+                    "package sends it to traverse_fast, queue 1 item 12")
     elif opts.height % GH or opts.width % GW:
         todo = (f"a {opts.width}x{opts.height} frame is not a multiple of "
                 f"{GW}x{GH} gates; other frames take the kd-tree engines of "
@@ -90,14 +110,31 @@ _REC_KEYS = ("hit", "t", "tri", "u", "v", "snormal", "salbedo", "semission")
 
 def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
                     coherent: bool = True, active=None,
-                    jitter_px: float = 0.0):
-    """Nearest hit. Returns hit [N], t [N], tri [N], u/v [N] and the fused
-    shade attributes snormal/salbedo/semission [N, 3].
+                    jitter_px: float = 0.0, tree=None):
+    """Nearest hit. Returns hit [N], t [N], tri [N], u/v [N] and, on the
+    windows route, the fused shade attributes snormal/salbedo/semission
+    [N, 3].
 
     coherent: the wave is the frame's shared-origin pixel-grid primaries
-    (jittered by up to jitter_px pixels): the gate route. Otherwise the
-    wave is scattered: it is Morton-sorted (dead lanes, active False, to
-    the tail), traced in 512-ray bundles and put back in wave order."""
+    (jittered by up to jitter_px pixels): gates on the windows route,
+    shared-origin pixel tiles on the kd-tree route (strips or corner
+    frustum culls only when unjittered). Otherwise the wave is scattered:
+    it is Morton-sorted (dead lanes, active False, to the tail), traced in
+    512-ray bundles or packet tiles and put back in wave order. Windows,
+    when given, win over the tree."""
+    if mwin is None:
+        keys = _REC_KEYS[:5]
+        if coherent:
+            rec = traverse_packet(tree, orig, dir, (opts.height, opts.width),
+                                  tile=opts.packet_tile, shared_origin=True,
+                                  grid_dirs=jitter_px == 0.0,
+                                  strips=opts.packet_strips,
+                                  frustum=opts.packet_frustum)
+            return {k: rec[k] for k in keys}
+        inv, orig, dir, active = sort_wave(orig, dir, active)
+        rec = traverse_packet(tree, orig, dir, tile=opts.packet_tile,
+                              active=active)
+        return {k: rec[k][inv] for k in keys}
     if coherent:
         rec = traverse_plist(mwin, orig, dir, (opts.height, opts.width),
                              dilate_px=jitter_px)
@@ -117,34 +154,38 @@ def sort_wave(orig, dir, active=None):
 
 
 def _surface(scene, rec, orig, dir):
-    """Hit point and surface attributes of a hit record, from the shade
-    attributes the fused resolve carried out of the winner gather."""
+    """Hit point and surface attributes (normal, albedo, emission) of a
+    hit record: the shade attributes the fused resolve carried out of the
+    winner gather, else resolve_tri_hits on the winner (tri, u, v)."""
     point = orig + rec["t"][:, None] * dir
-    return point, rec["snormal"], rec["salbedo"], rec["semission"]
+    if "snormal" in rec:
+        return point, rec["snormal"], rec["salbedo"], rec["semission"]
+    at = resolve_tri_hits(scene, rec["tri"], rec["u"], rec["v"])
+    return point, at["normal"], at["albedo"], at["emission"]
 
 
-def shade_normal(scene, mwin, orig, dir, opts: RenderOptions):
+def shade_normal(scene, mwin, orig, dir, opts: RenderOptions, tree=None):
     """Reference parity: hit -> (normal + 1) / 2, miss -> background."""
-    rec = intersect_scene(scene, mwin, orig, dir, opts)
+    rec = intersect_scene(scene, mwin, orig, dir, opts, tree=tree)
     _, normal, _, _ = _surface(scene, rec, orig, dir)
     return torch.where(rec["hit"][:, None], normal_color(normal),
                        opts.background)
 
 
-def mirror_wave(rec, orig, dir, alive):
-    """The next wave of a mirror bounce: (hit, orig, dir). Lanes that were
-    alive and hit reflect about the shading normal from the hit point
-    offset by BOUNCE_EPS along the new direction; the others keep their
-    ray. hit is the next wave's live mask."""
-    point, normal, _, _ = _surface(None, rec, orig, dir)
+def mirror_wave(scene, rec, orig, dir, alive):
+    """The next wave of a mirror bounce: (hit, orig, dir, normal). Lanes
+    that were alive and hit reflect about the shading normal from the hit
+    point offset by BOUNCE_EPS along the new direction; the others keep
+    their ray. hit is the next wave's live mask."""
+    point, normal, _, _ = _surface(scene, rec, orig, dir)
     hit = rec["hit"] & alive
     newdir = vm.reflect(dir, normal)
     return (hit,
             torch.where(hit[:, None], point + newdir * BOUNCE_EPS, orig),
-            torch.where(hit[:, None], newdir, dir))
+            torch.where(hit[:, None], newdir, dir), normal)
 
 
-def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions):
+def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions, tree=None):
     """The reference's intended mirror-bounce shading. Per bounce
     (src/kernel.cl:399-417): col = (1-str) col + str normal_color;
     str *= 0.2; reflect about the normal (mirror_wave). On a miss or after
@@ -156,11 +197,11 @@ def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions):
     o, d = orig, dir
     for b in range(opts.bounces):
         rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
-                              active=None if b == 0 else alive)
-        hit, o, d = mirror_wave(rec, o, d, alive)
+                              active=None if b == 0 else alive, tree=tree)
+        hit, o, d, normal = mirror_wave(scene, rec, o, d, alive)
         st = strength[:, None]
         col = torch.where(hit[:, None], (1.0 - st) * col
-                          + st * normal_color(rec["snormal"]), col)
+                          + st * normal_color(normal), col)
         strength = torch.where(hit, strength * 0.2, strength)
         # rays that were alive but missed: blend toward the background
         missed = alive & ~rec["hit"]
@@ -174,7 +215,7 @@ def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions):
 
 
 def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
-               jitter_px: float = 0.0):
+               jitter_px: float = 0.0, tree=None):
     """Lambertian path tracing with emissive surfaces, without NEE:
     radiance += throughput * emission at each front-face hit and
     throughput * background on a miss; throughput *= albedo; the next
@@ -190,7 +231,8 @@ def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
     for b in range(opts.bounces):
         rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
                               active=None if b == 0 else alive,
-                              jitter_px=jitter_px if b == 0 else 0.0)
+                              jitter_px=jitter_px if b == 0 else 0.0,
+                              tree=tree)
         point, normal, albedo, emission = _surface(scene, rec, o, d)
         # one-sided emitters: front faces only
         cos_in = vm.dot(normal, d)
@@ -213,18 +255,19 @@ def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
 
 
 def render_rays(scene, mwin, orig, dir, opts: RenderOptions, bounce_u=None,
-                jitter_px: float = 0.0):
+                jitter_px: float = 0.0, tree=None):
     """Shade a wave of the frame's primary rays. bounce_u: path mode's
-    [bounces, N, 2] uniforms; jitter_px: the primaries' jitter bound."""
-    _check_supported(scene, opts, mwin)
+    [bounces, N, 2] uniforms; jitter_px: the primaries' jitter bound;
+    tree: the kd-tree route when mwin is None."""
+    _check_supported(scene, opts, mwin, tree)
     if opts.mode == "normal":
-        return shade_normal(scene, mwin, orig, dir, opts)
+        return shade_normal(scene, mwin, orig, dir, opts, tree=tree)
     if opts.mode == "mirror":
-        return shade_mirror(scene, mwin, orig, dir, opts)
+        return shade_mirror(scene, mwin, orig, dir, opts, tree=tree)
     if bounce_u is None:
         raise ValueError("path mode needs its bounce uniforms (bounce_u)")
     return shade_path(scene, mwin, orig, dir, opts, bounce_u,
-                      jitter_px=jitter_px)
+                      jitter_px=jitter_px, tree=tree)
 
 
 def path_draws(opts: RenderOptions, generator: torch.Generator, device):
@@ -241,23 +284,27 @@ def path_draws(opts: RenderOptions, generator: torch.Generator, device):
 
 
 def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
-                 generator: torch.Generator = None, jitter=None, bounce=None):
+                 tree=None, generator: torch.Generator = None, jitter=None,
+                 bounce=None):
     """Render an [H, W, 3] image. mwin: the scene's MortonWindows with
     shared-origin tables and fused resolve rows attached
-    (ops/plist.py::build_morton_windows, attach_so, attach_resolve).
+    (ops/plist.py::build_morton_windows, attach_so, attach_resolve); tree,
+    used when mwin is None: its kd-tree with window and SO tables
+    (accel/sah.py::build_kd_tree, attach_so_tables).
 
     Path mode draws its random numbers from `generator` (default: a
     generator on the camera's device seeded 0), or takes them as given:
     jitter [spp, H*W, 2] (spp > 1 only) and bounce [S, bounces, H*W, 2]
     (path_draws). spp > 1 averages that many jittered samples; other modes
     render one pixel-grid sample whatever spp is."""
-    _check_supported(scene, opts, mwin)
+    _check_supported(scene, opts, mwin, tree)
     device = camera.position.device
     cam_inv = cam_matrix(camera, opts.height)
     shape = (opts.height, opts.width, 3)
     if opts.mode != "path":
         orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        return render_rays(scene, mwin, orig, dir, opts).reshape(shape)
+        return render_rays(scene, mwin, orig, dir, opts,
+                           tree=tree).reshape(shape)
     if bounce is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
@@ -272,13 +319,15 @@ def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
             f"{(s, opts.bounces, n, 2)} and, for spp > 1, {(s, n, 2)}")
     if s == 1:
         orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        img = render_rays(scene, mwin, orig, dir, opts, bounce[0])
+        img = render_rays(scene, mwin, orig, dir, opts, bounce[0],
+                          tree=tree)
     else:
         samples = []
         for i in range(s):
             o, d = generate_rays_jittered(cam_inv, opts.width, opts.height,
                                           jitter[i:i + 1])
             samples.append(render_rays(scene, mwin, o[0], d[0], opts,
-                                       bounce[i], jitter_px=JITTER_PX))
+                                       bounce[i], jitter_px=JITTER_PX,
+                                       tree=tree))
         img = torch.stack(samples).mean(dim=0)
     return img.reshape(shape)

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports and renders with jax and flax
-blocked, no file of it imports either, and its kernel loader fails
-clearly where there is no CUDA toolkit."""
+"""The port stands alone: it imports and renders (windows and kd-tree
+routes) with jax and flax blocked, no file of it or of chip_smoke.py
+imports either or the JAX package, and its kernel loader fails clearly
+where there is no CUDA toolkit."""
 
 import re
 import subprocess
@@ -42,7 +43,17 @@ assert bool(torch.isfinite(mirror).all())
 # a mirror bounce off the near triangle leaves the scene (white blend)
 assert bool((mirror[hit] != img[hit]).any())
 assert torch.equal(mirror[~hit], img[~hit])
-assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax")
+# the kd-tree route: the port's native builder and K3's plain version
+from clpathtracer_tpu_torch.accel import sah
+tree = sah.attach_so_tables(sah.build_kd_tree(scene.tri_corners(),
+                                              device=cpu))
+for mode, ref in (("normal", img), ("mirror", mirror)):
+    kd = render_image(scene, cam, RenderOptions(width=32, height=32,
+                                                mode=mode, packet_tile=256),
+                      tree=tree)
+    assert torch.allclose(kd, ref, atol=1e-6), mode
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                   "clpathtracer_tpu")
                for m in sys.modules if sys.modules[m] is not None)
 print("rendered", int(hit.sum()))
 """
@@ -64,6 +75,19 @@ def test_no_file_imports_jax_or_flax():
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
+    assert offenders == []
+
+
+def test_no_file_imports_the_jax_package():
+    pattern = re.compile(
+        r"^\s*(import|from)\s+clpathtracer_tpu(\.|\s|$)", re.M)
+    files = sorted(f for f in PKG.rglob("*.py")
+                   if "_build" not in f.relative_to(PKG).parts)
+    files.append(ROOT / "chip_smoke.py")
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if pattern.search(f.read_text())
+                 or re.search(r"^\s*(import|from)\s+(jax|flax)\b",
+                              f.read_text(), re.M)]
     assert offenders == []
 
 
