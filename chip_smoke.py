@@ -72,10 +72,36 @@ The kd-tree route (no windows: the stream engine, kernel K3):
    beside its bound; the plain K3's time on the normal terrain frame's
    call.
 
+The bf16 preview (kernel K4, K3's kernel with a bf16 dense test) and the
+queue engine (kernel K5):
+
+16. K4 against its plain version on every 8th tile, exact in best t, best
+   slot and all five stats lanes, on the inputs of its three calls: the
+   terrain primaries (tile 2048, MT + AABB cull, the bf16 frame's own
+   call), the soup primaries (tile 512) and the mirror bounce wave of phase
+   13 (MT + active + cull; with its hit agreement against K3's f32 run);
+   K4's time beside its bound;
+17. bf16 frames through render_image(RenderOptions(precision="bf16")):
+   normal terrain (2 warm-up, 20 timed), normal soup (2 + 10), mirror
+   terrain (2 + 10); K4 rises by 1 per normal frame and 2 per mirror frame,
+   K3, K1 and K1' by 0; images finite. For each: frame median, the split,
+   and the primary hit agreement with the f32 frame (printed, not gated:
+   the preview is lossy by design);
+18. K5 through traverse_packet(engine="queue") on three inputs (terrain
+   primaries SO + cull at tile 2048, soup primaries SO + cull at 512, the
+   mirror bounce wave MT + active + cull), counted (3 launches, nothing
+   else); then K5 against its plain version on every 8th tile of each,
+   exact in t, slot and all five lanes;
+19. K5 beside K3 (its cull form, no strips or frustum) on the same inputs:
+   hits and best t equal, slots equal but at exact-t ties; both times,
+   taken in turns, beside the bound, with windows tested and culled per
+   tile; and the strips frame's K3 time of phase 15.
+
 The line before the last is a JSON object of the kernels: each kernel's
 launches are those of the frames of the path that gives its ms (K1 the
 normal frame, K1' the mirror frame, K3 the kd route's normal terrain
-frame), with every path's own count beside them. The last line is
+frame, K4 the bf16 normal terrain frame, K5 the three queue calls), with
+every path's own count beside them. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -170,12 +196,16 @@ def reset_counts():
     plist.plist_super.launches = 0
     plist.plist_super_mt.launches = 0
     packet.packet_stream.launches = 0
+    packet.packet_stream.bf16_launches = 0
+    packet.packet_queue.launches = 0
 
 
 def counts():
     return {"plist_super": plist.plist_super.launches,
             "plist_super_mt": plist.plist_super_mt.launches,
-            "packet_stream": packet.packet_stream.launches}
+            "packet_stream": packet.packet_stream.launches,
+            "packet_stream_bf16": packet.packet_stream.bf16_launches,
+            "packet_queue": packet.packet_queue.launches}
 
 
 def bruteforce_hits(scene, orig, dirs, chunk=16384):
@@ -248,10 +278,13 @@ def compare_with_plain(name, kernel_out, plain_fn, args, n_units, win_rows,
     return err, plain_ms
 
 
-def compare_k3(name, kernel_out, args, kw, every=EVERY, tally=None):
-    """Run the plain K3 on every `every`-th tile of the call (args, kw) and
-    hold the kernel's outputs to it exactly. Returns (max |dt| over the
-    plain hits, the plain run's ms, its stats)."""
+def compare_k3(name, kernel_out, args, kw, every=EVERY, tally=None,
+               plain=packet.packet_stream_reference):
+    """Run the plain version (K3's, else `plain`: K4 takes K3's with
+    precision="bf16" in kw, K5 packet_queue_reference) on every `every`-th
+    tile of the call (args, kw) and hold the kernel's outputs to it
+    exactly. Returns (max |dt| over the plain hits, the plain run's ms, its
+    stats)."""
     best_t, best_slot, stats = kernel_out
     nodes_i, nodes_f, rows, orig_t, dir_t, act = args
     tile = kw["tile"]
@@ -263,7 +296,7 @@ def compare_k3(name, kernel_out, args, kw, every=EVERY, tally=None):
     sub = {k: (v[sel].contiguous() if k in ("frustum", "masks", "ten")
                else v) for k, v in kw.items()}
     (ref_t, ref_slot, ref_stats), plain_ms = timed(
-        lambda: packet.packet_stream_reference(
+        lambda: plain(
             nodes_i, nodes_f, rows, orig_t[:, lanes].contiguous(),
             dir_t[:, lanes].contiguous(), act[lanes].contiguous(),
             tally=tally, **sub))
@@ -278,7 +311,8 @@ def compare_k3(name, kernel_out, args, kw, every=EVERY, tally=None):
         f"mismatches {bad_slot}, stats mismatches {bad_stats} (5 lanes), "
         f"max |dt| {err}, {int(hit.sum())} hits; plain {plain_ms:.1f} ms")
     if bad_t or bad_slot or bad_stats:
-        raise AssertionError(f"{name}: K3 disagrees with its plain version")
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             "version")
     return err, plain_ms, ref_stats
 
 
@@ -303,6 +337,27 @@ def mt_ops(tests, tally):
     passed = [tests, *(int(x) for x in tally)]
     left = [passed[i] - passed[i + 1] for i in range(3)] + [passed[3]]
     return sum(c * w for c, w in zip(left, MT_EXIT_OPS))
+
+
+def mt_bound(args, kw, out, ref_stats, tally):
+    """The bound of an MT call of K3, K4 or K5: its tested pairs (k3_tests)
+    weighted by the early exits that the plain run counted on its tiles
+    (tally), applied to all pairs. Returns (bound ms, bound_by, tested
+    pairs, pairs the plain run tested, FP32 operations)."""
+    tests = k3_tests(out[2], kw["tile"])
+    sample = k3_tests(ref_stats, kw["tile"])
+    ops = int(mt_ops(sample, tally) * tests / max(sample, 1))
+    return (*bound(k3_tensors(args, kw, out), ops), tests, sample, ops)
+
+
+def paired_ms(fa, fb, reps):
+    """Median device ms of fa and of fb, timed in turns (a b, b a, ...)."""
+    ta, tb = [], []
+    for i in range(reps):
+        order = ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta))
+        for f, acc in order:
+            acc.extend(cuda_times_ms(f, 1))
+    return float(np.median(ta)), float(np.median(tb))
 
 
 def bound(tensors, ops):
@@ -340,7 +395,7 @@ def run_frames(render, warmup, frames):
 
 def check_counts(phase, got, want):
     want = {"plist_super": 0, "plist_super_mt": 0, "packet_stream": 0,
-            **want}
+            "packet_stream_bf16": 0, "packet_queue": 0, **want}
     if got != want:
         raise AssertionError(f"{phase}: kernel launches {got}, want {want}")
 
@@ -389,7 +444,7 @@ def main():
 
 
 def smoke(device):
-    """Phases 3-15 on `device`; returns the kernels line's entries."""
+    """Phases 3-19 on `device`; returns the kernels line's entries."""
     # 3. scene at full size
     t = time.perf_counter()
     scene = terrain_mesh(N_TRIS, seed=0, extent=10.0,
@@ -638,7 +693,9 @@ def smoke(device):
         f"launches {got}")
     del mwin
 
-    k3 = kd_route(device, scene, soup, cam, scam, launches)
+    k3, ctx = kd_route(device, scene, soup, cam, scam, launches)
+    k4 = preview_route(ctx, launches)
+    k5 = queue_engine(ctx, launches)
     return [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -658,12 +715,14 @@ def smoke(device):
          "max_abs_err": mt_err,
          "ms": mt_ms, "plain_ms": mt_plain_ms,
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
-        k3,
+        k3, k4, k5,
     ]
 
 
 def kd_route(device, scene, soup, cam, scam, launches):
-    """Phases 12-15: the kd-tree route. Returns K3's kernels entry."""
+    """Phases 12-15: the kd-tree route. Returns K3's kernels entry and what
+    phases 16-19 reuse (scenes, trees, rays, the mirror bounce wave and
+    K3's result on it)."""
     n = SIZE * SIZE
 
     # 12. kd scenes
@@ -847,11 +906,8 @@ def kd_route(device, scene, soup, cam, scam, launches):
     say("kd mirror", "split (median ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in m_split.items()))
     b_stats = b_out[2]
-    b_tests = k3_tests(b_stats, t_tile)
-    sample_tests = k3_tests(b_ref_stats, t_tile)
-    # the early exits counted on every 8th tile, applied to all tested pairs
-    b_ops = int(mt_ops(sample_tests, tally) * b_tests / max(sample_tests, 1))
-    mk3_bound, mk3_by = bound(k3_tensors(b_args, b_kw, b_out), b_ops)
+    mk3_bound, mk3_by, b_tests, sample_tests, b_ops = mt_bound(
+        b_args, b_kw, b_out, b_ref_stats, tally)
     n_live = int(b_alive.sum())
     say("kd mirror", f"bounce wave: {n_live} live lanes of {n}, "
         f"{int(b_out[1].ge(0).sum())} bounce hits; "
@@ -866,16 +922,251 @@ def kd_route(device, scene, soup, cam, scam, launches):
         f"plain torch version {b_plain_ms:.4f} ms on "
         f"{len(range(0, n // t_tile, EVERY))} tiles, bound {mk3_bound:.4f} "
         f"ms ({mk3_by})")
-    return {"name": "packet_stream", "route": "cuda",
+    entry = {"name": "packet_stream", "route": "cuda",
+             "source": "clpathtracer_tpu_torch/ops/csrc/packet_stream.cu",
+             "replaces": "clpathtracer_tpu/ops/packet.py:1507",
+             "launches": launches["kd normal"]["packet_stream"],
+             "launches_by_path": {p: c["packet_stream"]
+                                  for p, c in launches.items()},
+             "max_abs_err": k3_err,
+             "ms": k3_ms, "plain_ms": k3_plain_ms,
+             "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
+             "mirror_ms": mk3_ms, "mirror_bound_ms": mk3_bound}
+    ctx = dict(scene=scene, soup=soup, cam=cam, scam=scam, tree=tree,
+               stree=stree, orig=orig, dirs=dirs, s_orig=s_orig,
+               s_dirs=s_dirs, bo=bo, bd=bd, ba=ba, b_out=b_out, k3_ms=k3_ms)
+    return entry, ctx
+
+
+def k4_call(tree, orig, dirs, image_shape, tile, active=None):
+    """The bf16 preview's K4 call of traverse_packet(precision="bf16"): MT
+    records, the AABB cull, no strips or frustum. (args, kw, layout)."""
+    args, kw, layout = packet.stream_kernel_args(
+        tree, orig, dirs, image_shape, tile, active, strips=False,
+        frustum=False)
+    return args, dict(kw, precision="bf16"), layout
+
+
+def preview_route(ctx, launches):
+    """Phases 16-17: the bf16 preview K4. Returns its kernels entry."""
+    n = SIZE * SIZE
+    t_tile, s_tile = TERRAIN_KD["tile"], SOUP_KD["tile"]
+    tree, stree = ctx["tree"], ctx["stree"]
+    device = ctx["orig"].device
+
+    # 16. K4 against its plain version on its three calls' inputs
+    calls = {"terrain": (tree, ctx["orig"], ctx["dirs"], (SIZE, SIZE),
+                         t_tile, None),
+             "soup": (stree, ctx["s_orig"], ctx["s_dirs"], (SIZE, SIZE),
+                      s_tile, None),
+             "mirror wave": (tree, ctx["bo"], ctx["bd"], None, t_tile,
+                             ctx["ba"])}
+    k4, err = {}, 0.0
+    for name, call in calls.items():
+        args, kw, _ = k4_call(*call)
+        out = packet.packet_stream(*args, **kw)
+        torch.cuda.synchronize()
+        tally = torch.zeros(3, dtype=torch.int64, device=device)
+        e, plain_ms, ref_stats = compare_k3(f"K4 bf16 {name}", out, args, kw,
+                                            tally=tally)
+        err = max(err, e)
+        ms = median_ms(lambda: packet.packet_stream(*args, **kw),
+                       3 if name == "mirror wave" else 10)
+        bnd, by, tests, _, ops = mt_bound(args, kw, out, ref_stats, tally)
+        k4[name] = dict(ms=ms, plain_ms=plain_ms, bound=bnd, by=by)
+        say(f"K4 bf16 {name}", tile_stats_line(out[2], call[4])
+            + f"; K4 {ms:.4f} ms, plain {plain_ms:.1f} ms on every "
+            f"{EVERY}th tile, bound {bnd:.4f} ms ({by}; {tests} MT tests, "
+            f"{ops / max(tests, 1):.3f} FP32 operations each by early exit; "
+            "the bf16 roundings not counted)")
+        if name == "mirror wave":   # K3 ran this wave in phase 13
+            live = ctx["ba"]
+            hit_bf, hit_f32 = out[1] >= 0, ctx["b_out"][1] >= 0
+            say("K4 bf16 mirror wave", "hit agreement with K3 (f32) on its "
+                f"{int(live.sum())} live lanes "
+                f"{float((hit_bf == hit_f32)[live].float().mean()):.6f} "
+                f"({int(hit_bf.sum())} bf16 hits, {int(hit_f32.sum())} f32)")
+
+    # 17. bf16 frames through render_image
+    frames = {
+        "bf16 normal": ("scene", "cam", tree, dict(packet_tile=t_tile),
+                        WARMUP, FRAMES, 1),
+        "bf16 soup": ("soup", "scam", stree,
+                      dict(packet_tile=s_tile, packet_strips=False,
+                           packet_frustum=False), 2, 10, 1),
+        "bf16 mirror": ("scene", "cam", tree,
+                        dict(packet_tile=t_tile, mode="mirror", bounces=2),
+                        2, 10, 2),
+    }
+    for name, (sc, cm, tr, kw, warm, reps, per) in frames.items():
+        sc, cm = ctx[sc], ctx[cm]
+        opts = RenderOptions(width=SIZE, height=SIZE, precision="bf16", **kw)
+        ms, wall, got, img = run_frames(
+            lambda: render_image(sc, cm, opts, tree=tr), warm, reps)
+        check_counts(name, got, {"packet_stream_bf16": per * (warm + reps)})
+        launches[name] = got
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{name}: non-finite pixels")
+        med = float(np.median(ms))
+        o, d = generate_rays(cam_matrix(cm, SIZE), SIZE, SIZE)
+        prim = intersect_scene(sc, None, o, d, opts, tree=tr)
+        ref = intersect_scene(sc, None, o, d,
+                              RenderOptions(width=SIZE, height=SIZE, **kw),
+                              tree=tr)
+        agree = float((prim["hit"] == ref["hit"]).float().mean())
+        say(name, f"{SIZE}x{SIZE}: median {med:.4f} ms over {reps} frames "
+            f"(min {min(ms):.4f}, max {max(ms):.4f}; host wall {wall:.4f} "
+            f"ms/frame), {n / med * 1e3:.6g} rays/s; primary hit agreement "
+            f"with the f32 frame {agree:.6f} ({int(prim['hit'].sum())} bf16 "
+            f"hits, {int(ref['hit'].sum())} f32), launches {got}")
+        say(name, "split (median ms): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in
+            preview_split(sc, cm, tr, opts, o, d, prim).items()))
+    k = k4["terrain"]
+    return {"name": "packet_stream_bf16", "route": "cuda",
             "source": "clpathtracer_tpu_torch/ops/csrc/packet_stream.cu",
-            "replaces": "clpathtracer_tpu/ops/packet.py:1507",
-            "launches": launches["kd normal"]["packet_stream"],
-            "launches_by_path": {p: c["packet_stream"]
+            "replaces": "clpathtracer_tpu/ops/packet.py:899",
+            "launches": launches["bf16 normal"]["packet_stream_bf16"],
+            "launches_by_path": {p: c["packet_stream_bf16"]
                                  for p, c in launches.items()},
-            "max_abs_err": k3_err,
-            "ms": k3_ms, "plain_ms": k3_plain_ms,
-            "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None,
-            "mirror_ms": mk3_ms, "mirror_bound_ms": mk3_bound}
+            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "plain_tiles": f"every {EVERY}th",
+            "bound_ms": k["bound"], "bound_by": k["by"], "library_ms": None,
+            "soup_ms": k4["soup"]["ms"], "soup_bound_ms": k4["soup"]["bound"],
+            "mirror_wave_ms": k4["mirror wave"]["ms"],
+            "mirror_wave_bound_ms": k4["mirror wave"]["bound"]}
+
+
+def preview_split(scene, cam, tree, opts, orig, dirs, prim):
+    """A bf16 frame's parts, each timed alone on the frame's own inputs:
+    rays, K4's prepass, K4, resolve+shade for a normal frame; primary,
+    sort, prepass, K4 on the bounce wave, resolve+shade for a mirror
+    frame."""
+    tile = opts.packet_tile
+    if opts.mode == "normal":
+        args, kw, layout = k4_call(tree, orig, dirs, (SIZE, SIZE), tile)
+        out = packet.packet_stream(*args, **kw)
+
+        def resolve_shade():
+            r = packet._resolve_stream_winners(
+                tree, packet._to_wave_order(out[1], layout), orig, dirs,
+                out[2])
+            return torch.where(r["hit"][:, None],
+                               normal_color(_surface(scene, r, orig,
+                                                     dirs)[1]),
+                               opts.background)
+        return {"rays": median_ms(lambda: generate_rays(
+                    cam_matrix(cam, SIZE), SIZE, SIZE), 10),
+                "prepass": median_ms(lambda: k4_call(
+                    tree, orig, dirs, (SIZE, SIZE), tile), 10),
+                "K4": median_ms(lambda: packet.packet_stream(*args, **kw),
+                                10),
+                "resolve+shade": median_ms(resolve_shade, 10)}
+    alive = torch.ones((SIZE * SIZE,), dtype=torch.bool, device=orig.device)
+    b_alive, b_orig, b_dirs, _ = mirror_wave(scene, prim, orig, dirs, alive)
+    inv, bo, bd, ba = sort_wave(b_orig, b_dirs, b_alive)
+    args, kw, _ = k4_call(tree, bo, bd, None, tile, ba)
+    out = packet.packet_stream(*args, **kw)
+
+    def resolve_shade():
+        r = packet._resolve_stream_winners(tree, out[1], bo, bd, out[2])
+        nrm = _surface(scene, r, bo, bd)[1]
+        h = r["hit"][inv] & b_alive
+        return torch.where(h[:, None], 0.8 * normal_color(nrm[inv]), 0.2)
+    return {"primary": median_ms(lambda: intersect_scene(
+                scene, None, orig, dirs, opts, tree=tree), 5),
+            "sort": median_ms(lambda: sort_wave(b_orig, b_dirs, b_alive), 5),
+            "prepass": median_ms(lambda: k4_call(tree, bo, bd, None, tile,
+                                                 ba), 5),
+            "K4": median_ms(lambda: packet.packet_stream(*args, **kw), 3),
+            "resolve+shade": median_ms(resolve_shade, 5)}
+
+
+def queue_engine(ctx, launches):
+    """Phases 18-19: the queue engine K5, beside K3. Returns K5's kernels
+    entry."""
+    t_tile, s_tile = TERRAIN_KD["tile"], SOUP_KD["tile"]
+    tree, stree = ctx["tree"], ctx["stree"]
+    device = ctx["orig"].device
+    calls = {"terrain": (tree, ctx["orig"], ctx["dirs"], (SIZE, SIZE),
+                         t_tile, None, True),
+             "soup": (stree, ctx["s_orig"], ctx["s_dirs"], (SIZE, SIZE),
+                      s_tile, None, True),
+             "mirror wave": (tree, ctx["bo"], ctx["bd"], None, t_tile,
+                             ctx["ba"], False)}
+
+    # 18. the three queue calls through the entry point, counted; then the
+    # kernel against its plain version on every 8th tile of each
+    reset_counts()
+    recs = {name: packet.traverse_packet(
+                tr, o, d, shape, tile, engine="queue", active=act,
+                shared_origin=so, grid_dirs=so)
+            for name, (tr, o, d, shape, tile, act, so) in calls.items()}
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("queue", got, {"packet_queue": len(calls)})
+    launches["queue"] = got
+    k5, err = {}, 0.0
+    for name, (tr, o, d, shape, tile, act, so) in calls.items():
+        # the queue's call: the AABB cull, never strips or the frustum
+        args, kw, layout = packet.stream_kernel_args(
+            tr, o, d, shape, tile, act, so, so, strips=False, frustum=False)
+        q_out = packet.packet_queue(*args, **kw)
+        torch.cuda.synchronize()
+        hit = packet._to_wave_order(q_out[1], layout) >= 0
+        if not torch.equal(hit, recs[name]["hit"]) or not bool(hit.any()):
+            raise AssertionError(f"K5 {name}: traverse_packet's hits differ "
+                                 "from the kernel call's, or none")
+        tally = None if so else torch.zeros(3, dtype=torch.int64,
+                                            device=device)
+        e, plain_ms, ref_stats = compare_k3(
+            f"K5 {name}", q_out, args, kw, tally=tally,
+            plain=packet.packet_queue_reference)
+        err = max(err, e)
+
+        # 19. K5 beside K3 in its cull form on the same inputs
+        s_out = packet.packet_stream(*args, **kw)
+        torch.cuda.synchronize()
+        same_hit = torch.equal(q_out[1] >= 0, s_out[1] >= 0)
+        same_t = torch.equal(q_out[0], s_out[0])
+        ties = int((q_out[1] != s_out[1]).sum())
+        say(f"K5 vs K3 {name}", f"hits equal {same_hit}, best t equal "
+            f"{same_t}, slots differing at exact-t ties {ties} of "
+            f"{int((s_out[1] >= 0).sum())} hits")
+        if not (same_hit and same_t):
+            raise AssertionError(f"K5 {name}: hits or t differ from K3's")
+        k3_ms, q_ms = paired_ms(lambda: packet.packet_stream(*args, **kw),
+                                lambda: packet.packet_queue(*args, **kw),
+                                4 if name == "mirror wave" else 10)
+        if so:
+            tests = k3_tests(q_out[2], tile)
+            bnd, by = bound(k3_tensors(args, kw, q_out), tests * K1_OPS)
+        else:
+            bnd, by, tests, _, _ = mt_bound(args, kw, q_out, ref_stats, tally)
+        k5[name] = dict(ms=q_ms, k3_ms=k3_ms, plain_ms=plain_ms, bound=bnd,
+                        by=by)
+        say(f"K5 vs K3 {name}", f"K5 {q_ms:.4f} ms, K3 {k3_ms:.4f} ms (in "
+            f"turns), bound {bnd:.4f} ms ({by}; {tests} "
+            f"{'SO' if so else 'MT'} tests); K5 " + tile_stats_line(
+                q_out[2], tile) + "; K3 " + tile_stats_line(s_out[2], tile))
+    say("K5 vs K3", f"the terrain frame's K3 with strips (the route users get "
+        f"today): {ctx['k3_ms']:.4f} ms")
+    k = k5["terrain"]
+    return {"name": "packet_queue", "route": "cuda",
+            "source": "clpathtracer_tpu_torch/ops/csrc/packet_queue.cu",
+            "replaces": "clpathtracer_tpu/ops/packet.py:1101",
+            "also_replaces": "clpathtracer_tpu/ops/packet.py:1881",
+            "launches": launches["queue"]["packet_queue"],
+            "launches_by_path": {p: c["packet_queue"]
+                                 for p, c in launches.items()},
+            "max_abs_err": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "plain_tiles": f"every {EVERY}th",
+            "bound_ms": k["bound"], "bound_by": k["by"], "library_ms": None,
+            "k3_ms": k["k3_ms"],
+            "soup_ms": k5["soup"]["ms"], "soup_k3_ms": k5["soup"]["k3_ms"],
+            "mirror_wave_ms": k5["mirror wave"]["ms"],
+            "mirror_wave_k3_ms": k5["mirror wave"]["k3_ms"],
+            "mirror_wave_bound_ms": k5["mirror wave"]["bound"]}
 
 
 if __name__ == "__main__":

@@ -47,8 +47,13 @@ SIGNATURES = {
     "packet_stream": {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, frustum, masks,
         # ten, best_t, best_slot, stats, n_rays, tile, n_rows, n_windows,
-        # mode, n_strips, so, stream
-        "packet_stream_launch": [_P] * 13 + [_I] * 7 + [_P],
+        # mode, n_strips, so, bf16, stream
+        "packet_stream_launch": [_P] * 13 + [_I] * 8 + [_P],
+    },
+    "packet_queue": {
+        # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, best_t,
+        # best_slot, stats, n_rays, tile, n_rows, so, stream
+        "packet_queue_launch": [_P] * 10 + [_I] * 4 + [_P],
     },
 }
 

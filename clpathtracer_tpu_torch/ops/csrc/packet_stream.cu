@@ -1,7 +1,9 @@
 // K3: the kd-tree stream packet kernel for Hopper (sm_90a). Replaces the
 // TPU kernel clpathtracer_tpu/ops/packet.py::_kernel_stream_smem (with
 // _stream_windows_culled), the engine traverse_packet runs on a kd-tree with
-// no windows attached.
+// no windows attached. Its bf16 instance is K4, the bf16 preview of
+// clpathtracer_tpu/ops/packet.py::_kernel_stream (precision="bf16"); K4's
+// f32 form computes K3's function and is served by K3.
 //
 // What it computes, per packet tile of `tile` rays: one interval walk of the
 // kd-tree for the whole tile (a stack of (node, t_lo, t_hi) entries), with
@@ -37,10 +39,7 @@
 //
 // Design: one block per tile; tile/RPT threads, each owning RPT rays (lane
 // tid + k * threads), so a 2048-ray tile runs 512 threads of 4 rays. The
-// walk is block-uniform: every thread computes the same pops, interval
-// tests and window decisions from the same global reads; thread 0 writes
-// the stack (shared memory) and barriers order the reads and writes. The
-// packet bounds and t_upper are block reductions. A kept window's 128
+// walk is block-uniform (kd_walk.cuh, shared with K5). A kept window's 128
 // records (cols 0-11) are staged in 6 KB of shared memory and every thread
 // reads each record as a broadcast.
 //
@@ -50,29 +49,22 @@
 // latency of each window; one block per tile also leaves SMs idle when a
 // frame has few tiles (128 tiles of 2048 rays at 512x512 on 132 SMs).
 // Making it fast is later work: cp.async double-buffered windows, walk and
-// test in separate warps, smaller tiles per block.
+// test in separate warps, smaller tiles per block. K4 adds a bf16 rounding
+// after each of its FP32 operations, as the preview's semantics ask; it is
+// a port of the preview's results, not a speed-up on this card.
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "kd_walk.cuh"
 #include "pair_tests.cuh"
 
 namespace {
 
-using clpt::Ray;
-using clpt::dot3;
-using clpt::mt_hit;
-using clpt::so_hit;
+using namespace clpt;
 
-constexpr int kStack = 128;          // stack entries (the TPU kernel's)
-constexpr int kChunkRows = 16;       // rows of 8 records per window
-constexpr int kWinRecs = kChunkRows * 8;
-constexpr int kRecF4 = 4;            // float4s per 16-float record
-constexpr int kUsedF4 = 3;           // float4s loaded per record (cols 0-11)
+constexpr int kUsedF4 = 3;           // float4s staged per record (cols 0-11)
 constexpr int kGateLanes = 512;      // lanes per gate in half-gate mode
-constexpr int kMaxThreads = 512;
-constexpr float kBig = 3.4e38f;
-constexpr float kInvBig = 1e30f;
 
 enum Mode { kNoCull = 0, kCull = 1, kCullFrustum = 2, kStrips = 3 };
 
@@ -94,88 +86,16 @@ struct Args {
   int n_rays, tile, n_rows, n_windows, mode, n_strips;
 };
 
-// Block reductions; every thread gets the result. Callers are uniform.
-__device__ float block_min(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // red[] is free: every thread read the previous result
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fminf(r, red[w]);
-  return r;
-}
-
-__device__ float block_max(float v, float* red) {
-  return -block_min(-v, red);
-}
-
-__device__ int block_sum(int v, int* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) r += red[w];
-  return r;
-}
-
-__device__ __forceinline__ float clip_inv(float d) {
-  return fminf(fmaxf(__frcp_rn(d), -kInvBig), kInvBig);
-}
-
-// The packet bounds, in shared memory: ol[3], oh[3], il[3], ih[3].
-struct Bounds {
-  float ol[3], oh[3], il[3], ih[3];
-};
-
-// min and max of (b - ol) * il, (b - ol) * ih, (b - oh) * il, (b - oh) * ih
-__device__ __forceinline__ void prods(float b, float ol, float oh, float il,
-                                      float ih, float* mn, float* mx) {
-  const float c1 = __fmul_rn(__fsub_rn(b, ol), il);
-  const float c2 = __fmul_rn(__fsub_rn(b, ol), ih);
-  const float c3 = __fmul_rn(__fsub_rn(b, oh), il);
-  const float c4 = __fmul_rn(__fsub_rn(b, oh), ih);
-  *mn = fminf(fminf(c1, c2), fminf(c3, c4));
-  *mx = fmaxf(fmaxf(c1, c2), fmaxf(c3, c4));
-}
-
-// clpathtracer_tpu/ops/packet.py::_box_interval over the packet bounds
-__device__ void box_interval(const float* lo, const float* hi,
-                             const Bounds& B, float* t_en, float* t_ex) {
-  float en = -kInvBig, ex = kInvBig;
-  for (int ax = 0; ax < 3; ++ax) {
-    const float il = B.il[ax], ih = B.ih[ax];
-    const bool uniform = __fmul_rn(il, ih) > 0.f;
-    const bool pos = il > 0.f;
-    float near_min, far_max, unused;
-    prods(pos ? lo[ax] : hi[ax], B.ol[ax], B.oh[ax], il, ih, &near_min,
-          &unused);
-    prods(pos ? hi[ax] : lo[ax], B.ol[ax], B.oh[ax], il, ih, &unused,
-          &far_max);
-    en = ax == 0 ? (uniform ? near_min : -kInvBig)
-                 : fmaxf(en, uniform ? near_min : -kInvBig);
-    ex = ax == 0 ? (uniform ? far_max : kInvBig)
-                 : fminf(ex, uniform ? far_max : kInvBig);
-  }
-  *t_en = en;
-  *t_ex = ex;
-}
-
 // Whether the tile must stream window w (global id) of the current leaf.
 __device__ bool survives(const Args& a, const Bounds& B, int tile_i, int w,
                          float tlo, float thi, float t_upper) {
   if (a.mode == kNoCull) return true;
-  const float tup = fminf(thi, t_upper);
   if (a.mode == kStrips) {
     const size_t i = (size_t)tile_i * a.n_windows + w;
-    return a.masks[i] != 0 && a.ten[i] <= tup;
+    return a.masks[i] != 0 && a.ten[i] <= fminf(thi, t_upper);
   }
   const float* c = a.cbnd + (size_t)w * 6;
-  float t_en, t_ex;
-  box_interval(c, c + 3, B, &t_en, &t_ex);
-  bool keep = t_en <= tup && t_ex >= tlo && t_ex > 0.f;
+  bool keep = window_keeps(c, B, tlo, thi, t_upper);
   if (a.mode == kCullFrustum) {
     const float* fr = a.frustum + (size_t)tile_i * 16;
     for (int p = 0; p < 4; ++p) {
@@ -192,7 +112,12 @@ __device__ bool survives(const Args& a, const Bounds& B, int tile_i, int w,
   return keep;
 }
 
-template <int RPT, bool kSO>
+// kBF16: the bf16 preview (K4; MT records, modes kNoCull and kCull): the
+// window's records and the rays are rounded to bf16 once, where they are
+// staged and loaded, and the dense test is mt_hit_bf16; the walk, t_upper,
+// the slots and the merge stay f32 / int32, and stats lane 4 is 0 as the
+// TPU kernel writes it.
+template <int RPT, bool kSO, bool kBF16>
 __global__ void __launch_bounds__(kMaxThreads)
 packet_stream_kernel(const Args a) {
   __shared__ float4 win[kWinRecs * kUsedF4];
@@ -212,58 +137,23 @@ packet_stream_kernel(const Args a) {
   bool on[RPT];
   float bt[RPT];
   int bs[RPT];
-  int n_on = 0;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const size_t g = base + tid + k * nthr;
-    ray[k].ox = a.orig_t[g];
-    ray[k].oy = a.orig_t[a.n_rays + g];
-    ray[k].oz = a.orig_t[2 * (size_t)a.n_rays + g];
-    ray[k].dx = a.dir_t[g];
-    ray[k].dy = a.dir_t[a.n_rays + g];
-    ray[k].dz = a.dir_t[2 * (size_t)a.n_rays + g];
-    on[k] = a.act[g] > 0.f;
-    n_on += on[k];
-    bt[k] = kBig;
-    bs[k] = -1;
-  }
+  load_rays<RPT>(a.orig_t, a.dir_t, a.act, a.n_rays, base, ray, on, bt, bs);
 
-  // packet bounds over the active lanes (_packet_bounds_masked)
-  for (int ax = 0; ax < 3; ++ax) {
-    float ol = kBig, oh = -kBig, il = kInvBig, ih = -kInvBig;
+  // packet bounds over the active lanes (_packet_bounds_masked), in f32
+  const int n_act = packet_bounds<RPT>(ray, on, B, red, ired);
+  if (kBF16) {
 #pragma unroll
     for (int k = 0; k < RPT; ++k) {
-      if (!on[k]) continue;
-      const float o = ax == 0 ? ray[k].ox : ax == 1 ? ray[k].oy : ray[k].oz;
-      const float d = ax == 0 ? ray[k].dx : ax == 1 ? ray[k].dy : ray[k].dz;
-      const float inv = clip_inv(d);
-      ol = fminf(ol, o);
-      oh = fmaxf(oh, o);
-      il = fminf(il, inv);
-      ih = fmaxf(ih, inv);
-    }
-    ol = block_min(ol, red);
-    oh = block_max(oh, red);
-    il = block_min(il, red);
-    ih = block_max(ih, red);
-    if (tid == 0) {
-      B.ol[ax] = ol;
-      B.oh[ax] = oh;
-      B.il[ax] = il;
-      B.ih[ax] = ih;
+      ray[k].ox = bf(ray[k].ox);
+      ray[k].oy = bf(ray[k].oy);
+      ray[k].oz = bf(ray[k].oz);
+      ray[k].dx = bf(ray[k].dx);
+      ray[k].dy = bf(ray[k].dy);
+      ray[k].dz = bf(ray[k].dz);
     }
   }
-  const int n_act = block_sum(n_on, ired);  // its barriers publish B
 
-  float rt_lo, rt_hi;
-  box_interval(a.nodes_f, a.nodes_f + 3, B, &rt_lo, &rt_hi);
-  int sp = (rt_lo <= rt_hi && rt_hi > 0.f && n_act > 0) ? 1 : 0;
-  if (tid == 0) {
-    s_node[0] = 0;
-    s_tlo[0] = rt_lo;
-    s_thi[0] = rt_hi;
-  }
-  __syncthreads();
+  int sp = push_root(a.nodes_f, B, n_act, s_node, s_tlo, s_thi);
 
   float t_upper = kBig;
   int nv = 0, nl = 0, nc = 0, nsm = 0;
@@ -286,8 +176,11 @@ packet_stream_kernel(const Args a) {
         const int row = min(r0 + b * kChunkRows, a.n_rows - kChunkRows);
         const long long rec0 = (long long)row * 8;
         __syncthreads();  // every thread is done with the previous window
-        for (int i = tid; i < kWinRecs * kUsedF4; i += nthr)
-          win[i] = a.rows[(rec0 + i / kUsedF4) * kRecF4 + i % kUsedF4];
+        for (int i = tid; i < kWinRecs * kUsedF4; i += nthr) {
+          float4 v = a.rows[(rec0 + i / kUsedF4) * kRecF4 + i % kUsedF4];
+          if (kBF16) v = make_float4(bf(v.x), bf(v.y), bf(v.z), bf(v.w));
+          win[i] = v;
+        }
         __syncthreads();
         unsigned gates = 0xffffffffu;
         if (half) {
@@ -297,32 +190,8 @@ packet_stream_kernel(const Args a) {
         } else {
           ++nsm;
         }
-#pragma unroll
-        for (int k = 0; k < RPT; ++k) {
-          if (!on[k]) continue;
-          if (half && !((gates >> ((tid + k * nthr) / kGateLanes)) & 1u))
-            continue;
-          float ct = kBig;
-          int cr = -1;  // record of ct within the window
-          for (int r = 0; r < kWinRecs; ++r) {
-            const float4 p = win[r * kUsedF4];
-            const float4 q = win[r * kUsedF4 + 1];
-            const float4 w = win[r * kUsedF4 + 2];
-            float t;
-            const bool hit = kSO ? so_hit(ray[k], p, q, w, &t)
-                                 : mt_hit(ray[k], p, q, w, &t);
-            // least t; at equal t the same row's later record
-            if (hit && t < kBig &&
-                (t < ct || (t == ct && (r >> 3) == (cr >> 3)))) {
-              ct = t;
-              cr = r;
-            }
-          }
-          if (ct < kBig && ct <= bt[k]) {  // the later window wins ties
-            bt[k] = ct;
-            bs[k] = (int)(rec0 + cr);
-          }
-        }
+        dense_window<RPT, kSO, kBF16, kUsedF4, kGateLanes>(win, ray, on,
+                                                          gates, rec0, bt, bs);
         ++streamed;
         ++b;
         while (b < nwin &&
@@ -331,80 +200,35 @@ packet_stream_kernel(const Args a) {
       }
       nl += streamed;
       if (a.mode != kNoCull) nc += nwin - streamed;
-      if ((nv & 3) == 0) {
-        float m = -kBig;
-#pragma unroll
-        for (int k = 0; k < RPT; ++k)
-          if (on[k]) m = fmaxf(m, bt[k]);
-        t_upper = block_max(m, red);
-      }
+      if ((nv & 3) == 0) t_upper = tile_t_upper<RPT>(bt, on, red);
     } else {  // split: far child first, then the near child
-      const int ax = nd.x & 3;
-      const float il = B.il[ax], ih = B.ih[ax];
-      const bool uni = __fmul_rn(il, ih) > 0.f;
-      const bool nlo = __fadd_rn(il, ih) > 0.f;
-      float tp_min, tp_max;
-      prods(a.nodes_f[6 + node], B.ol[ax], B.oh[ax], il, ih, &tp_min,
-            &tp_max);
-      if (!uni) {
-        tp_min = -kInvBig;
-        tp_max = kInvBig;
-      }
-      const int near = nlo ? nd.y : nd.z;
-      const int far = nlo ? nd.z : nd.y;
-      const float far_lo = fmaxf(tlo, tp_min);
-      const float near_hi = fminf(thi, tp_max);
-      if (sp + 2 > kStack) __trap();  // the stack cannot overflow silently
-      if (far_lo <= fminf(thi, t_upper)) {
-        if (tid == 0) {
-          s_node[sp] = far;
-          s_tlo[sp] = far_lo;
-          s_thi[sp] = thi;
-        }
-        ++sp;
-      }
-      if (tlo <= fminf(near_hi, t_upper)) {
-        if (tid == 0) {
-          s_node[sp] = near;
-          s_tlo[sp] = tlo;
-          s_thi[sp] = near_hi;
-        }
-        ++sp;
-      }
-      __syncthreads();
+      sp = push_children(B, nd, a.nodes_f[6 + node], tlo, thi, t_upper, sp,
+                         s_node, s_tlo, s_thi);
     }
   }
 
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const size_t g = base + tid + k * nthr;
-    a.best_t[g] = bt[k];
-    a.best_slot[g] = bt[k] < kBig ? bs[k] : -1;
-  }
-  if (tid == 0) {
-    int* st = a.stats + 5 * (size_t)tile_i;
-    st[0] = nv;
-    st[1] = nl;
-    st[2] = n_act;
-    st[3] = nc;
-    st[4] = nsm;
-  }
+  store_tile<RPT>(bt, bs, base, a.best_t, a.best_slot, a.stats, nv, nl,
+                  n_act, nc, kBF16 ? 0 : nsm);
 }
 
 template <int RPT>
-int launch_rpt(const Args& a, bool so, cudaStream_t stream) {
+int launch_rpt(const Args& a, bool so, bool bf16, cudaStream_t stream) {
   const int n_tiles = a.n_rays / a.tile;
   const int threads = a.tile / RPT;
-  if (so)
-    packet_stream_kernel<RPT, true><<<n_tiles, threads, 0, stream>>>(a);
+  if (bf16)
+    packet_stream_kernel<RPT, false, true><<<n_tiles, threads, 0, stream>>>(a);
+  else if (so)
+    packet_stream_kernel<RPT, true, false><<<n_tiles, threads, 0, stream>>>(a);
   else
-    packet_stream_kernel<RPT, false><<<n_tiles, threads, 0, stream>>>(a);
+    packet_stream_kernel<RPT, false, false><<<n_tiles, threads, 0, stream>>>(
+        a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K3. nodes_i: [M, 4] i32; nodes_f: [6 + M] f32; rows: [n_rows * 8, 16] f32
+// K3, and K4's bf16 preview when bf16 != 0 (MT records, modes 0 and 1).
+// nodes_i: [M, 4] i32; nodes_f: [6 + M] f32; rows: [n_rows * 8, 16] f32
 // records (SO rows when so != 0, else raw (v0, e1, e2, tri_id)); orig_t,
 // dir_t: [3, n_rays] f32 tile-major; act: [n_rays] f32; cbnd: [W, 6] f32
 // (modes 1, 2); frustum: [n_rays / tile, 16] f32 (mode 2); masks, ten:
@@ -417,7 +241,7 @@ extern "C" int packet_stream_launch(
     const void* orig_t, const void* dir_t, const void* act, const void* cbnd,
     const void* frustum, const void* masks, const void* ten, void* best_t,
     void* best_slot, void* stats, int n_rays, int tile, int n_rows,
-    int n_windows, int mode, int n_strips, int so, void* stream) {
+    int n_windows, int mode, int n_strips, int so, int bf16, void* stream) {
   Args a;
   a.nodes_i = static_cast<const int4*>(nodes_i);
   a.nodes_f = static_cast<const float*>(nodes_f);
@@ -440,17 +264,18 @@ extern "C" int packet_stream_launch(
   a.n_strips = n_strips;
   if (tile <= 0 || tile % 32 || tile > 8 * kMaxThreads || n_rays % tile ||
       n_rows < kChunkRows || mode < kNoCull || mode > kStrips ||
-      (mode == kStrips && (n_strips < 1 || n_strips > 31)))
+      (mode == kStrips && (n_strips < 1 || n_strips > 31)) ||
+      (bf16 && (so || mode > kCull)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rpt = tile <= kMaxThreads ? 1 : tile / kMaxThreads;
   if (rpt * (tile / rpt) != tile) return (int)cudaErrorInvalidValue;
   switch (rpt) {
-    case 1: return launch_rpt<1>(a, so != 0, s);
-    case 2: return launch_rpt<2>(a, so != 0, s);
-    case 4: return launch_rpt<4>(a, so != 0, s);
-    case 8: return launch_rpt<8>(a, so != 0, s);
+    case 1: return launch_rpt<1>(a, so != 0, bf16 != 0, s);
+    case 2: return launch_rpt<2>(a, so != 0, bf16 != 0, s);
+    case 4: return launch_rpt<4>(a, so != 0, bf16 != 0, s);
+    case 8: return launch_rpt<8>(a, so != 0, bf16 != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

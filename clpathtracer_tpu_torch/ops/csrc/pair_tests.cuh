@@ -1,6 +1,7 @@
 // Ray-triangle pair tests shared by the port's kernels: K1 and K1'
-// (plist_super.cu) and K3 (packet_stream.cu). One copy, so every kernel
-// rounds a pair as the others and as the plain torch versions do.
+// (plist_super.cu), K3 and K4 (packet_stream.cu) and K5 (packet_queue.cu).
+// One copy, so every kernel rounds a pair as the others and as the plain
+// torch versions do.
 //
 //   so_hit: the shared-origin signed-volume test of clpathtracer_tpu/ops/
 //     packet.py::_mt_chunk_math_so: s1, s2, s3 <= 0, strict dsum < 0,
@@ -13,6 +14,14 @@
 //     u + v <= 1, t > 0, tri_id >= 0. 53 FP32 operations on the full path
 //     (27 mul, 18 add or sub, 7 compares, 1 reciprocal), 15, 27 or 45 on
 //     the pairs that the det, u or v branch rejects.
+//   mt_hit_bf16: the bf16 preview of mt_hit (_mt_chunk_math with
+//     compute_dtype=bfloat16): the same expressions in the same order on
+//     bf16 values, each *, -, + and 1/x computed in f32 and rounded to bf16
+//     (round to nearest even), which is what every torch bf16 tensor op
+//     does, so the plain version (ops/packet.py::mt_pairs with
+//     dtype=torch.bfloat16) matches it bit for bit. A hit whose t rounds
+//     to 3.0e38 or more is a miss (the preview's miss value). No packed
+//     bf16x2 arithmetic and no contraction: either would break exactness.
 //
 // Rejection is a branch, never an arithmetic blend: pad records and dead
 // lanes (direction exactly 0, so det is exactly 0) would give inf or NaN.
@@ -22,6 +31,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace clpt {
@@ -81,6 +91,53 @@ __device__ __forceinline__ bool mt_hit(const Ray& ray, float4 a, float4 b,
   if (!(v >= 0.f && __fadd_rn(u, v) <= 1.f)) return false;
   const float tt = __fmul_rn(dot3(e2x, e2y, e2z, qx, qy, qz), invd);
   if (!(tt > 0.f && c.y >= 0.f)) return false;
+  *t = tt;
+  return true;
+}
+
+// x rounded to bf16 (nearest even) and back: the value a torch bf16 op
+// stores for the f32 result x
+__device__ __forceinline__ float bf(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float dot3_bf(float x0, float x1, float x2,
+                                         float a, float b, float c) {
+  return bf(__fadd_rn(bf(__fadd_rn(bf(__fmul_rn(x0, a)), bf(__fmul_rn(x1, b)))),
+                      bf(__fmul_rn(x2, c))));
+}
+
+__device__ __forceinline__ float crs_bf(float x1, float b, float x2,
+                                        float a) {
+  return bf(__fsub_rn(bf(__fmul_rn(x1, b)), bf(__fmul_rn(x2, a))));
+}
+
+// mt_hit in the bf16 preview: the ray and the record (laid out as for
+// mt_hit) hold values already rounded to bf16. Writes t and returns true on
+// a hit.
+__device__ __forceinline__ bool mt_hit_bf16(const Ray& ray, float4 a,
+                                            float4 b, float4 c, float* t) {
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = c.x;
+  const float px = crs_bf(ray.dy, e2z, ray.dz, e2y);
+  const float py = crs_bf(ray.dz, e2x, ray.dx, e2z);
+  const float pz = crs_bf(ray.dx, e2y, ray.dy, e2x);
+  const float det = dot3_bf(e1x, e1y, e1z, px, py, pz);
+  if (!(det > 0.f)) return false;  // backface cull; dead lanes: det == 0
+  const float invd = bf(__fdiv_rn(1.f, det));
+  const float tx = bf(__fsub_rn(ray.ox, a.x));
+  const float ty = bf(__fsub_rn(ray.oy, a.y));
+  const float tz = bf(__fsub_rn(ray.oz, a.z));
+  const float u = bf(__fmul_rn(dot3_bf(tx, ty, tz, px, py, pz), invd));
+  if (!(u >= 0.f && u <= 1.f)) return false;
+  const float qx = crs_bf(ty, e1z, tz, e1y);
+  const float qy = crs_bf(tz, e1x, tx, e1z);
+  const float qz = crs_bf(tx, e1y, ty, e1x);
+  const float v = bf(__fmul_rn(dot3_bf(ray.dx, ray.dy, ray.dz, qx, qy, qz),
+                               invd));
+  if (!(v >= 0.f && bf(__fadd_rn(u, v)) <= 1.f)) return false;
+  const float tt = bf(__fmul_rn(dot3_bf(e2x, e2y, e2z, qx, qy, qz), invd));
+  if (!(tt > 0.f && c.y >= 0.f && tt < 3.0e38f)) return false;
   *t = tt;
   return true;
 }

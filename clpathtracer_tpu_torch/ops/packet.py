@@ -1,7 +1,7 @@
 """Packet tracing of coherent ray tiles against a kd-tree (the port's part
-of clpathtracer_tpu/ops/packet.py): the stream engine, its host and
-prepass code, and the shared-origin tables, gate frustum planes and
-pixel-block layouts that the window engine (ops/plist.py) shares.
+of clpathtracer_tpu/ops/packet.py): the stream and queue engines, their
+host and prepass code, and the shared-origin tables, gate frustum planes
+and pixel-block layouts that the window engine (ops/plist.py) shares.
 
 traverse_packet cuts a wave into tiles of `tile` rays (square or 1:2 pixel
 blocks of a frame, else consecutive rays) and runs K3 on them: one
@@ -16,12 +16,16 @@ of 128 records, each window culled before its dense test by one of
 * nothing, without window tables.
 
 K3 is CUDA on the GPU (ops/csrc/packet_stream.cu, packet_stream) and its
-plain version (packet_stream_reference) on the CPU. The winners re-resolve
-t/u/v with one exact Moller-Trumbore per ray. The JAX package's other
-engines (queue, legacy, stream2, mxu, wide) and its bf16 preview raise
-NotImplementedError naming their kernels; its TPU scalar-memory packing
-(6-bit window counts, the 900 KB budget) and its environment switches are
-not ported: the culls are explicit arguments at the JAX defaults.
+plain version (packet_stream_reference) on the CPU. precision="bf16" runs
+the bf16 preview K4, K3's kernel with a bf16 dense test (MT records, the
+AABB cull only); engine="queue" runs K5 (ops/csrc/packet_queue.cu,
+packet_queue), the same walk decoupled from the dense test by a ring of
+QUEUE_DEPTH window copies in flight. The winners re-resolve t/u/v with one
+exact Moller-Trumbore per ray. The JAX package's other engines (legacy,
+stream2, mxu, wide) raise NotImplementedError naming their kernels; its
+TPU scalar-memory packing (6-bit window counts, the 900 KB budget) and its
+environment switches are not ported: the culls are explicit arguments at
+the JAX defaults.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ TILE = 1024         # default rays per packet tile
 STACK_DEPTH = 128   # entries of the walk's stack
 TUP_MASK = 3        # t_upper refreshes after a leaf on every 4th pop
 GATE_LANES = 512    # half-gate mode: the dense test runs per 512-lane gate
+QUEUE_DEPTH = 8     # K5: windows in flight (the JAX default qdepth)
+PRECISIONS = ("f32", "bf16")
+BF16_MISS = 3.0e38  # the bf16 preview's miss value (bf16 max is ~3.39e38)
 _WIN_RECS = CHUNK_ROWS * 8
 _INT_MAX = torch.iinfo(torch.int32).max
 # (ray, record) pairs per dense step of the plain K3: bounds its
@@ -49,8 +56,7 @@ _REF_PAIRS = 1 << 22
 _NO_CULL, _CULL, _CULL_FRUSTUM, _STRIPS = range(4)
 # engines of the JAX package's packet_mode that are not ported yet, by the
 # kernel they run
-_OTHER_ENGINES = {"queue": "K5 (_kernel_queue, _kernel_queue_smem)",
-                  "legacy": "K6 (_kernel, _kernel_tri_stream)",
+_OTHER_ENGINES = {"legacy": "K6 (_kernel, _kernel_tri_stream)",
                   "stream2": "K7 (_kernel_stream2)",
                   "mxu": "K8 (_kernel_mxu)",
                   "wide": "K9 (_kernel_wide)"}
@@ -159,17 +165,27 @@ def so_pairs(r, dx, dy, dz):
     return ok, torch.where(ok, d0 / dsum, BIG)
 
 
-def mt_pairs(r, ox, oy, oz, dx, dy, dz, tally=None, tested=None):
+def mt_pairs(r, ox, oy, oz, dx, dy, dz, tally=None, tested=None,
+             dtype=torch.float32):
     """The general Moller-Trumbore pair test with backface cull
     (clpathtracer_tpu/ops/packet.py::_mt_chunk_math, its order of
     operations) over broadcast shapes: r [..., >= 10] records (v0, e1, e2,
     tri_id). Returns (ok, t) with t = BIG where rejected.
+
+    dtype=torch.bfloat16 is the bf16 preview (compute_dtype=bfloat16):
+    records and rays cast to bf16 once, every operation on bf16 tensors
+    (computed in f32, rounded to bf16), t back in f32; a t that rounds to
+    BF16_MISS or more is a miss.
 
     tally (optional int64 [3] tensor): adds the counts of the pairs that
     pass det > 0, then also 0 <= u <= 1, then also v >= 0 and u + v <= 1:
     the CUDA test's early exits, which set the work these inputs need.
     tested (optional bool, broadcastable): the pairs the kernel tests; the
     tally counts only those."""
+    if dtype != torch.float32:
+        r = r[..., :10].to(dtype)
+        ox, oy, oz, dx, dy, dz = (x.to(dtype) for x in (ox, oy, oz, dx, dy,
+                                                        dz))
     e1x, e1y, e1z = r[..., 3], r[..., 4], r[..., 5]
     e2x, e2y, e2z = r[..., 6], r[..., 7], r[..., 8]
     px = dy * e2z - dz * e2y
@@ -193,7 +209,11 @@ def mt_pairs(r, ox, oy, oz, dx, dy, dz, tally=None, tested=None):
         if tested is not None:
             counted = [c & tested for c in counted]
         tally.add_(torch.stack([c.sum() for c in counted]))
-    return ok, torch.where(ok, tt, BIG)
+    if dtype == torch.float32:
+        return ok, torch.where(ok, tt, BIG)
+    t = torch.where(ok, tt, BF16_MISS).float()
+    ok = ok & (t < BF16_MISS)
+    return ok, torch.where(ok, t, BIG)
 
 
 # ---------------------------------------------------------------------------
@@ -458,8 +478,8 @@ def _kernel_mode(cbnd, frustum, masks):
 
 
 def _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
-                       cbnd, frustum, masks, ten, n_strips):
-    name = "packet_stream"
+                       cbnd, frustum, masks, ten, n_strips,
+                       name="packet_stream"):
     tensors = dict(nodes_i=nodes_i, nodes_f=nodes_f, rows=rows,
                    orig_t=orig_t, dir_t=dir_t, act=act, cbnd=cbnd,
                    frustum=frustum, masks=masks, ten=ten)
@@ -510,11 +530,47 @@ def _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
         raise ValueError(f"{name}: the frustum cull needs cbnd")
 
 
+def _check_precision(precision, so=False, frustum=None, masks=None):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r} is not one of "
+                         f"{PRECISIONS}")
+    if precision == "bf16" and (so or frustum is not None
+                                or masks is not None):
+        raise ValueError("the bf16 preview (K4) takes MT records with the "
+                         "AABB cull or none: no SO rows, frustum or strips")
+
+
+def _launch_walk(entry, tile, inputs, ints):
+    """Launch a kd-walk kernel's C entry (ops/_cuda.py::SIGNATURES) on the
+    current stream of the inputs' device: the inputs' pointers (None for
+    an absent table), the outputs' (best_t [N] f32, best_slot [N] i32,
+    stats [N / tile, 5] i32, with N the rays of inputs[5], the active
+    mask), the ints, the stream. Returns the outputs; raises when the
+    launch fails."""
+    from clpathtracer_tpu_torch.ops._cuda import load_kernels
+    fn = load_kernels().fns[entry]
+    act = inputs[5]
+    device = act.device
+    n = act.shape[0]
+    out = (torch.empty((n,), dtype=torch.float32, device=device),
+           torch.empty((n,), dtype=torch.int32, device=device),
+           torch.empty((n // tile, 5), dtype=torch.int32, device=device))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(None if t is None else t.data_ptr() for t in inputs),
+                 *(t.data_ptr() for t in out), *ints, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err} (N={n}, "
+                           f"tile={tile}, arguments {ints})")
+    return out
+
+
 def packet_stream(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
                   so: bool, cbnd=None, frustum=None, masks=None, ten=None,
-                  n_strips: int = 0):
+                  n_strips: int = 0, precision: str = "f32"):
     """Nearest hit of every ray of every packet tile through the kd-tree
-    (K3; replaces clpathtracer_tpu/ops/packet.py::_kernel_stream_smem).
+    (K3; replaces clpathtracer_tpu/ops/packet.py::_kernel_stream_smem;
+    with precision="bf16" K4, the bf16 preview of _kernel_stream).
 
     nodes_i / nodes_f: stream_nodes; rows: [T, 16] padded records
     (pad_records: SO rows when `so`, else raw (v0, e1, e2, tri_id));
@@ -529,54 +585,52 @@ def packet_stream(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
 
     Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss, stats
     [n_tiles, 5] i32 = node pops, windows streamed, active lanes, windows
-    culled, dense executions). Ties: see ops/csrc/packet_stream.cu.
+    culled, dense executions; 0 in the bf16 preview, as the TPU kernel
+    writes it). Ties: see ops/csrc/packet_stream.cu.
+
+    precision="bf16": the dense test in bf16 (mt_pairs with
+    dtype=torch.bfloat16) on MT records with the AABB cull or none; the
+    walk stays f32.
 
     A CPU tensor runs the plain version (packet_stream_reference); a CUDA
     tensor launches ops/csrc/packet_stream.cu on the current stream or
-    raises. `packet_stream.launches` counts kernel launches."""
+    raises. `packet_stream.launches` counts K3's launches and
+    `packet_stream.bf16_launches` K4's."""
     _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
                        cbnd, frustum, masks, ten, n_strips)
+    _check_precision(precision, so, frustum, masks)
     device = act.device
     if device.type == "cpu":
         return packet_stream_reference(
             nodes_i, nodes_f, rows, orig_t, dir_t, act, tile=tile, so=so,
             cbnd=cbnd, frustum=frustum, masks=masks, ten=ten,
-            n_strips=n_strips)
+            n_strips=n_strips, precision=precision)
     if device.type != "cuda":
         raise ValueError(f"packet_stream: no kernel for device {device}")
-    from clpathtracer_tpu_torch.ops._cuda import load_kernels
-    fn = load_kernels().fns["packet_stream_launch"]
-    n = act.shape[0]
-    best_t = torch.empty((n,), dtype=torch.float32, device=device)
-    best_slot = torch.empty((n,), dtype=torch.int32, device=device)
-    stats = torch.empty((n // tile, 5), dtype=torch.int32, device=device)
-    mode = _kernel_mode(cbnd, frustum, masks)
-    n_windows = masks.shape[1] if masks is not None else 0
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(nodes_i.data_ptr(), nodes_f.data_ptr(), rows.data_ptr(),
-                 orig_t.data_ptr(), dir_t.data_ptr(), act.data_ptr(),
-                 ptr(cbnd), ptr(frustum), ptr(masks), ptr(ten),
-                 best_t.data_ptr(), best_slot.data_ptr(), stats.data_ptr(),
-                 n, tile, rows.shape[0] // 8, n_windows, mode,
-                 n_strips if masks is not None else 0, int(so), stream)
-    if err != 0:
-        raise RuntimeError(f"packet_stream launch failed: cudaError {err} "
-                           f"(N={n}, tile={tile}, mode={mode})")
-    packet_stream.launches += 1
-    return best_t, best_slot, stats
+    out = _launch_walk(
+        "packet_stream_launch", tile,
+        (nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, frustum, masks,
+         ten),
+        (act.shape[0], tile, rows.shape[0] // 8,
+         masks.shape[1] if masks is not None else 0,
+         _kernel_mode(cbnd, frustum, masks),
+         n_strips if masks is not None else 0, int(so),
+         int(precision == "bf16")))
+    if precision == "bf16":
+        packet_stream.bf16_launches += 1
+    else:
+        packet_stream.launches += 1
+    return out
 
 
 packet_stream.launches = 0
+packet_stream.bf16_launches = 0
 
 
 def packet_stream_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
                             tile: int, so: bool, cbnd=None, frustum=None,
                             masks=None, ten=None, n_strips: int = 0,
-                            tally=None):
+                            precision: str = "f32", tally=None):
     """Plain torch version of packet_stream: same signature, same outputs,
     stats included, on any device.
 
@@ -585,6 +639,8 @@ def packet_stream_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
     the kept windows' dense tests run on the tensors' device as torch ops,
     several windows at a time (within a leaf nothing the decisions read
     changes). tally: see mt_pairs (MT form only)."""
+    _check_precision(precision, so, frustum, masks)
+    dtype = torch.bfloat16 if precision == "bf16" else torch.float32
     n = act.shape[0]
     n_tiles = n // tile
     dev = act.device
@@ -595,6 +651,24 @@ def packet_stream_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
             "fr": None if frustum is None else frustum.cpu().numpy(),
             "mk": None if masks is None else masks.cpu().numpy(),
             "tn": None if ten is None else ten.cpu().numpy()}
+
+    def walk(ti, ob, ib, n_act, recs, tile_rays, on):
+        bt, bs, st = _walk_tile(host, ti, ob, ib, n_act, recs, tile_rays, on,
+                                so, mode, half, n_strips, rows.shape[0] // 8,
+                                tally, dtype)
+        return bt, bs, st[:4] + ((0,) if precision == "bf16" else st[4:])
+    return _per_tile(walk, rows, orig_t, dir_t, act, tile)
+
+
+def _per_tile(walk, rows, orig_t, dir_t, act, tile):
+    """The plain kernels' frame: the packet bounds of every tile, then
+    walk(tile index, origin bounds, inverse-direction bounds, active
+    lanes, records [T, 10], the tile's 6 ray rows, its active mask) ->
+    (best_t, best_slot, stats) per tile, gathered as the kernels return
+    them."""
+    n = act.shape[0]
+    n_tiles = n // tile
+    dev = act.device
     rays = [orig_t[i].reshape(n_tiles, tile) for i in range(3)] \
         + [dir_t[i].reshape(n_tiles, tile) for i in range(3)]
     act_t = act.reshape(n_tiles, tile)
@@ -603,16 +677,16 @@ def packet_stream_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
     ibnd = [[b.cpu().numpy() for b in ax] for ax in ibnd]
     n_act = (act_t > 0.0).sum(dim=1).cpu().numpy()
     recs = rows[:, :10]
-    best_t = torch.empty((n_tiles, tile), dtype=torch.float32, device=dev)
-    best_slot = torch.empty((n_tiles, tile), dtype=torch.int32, device=dev)
+    best_t = torch.full((n_tiles, tile), BIG, dtype=torch.float32,
+                        device=dev)
+    best_slot = torch.full((n_tiles, tile), -1, dtype=torch.int32,
+                           device=dev)
     stats = np.zeros((n_tiles, 5), np.int64)
-    for ti in range(n_tiles):
+    for ti in np.flatnonzero(n_act):   # a tile without active lanes: no walk
         ob = [(ax[0][ti], ax[1][ti]) for ax in obnd]
         ib = [(ax[0][ti], ax[1][ti]) for ax in ibnd]
-        tile_rays = [r[ti] for r in rays]
-        bt, bs, st = _walk_tile(host, ti, ob, ib, int(n_act[ti]), recs,
-                                tile_rays, act_t[ti] > 0.0, so, mode, half,
-                                n_strips, rows.shape[0] // 8, tally)
+        bt, bs, st = walk(ti, ob, ib, int(n_act[ti]), recs,
+                          [r[ti] for r in rays], act_t[ti] > 0.0)
         best_t[ti] = bt
         best_slot[ti] = torch.where(bt < BIG, bs, -1)
         stats[ti] = st
@@ -621,7 +695,7 @@ def packet_stream_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
 
 
 def _walk_tile(host, ti, ob, ib, n_act, recs, rays, on, so, mode, half,
-               n_strips, n_rows, tally):
+               n_strips, n_rows, tally, dtype=torch.float32):
     """One tile of the plain K3: (best_t [L], best_slot [L], stats [5])."""
     f32 = np.float32
     ni, nf = host["ni"], host["nf"]
@@ -659,22 +733,28 @@ def _walk_tile(host, ti, ob, ib, n_act, recs, rays, on, so, mode, half,
                 lane_on = on.expand(kept.shape[0], tile)
             row0 = np.minimum(a + kept * CHUNK_ROWS, n_rows - CHUNK_ROWS)
             bt, bs = _dense_windows(recs, row0, rays, lane_on, so, bt, bs,
-                                    tally)
+                                    tally, dtype)
             if (nv & TUP_MASK) == 0:
                 t_upper = f32(torch.where(on, bt, -BIG).amax().item())
         else:
-            tp_min, tp_max, nlo = _split_plane_interval(axinfo, flags & 3,
-                                                        nf[6 + node])
-            near, far = (a, b) if nlo else (b, a)
-            far_lo = np.maximum(tlo, tp_min)
-            near_hi = np.minimum(thi, tp_max)
-            if len(stack) + 2 > STACK_DEPTH:
-                raise AssertionError("packet walk: stack overflow")
-            if far_lo <= np.minimum(thi, t_upper):
-                stack.append((far, far_lo, thi))
-            if tlo <= np.minimum(near_hi, t_upper):
-                stack.append((near, tlo, near_hi))
+            _push_children(stack, axinfo, nf, node, flags, a, b, tlo, thi,
+                           t_upper)
     return bt, bs, (nv, nl, n_act, nc, nsm)
+
+
+def _push_children(stack, axinfo, nf, node, flags, a, b, tlo, thi, t_upper):
+    """A split's live children onto the walk's stack, far child first."""
+    tp_min, tp_max, nlo = _split_plane_interval(axinfo, flags & 3,
+                                                nf[6 + node])
+    near, far = (a, b) if nlo else (b, a)
+    far_lo = np.maximum(tlo, tp_min)
+    near_hi = np.minimum(thi, tp_max)
+    if len(stack) + 2 > STACK_DEPTH:
+        raise AssertionError("packet walk: stack overflow")
+    if far_lo <= np.minimum(thi, t_upper):
+        stack.append((far, far_lo, thi))
+    if tlo <= np.minimum(near_hi, t_upper):
+        stack.append((near, tlo, near_hi))
 
 
 def _leaf_windows(host, ti, win0, nwin, ob, ib, tlo, thi, t_upper, mode):
@@ -706,10 +786,12 @@ def _leaf_windows(host, ti, win0, nwin, ob, ib, tlo, thi, t_upper, mode):
     return w[keep]
 
 
-def _dense_windows(recs, row0, rays, lane_on, so, bt, bs, tally):
+def _dense_windows(recs, row0, rays, lane_on, so, bt, bs, tally,
+                   dtype=torch.float32):
     """Dense test of windows (first record rows row0 [K], in stream
     order) against a tile's rays, merged into (bt, bs) with the kernel's
-    tie rule. lane_on: [K, L] bool, the lanes each window tests."""
+    tie rule. lane_on: [K, L] bool, the lanes each window tests; dtype:
+    the MT test's (mt_pairs)."""
     k_all = row0.shape[0]
     if k_all == 0:
         return bt, bs
@@ -728,7 +810,8 @@ def _dense_windows(recs, row0, rays, lane_on, so, bt, bs, tally):
         if so:
             ok, t = so_pairs(r, dx, dy, dz)
         else:
-            ok, t = mt_pairs(r, ox, oy, oz, dx, dy, dz, tally, tested)
+            ok, t = mt_pairs(r, ox, oy, oz, dx, dy, dz, tally, tested,
+                             dtype)
         t = torch.where(ok & tested, t, BIG).reshape(k, CHUNK_ROWS, 8, tile)
         # per row of 8: least t, the row's last record among equal t
         t_row = t.amin(dim=2)                                  # [K, 16, L]
@@ -750,6 +833,143 @@ def _dense_windows(recs, row0, rays, lane_on, so, bt, bs, tally):
 
 
 # ---------------------------------------------------------------------------
+# kernel K5 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def packet_queue(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
+                 so: bool, cbnd=None):
+    """Nearest hit of every ray of every packet tile through the kd-tree
+    with the walk decoupled from the dense test by a ring of QUEUE_DEPTH
+    window copies in flight (K5; replaces clpathtracer_tpu/ops/packet.py::
+    _kernel_queue and _kernel_queue_smem).
+
+    Arguments as packet_stream's, with the AABB cull cbnd [W, 6] or none;
+    always f32. Returns (best_t [N] f32, best_slot [N] i32 with -1 on a
+    miss, stats [n_tiles, 5] i32 = node pops, windows tested, active
+    lanes, windows culled at the cursor or skipped at the drain, 0). The
+    schedule: see ops/csrc/packet_queue.cu.
+
+    A CPU tensor runs the plain version (packet_queue_reference); a CUDA
+    tensor launches ops/csrc/packet_queue.cu on the current stream or
+    raises. `packet_queue.launches` counts kernel launches."""
+    _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
+                       cbnd, None, None, None, 0, name="packet_queue")
+    device = act.device
+    if device.type == "cpu":
+        return packet_queue_reference(nodes_i, nodes_f, rows, orig_t, dir_t,
+                                      act, tile=tile, so=so, cbnd=cbnd)
+    if device.type != "cuda":
+        raise ValueError(f"packet_queue: no kernel for device {device}")
+    out = _launch_walk(
+        "packet_queue_launch", tile,
+        (nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd),
+        (act.shape[0], tile, rows.shape[0] // 8, int(so)))
+    packet_queue.launches += 1
+    return out
+
+
+packet_queue.launches = 0
+
+
+def packet_queue_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
+                           tile: int, so: bool, cbnd=None, tally=None):
+    """Plain torch version of packet_queue: same signature, same outputs,
+    stats included, on any device.
+
+    Each tile's walk and ring schedule replay on the host in numpy float32
+    scalars (_queue_tile); a drain's dense tests run as one batch of torch
+    ops on the tensors' device (t_upper is fixed within a drain). tally:
+    see mt_pairs (MT form only)."""
+    host = {"ni": nodes_i.cpu().numpy(), "nf": nodes_f.cpu().numpy(),
+            "cb": None if cbnd is None else cbnd.cpu().numpy()}
+
+    def walk(ti, ob, ib, n_act, recs, tile_rays, on):
+        return _queue_tile(host, ob, ib, n_act, recs, tile_rays, on, so,
+                           rows.shape[0] // 8, tally)
+    return _per_tile(walk, rows, orig_t, dir_t, act, tile)
+
+
+def _queue_tile(host, ob, ib, n_act, recs, rays, on, so, n_rows, tally):
+    """One tile of the plain K5: (best_t [L], best_slot [L], stats [5]).
+
+    The ring holds (first row, t_enter, t_exit, leaf t_lo, leaf t_hi) of
+    each window in flight, oldest first; a window's box interval is
+    computed once, when its leaf opens (t_enter = -INV_BIG, t_exit =
+    INV_BIG without window tables, where only the leaf interval is
+    re-checked at the drain)."""
+    f32 = np.float32
+    ni, nf, cb = host["ni"], host["nf"], host["cb"]
+    tile = on.shape[0]
+    dev = on.device
+    bt = torch.full((tile,), BIG, dtype=torch.float32, device=dev)
+    bs = torch.full((tile,), -1, dtype=torch.int32, device=dev)
+    axinfo = _axinfo(ob, ib)
+    rt_lo, rt_hi = _box_interval(nf[0:3], nf[3:6], ob, ib)
+    stack = ([(0, rt_lo, rt_hi)]
+             if rt_lo <= rt_hi and rt_hi > 0.0 and n_act > 0 else [])
+    t_upper = f32(BIG)
+    ring = []
+    wcur = wend = lrow0 = 0
+    ltlo, lthi = f32(0.0), f32(BIG)
+    t_en = t_ex = None        # the open leaf's windows' box intervals
+    nv = nl = nc = 0
+
+    def keeps(en, ex, lo, hi):
+        return en <= np.minimum(hi, t_upper) and ex >= lo and ex > 0.0
+    while stack or wcur < wend or ring:
+        # produce: until the ring is full or the walk is exhausted
+        while len(ring) < QUEUE_DEPTH and (wcur < wend or stack):
+            if wcur < wend:
+                w = wcur
+                if cb is not None:
+                    while w < wend and not keeps(t_en[w], t_ex[w], ltlo,
+                                                 lthi):
+                        w += 1
+                nc += w - wcur
+                if w < wend:
+                    ring.append((min(lrow0 + w * CHUNK_ROWS,
+                                     n_rows - CHUNK_ROWS),
+                                 t_en[w], t_ex[w], ltlo, lthi))
+                wcur = w + 1
+                continue
+            node, tlo, thi = stack.pop()
+            nv += 1
+            if not (tlo <= np.minimum(thi, t_upper) and thi > 0.0):
+                continue
+            flags, a, b, c = (int(x) for x in ni[node])
+            if flags < 4:
+                _push_children(stack, axinfo, nf, node, flags, a, b, tlo,
+                               thi, t_upper)
+                continue
+            wcur, wend, lrow0, ltlo, lthi = 0, c, a, tlo, thi
+            if cb is not None:
+                box = cb[b:b + c]
+                t_en, t_ex = _box_interval([box[:, j] for j in range(3)],
+                                           [box[:, 3 + j] for j in range(3)],
+                                           ob, ib)
+            else:
+                t_en = np.full(c, -INV_BIG, np.float32)
+                t_ex = np.full(c, INV_BIG, np.float32)
+        # consume: all when the walk is exhausted, else keep half flying
+        done = not (wcur < wend or stack)
+        ndrain = (len(ring) if done
+                  else max(len(ring) - QUEUE_DEPTH // 2, 1))
+        batch, ring = ring[:ndrain], ring[ndrain:]
+        if cb is not None:
+            kept = [e[0] for e in batch if keeps(*e[1:])]
+        else:
+            kept = [e[0] for e in batch if e[3] <= np.minimum(e[4], t_upper)]
+        nl += len(kept)
+        nc += len(batch) - len(kept)
+        bt, bs = _dense_windows(recs, np.asarray(kept, np.int64), rays,
+                                on.expand(len(kept), tile), so, bt, bs,
+                                tally)
+        t_upper = f32(torch.where(on, bt, -BIG).amax().item())
+    return bt, bs, (nv, nl, n_act, nc, 0)
+
+
+# ---------------------------------------------------------------------------
 # host entry
 # ---------------------------------------------------------------------------
 
@@ -757,13 +977,14 @@ def _dense_windows(recs, row0, rays, lane_on, so, bt, bs, tally):
 def packet_mode(tree, n_rays: int, tile: int = TILE, engine: str = "auto"):
     """The engine traverse_packet runs, or None when it cannot run (no
     tree, or a wave that is not whole tiles). "auto" and "stream" select
-    the stream engine (K3); the JAX package's other engines are named as
-    asked and raise in traverse_packet."""
+    the stream engine (K3, or K4 in the bf16 preview), "queue" the queue
+    engine (K5); the JAX package's other engines are named as asked and
+    raise in traverse_packet."""
     if tree is None or tree.node_table is None or n_rays % tile:
         return None
     if engine in ("auto", "stream"):
         return "stream"
-    if engine in _OTHER_ENGINES:
+    if engine == "queue" or engine in _OTHER_ENGINES:
         return engine
     raise ValueError(f"unknown packet engine {engine!r}")
 
@@ -850,8 +1071,8 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
                     precision: str = "f32", shared_origin: bool = False,
                     grid_dirs: bool = False, strips: bool = True,
                     frustum: bool = True, chunk_cull: bool = True):
-    """Packet-trace a coherent wave through the kd-tree (the stream
-    branch of clpathtracer_tpu/ops/packet.py::traverse_packet).
+    """Packet-trace a coherent wave through the kd-tree (the stream and
+    queue branches of clpathtracer_tpu/ops/packet.py::traverse_packet).
 
     tree: accel/sah.py::FlatKdTree with window tables (attach_chunk_info)
     and, for the SO form, SO tables (attach_so_tables). image_shape:
@@ -862,25 +1083,40 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
     first). shared_origin, grid_dirs, strips, frustum, chunk_cull: see
     stream_kernel_args; the defaults are the JAX package's.
 
+    engine "auto" / "stream" runs K3; "queue" runs K5 with the SO form
+    when shared_origin and the tree has SO tables, the AABB cull when it
+    has window tables (and chunk_cull), never strips or the frustum.
+    precision "bf16" (the stream engine's preview) runs K4: MT records,
+    the AABB cull, no strips, frustum or SO form; hit comes from its
+    winner slot and t/u/v from the f32 re-resolve, so a bf16 false hit
+    stays a hit. The queue computes in f32 whatever the precision, but
+    takes the MT form under "bf16", as the JAX package does.
+
     Returns hit, t, tri, u, v ([N]) and tile_stats [n_tiles, 5] (node
     pops, windows streamed, active lanes, windows culled, dense
-    executions)."""
+    executions; K4 and K5 write 0 in the last)."""
     n = orig.shape[0]
-    if precision != "f32":
-        raise NotImplementedError(
-            f"precision={precision!r}: the bf16 preview runs K4 "
-            "(_kernel_stream), not ported yet")
+    _check_precision(precision)
     mode = packet_mode(tree, n, tile, engine)
     if mode is None:
         raise ValueError(f"traverse_packet: {n} rays are not whole tiles of "
                          f"{tile}, or there is no tree")
-    if mode != "stream":
+    if mode not in ("stream", "queue"):
         raise NotImplementedError(
             f"engine={engine!r} runs {_OTHER_ENGINES[mode]}, not ported yet")
+    if mode == "queue" or precision == "bf16":
+        # the JAX package's VMEM-table and queue calls: no strips, no
+        # frustum; the SO form only in f32
+        strips = frustum = False
+        shared_origin = shared_origin and precision == "f32"
     args, kw, layout = stream_kernel_args(
         tree, orig, dir, image_shape, tile, active, shared_origin, grid_dirs,
         strips, frustum, chunk_cull)
-    _, best_slot, tile_stats = packet_stream(*args, **kw)
+    if mode == "queue":
+        _, best_slot, tile_stats = packet_queue(*args, **kw)
+    else:
+        _, best_slot, tile_stats = packet_stream(*args, precision=precision,
+                                                 **kw)
     best_slot = _to_wave_order(best_slot, layout)
     return _resolve_stream_winners(tree, best_slot, orig, dir, tile_stats)
 

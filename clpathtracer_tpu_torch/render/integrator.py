@@ -26,6 +26,9 @@ Two routes, in the JAX package's order (render/integrator.py:197-309):
   primary waves as shared-origin pixel tiles of opts.packet_tile rays
   (strip masks on unjittered frames), bounce waves Morton-sorted and
   traced with their active mask; surface attributes from resolve_tri_hits.
+  opts.precision="bf16" runs both kinds of wave through the bf16 preview
+  (kernel K4: MT tiles with the AABB cull); the windows route ignores it,
+  as the JAX package's window engines do.
 
 Random numbers come from the caller or from a torch.Generator (torch
 cannot reproduce jax.random's streams). Anything else raises
@@ -42,7 +45,7 @@ import torch
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (cam_matrix, generate_rays,
                                                 generate_rays_jittered)
-from clpathtracer_tpu_torch.ops.packet import traverse_packet
+from clpathtracer_tpu_torch.ops.packet import PRECISIONS, traverse_packet
 from clpathtracer_tpu_torch.ops.plist import (GH, GW, traverse_plist,
                                               traverse_plist_bundle)
 from clpathtracer_tpu_torch.ops.sort import sort_rays
@@ -75,12 +78,18 @@ class RenderOptions:
     packet_strips: bool = True   # kd-tree route: the strip-mask prepass on
     packet_frustum: bool = True  # unjittered primaries, else the corner
     #   frustum cull (the JAX package's CLPT_STRIPS / CLPT_FRUSTUM)
+    precision: str = "f32"     # kd-tree route: "bf16" = the preview-quality
+    #   dense test (K4); bf16 cancellation in o - v0 costs and adds hits on
+    #   triangles much smaller than the scene. The windows route ignores it.
 
 
 def _check_supported(scene, opts: RenderOptions, mwin, tree=None) -> None:
     """Raise NotImplementedError for what this slice does not carry."""
     if opts.mode not in MODES:
         raise ValueError(f"unknown mode {opts.mode!r}")
+    if opts.precision not in PRECISIONS:
+        raise ValueError(f"precision {opts.precision!r} is not one of "
+                         f"{PRECISIONS}")
     todo = None
     if opts.mode == "path" and opts.nee:
         todo = ("next-event estimation (shadow rays through the grid DDA or "
@@ -129,11 +138,12 @@ def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
                                   tile=opts.packet_tile, shared_origin=True,
                                   grid_dirs=jitter_px == 0.0,
                                   strips=opts.packet_strips,
-                                  frustum=opts.packet_frustum)
+                                  frustum=opts.packet_frustum,
+                                  precision=opts.precision)
             return {k: rec[k] for k in keys}
         inv, orig, dir, active = sort_wave(orig, dir, active)
         rec = traverse_packet(tree, orig, dir, tile=opts.packet_tile,
-                              active=active)
+                              active=active, precision=opts.precision)
         return {k: rec[k][inv] for k in keys}
     if coherent:
         rec = traverse_plist(mwin, orig, dir, (opts.height, opts.width),

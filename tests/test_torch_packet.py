@@ -7,7 +7,9 @@ tests/test_packet.py: TestStripGating (strips, 128-lane strips and
 TestStreamEngine.test_active_mask (general Moller-Trumbore with an active
 mask); then render_image on the kd route against the JAX package's
 render_image(intersector="packet", tree=...) in normal and mirror mode,
-and against the port's own windows route in path mode.
+and against the port's own windows route in path mode. The queue engine K5
+and the bf16 preview K4 have their own files (test_torch_queue.py,
+test_torch_bf16.py); the engines still to port raise, naming their kernels.
 
 Contract (tests/test_plist.py's): hit masks equal, t allclose (rtol 1e-5,
 atol 1e-6), triangle ids equal on more than 95% of hits (exact-t ties),
@@ -300,12 +302,21 @@ def test_resolve_tri_hits_matches_jax(baked):
 @pytest.mark.parametrize("case", ["queue", "legacy", "stream2", "mxu",
                                   "wide", "bf16", "frame", "no_tree"])
 def test_outside_the_route_raises(terrain, case):
+    """What the route does not carry raises; the queue engine and the bf16
+    preview, once outside it, now run (their parity is in
+    test_torch_queue.py and test_torch_bf16.py)."""
     tree = terrain["tree"]
     o = torch.zeros((4096, 3))
     d = torch.ones((4096, 3))
-    if case == "bf16":
-        with pytest.raises(NotImplementedError, match="K4"):
-            tpk.traverse_packet(tree, o, d, precision="bf16")
+    if case in ("queue", "bf16"):     # ported: the run agrees with K3's
+        kw = ({"engine": "queue"} if case == "queue"
+              else {"precision": "bf16"})
+        rec = tpk.traverse_packet(tree, o, d, **kw)
+        ref = tpk.traverse_packet(tree, o, d)
+        assert rec["tile_stats"].shape == ref["tile_stats"].shape == (4, 5)
+        assert torch.equal(rec["tile_stats"][:, 2], ref["tile_stats"][:, 2])
+        if case == "queue":
+            assert torch.equal(rec["hit"], ref["hit"])
     elif case == "frame":      # not whole packet tiles: traverse_fast
         cam = Camera.create(POS, FWD, device=CPU)
         with pytest.raises(NotImplementedError, match="item 12"):
