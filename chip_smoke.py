@@ -52,8 +52,9 @@ The kd-tree route (no windows: the stream engine, kernel K3):
 
 12. kd scenes: the native SAH builder (g++ at first use) on the 1M terrain
    at bench.py's terrain tuning (depth 11, leaf 3072) and the 1M soup at
-   its soup tuning (depth 14, leaf 512), window tables and SO tables on the
-   card; build seconds, nodes, leaves, largest leaf, windows;
+   its soup tuning (depth 14, leaf 512), window tables, SO tables and the
+   8-wide supernode table on the card; build seconds, nodes, leaves,
+   largest leaf, windows, supernodes and the wide table's build seconds;
 13. K3 against its plain version on every 8th tile, exact in best t, best
    slot and all five stats lanes, in four forms: SO + strips with 512-lane
    gates (terrain, tile 2048, the normal frame's call), SO + AABB cull
@@ -97,11 +98,39 @@ queue engine (kernel K5):
    taken in turns, beside the bound, with windows tested and culled per
    tile; and the strips frame's K3 time of phase 15.
 
-The line before the last is a JSON object of the kernels: each kernel's
-launches are those of the frames of the path that gives its ms (K1 the
-normal frame, K1' the mirror frame, K3 the kd route's normal terrain
-frame, K4 the bf16 normal terrain frame, K5 the three queue calls), with
-every path's own count beside them. The last line is
+The v1 walks (kernels K6a, K6b and K9, ops/csrc/packet_v1.cu):
+
+20. the stack guard: a degenerate 102-node table whose walk stays inside
+   the 128-entry stack runs, one of 202 nodes raises (K6b), and the same
+   with supernode chains of 12 and 32 rows (K9); the byte rule of
+   engine="legacy" on both 1M trees (K6b: the records do not fit its
+   budget, so K6a is reached only through its op-level entry,
+   packet_legacy(resident=True));
+21. K6b through traverse_packet(engine="legacy") and K9 through
+   engine="wide" on three inputs at full width: the terrain primaries
+   (tile 2048), the soup primaries (tile 512) and the mirror bounce wave
+   of phase 13 (tile 2048; the v1 engines ignore its active mask, as the
+   JAX package's do), counted (3 launches each, nothing else); K6a through
+   packet_legacy(resident=True) on the same inputs, counted (3); 4096
+   primary pixels and 4096 live bounce lanes of each kernel's results
+   against the brute force, at phases 5 and 9's limits;
+22. each kernel against its plain version, exact in best t, best slot and
+   all five stats lanes, on every 8th tile of the primaries and every
+   16th tile of the mirror wave (the plain walks there stream most of the
+   tree's windows); the plain runs count the pairs tested and their early
+   exits for the bounds;
+23. K3 (its MT form with the AABB cull: the same records, the same rays,
+   the same active mask on the mirror wave) and the three v1 kernels timed
+   in turns on each input, with node pops and windows (K6a: leaves) per
+   tile, mean and max, and each v1 kernel's bound.
+
+The card's name and power limit are printed again before the kernels
+line. The line before the last is a JSON object of the kernels: each
+kernel's launches are those of the frames of the path that gives its ms
+(K1 the normal frame, K1' the mirror frame, K3 the kd route's normal
+terrain frame, K4 the bf16 normal terrain frame, K5 the three queue
+calls, K6b and K9 the six v1 traverse_packet calls, K6a its three
+op-level calls), with every path's own count beside them. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -112,7 +141,7 @@ import time
 import numpy as np
 import torch
 
-from clpathtracer_tpu_torch.accel import sah
+from clpathtracer_tpu_torch.accel import sah, wide
 from clpathtracer_tpu_torch.core.camera import (Camera, cam_matrix,
                                                 generate_rays)
 from clpathtracer_tpu_torch.ops import packet, plist
@@ -198,6 +227,9 @@ def reset_counts():
     packet.packet_stream.launches = 0
     packet.packet_stream.bf16_launches = 0
     packet.packet_queue.launches = 0
+    packet.packet_legacy.launches = 0
+    packet.packet_legacy.resident_launches = 0
+    packet.packet_wide.launches = 0
 
 
 def counts():
@@ -205,7 +237,10 @@ def counts():
             "plist_super_mt": plist.plist_super_mt.launches,
             "packet_stream": packet.packet_stream.launches,
             "packet_stream_bf16": packet.packet_stream.bf16_launches,
-            "packet_queue": packet.packet_queue.launches}
+            "packet_queue": packet.packet_queue.launches,
+            "packet_legacy": packet.packet_legacy.launches,
+            "packet_legacy_resident": packet.packet_legacy.resident_launches,
+            "packet_wide": packet.packet_wide.launches}
 
 
 def bruteforce_hits(scene, orig, dirs, chunk=16384):
@@ -350,14 +385,15 @@ def mt_bound(args, kw, out, ref_stats, tally):
     return (*bound(k3_tensors(args, kw, out), ops), tests, sample, ops)
 
 
-def paired_ms(fa, fb, reps):
-    """Median device ms of fa and of fb, timed in turns (a b, b a, ...)."""
-    ta, tb = [], []
+def turns_ms(fns, reps):
+    """Median device ms of each of fns, timed in turns: in order on even
+    repetitions, in reverse on odd ones."""
+    acc = [[] for _ in fns]
     for i in range(reps):
-        order = ((fa, ta), (fb, tb)) if i % 2 == 0 else ((fb, tb), (fa, ta))
-        for f, acc in order:
-            acc.extend(cuda_times_ms(f, 1))
-    return float(np.median(ta)), float(np.median(tb))
+        order = list(range(len(fns)))
+        for j in (order if i % 2 == 0 else order[::-1]):
+            acc[j].extend(cuda_times_ms(fns[j], 1))
+    return [float(np.median(a)) for a in acc]
 
 
 def bound(tensors, ops):
@@ -395,7 +431,8 @@ def run_frames(render, warmup, frames):
 
 def check_counts(phase, got, want):
     want = {"plist_super": 0, "plist_super_mt": 0, "packet_stream": 0,
-            "packet_stream_bf16": 0, "packet_queue": 0, **want}
+            "packet_stream_bf16": 0, "packet_queue": 0, "packet_legacy": 0,
+            "packet_legacy_resident": 0, "packet_wide": 0, **want}
     if got != want:
         raise AssertionError(f"{phase}: kernel launches {got}, want {want}")
 
@@ -437,6 +474,7 @@ def main():
             say("build", line.strip())
 
     kernels = smoke(device)
+    print(card, flush=True)   # again, where the end of a long log shows it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -696,6 +734,7 @@ def smoke(device):
     k3, ctx = kd_route(device, scene, soup, cam, scam, launches)
     k4 = preview_route(ctx, launches)
     k5 = queue_engine(ctx, launches)
+    v1 = v1_engines(ctx, launches)
     return [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -715,7 +754,7 @@ def smoke(device):
          "max_abs_err": mt_err,
          "ms": mt_ms, "plain_ms": mt_plain_ms,
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
-        k3, k4, k5,
+        k3, k4, k5, *v1,
     ]
 
 
@@ -733,14 +772,21 @@ def kd_route(device, scene, soup, cam, scam, launches):
         host_s = time.perf_counter() - t
         tree = sah.attach_so_tables(tree)
         torch.cuda.synchronize()
+        so_s = time.perf_counter() - t - host_s
         st = tree.stats()
+        t = time.perf_counter()
+        wt = wide.build_wide_table(tree)
+        wide_s = time.perf_counter() - t
+        if not np.array_equal(wt, tree.wide_table.cpu().numpy()):
+            raise AssertionError("kd scene: the attached wide table differs")
         say("kd scene", f"{sc.num_tris} triangles, depth {cfg['max_depth']}, "
             f"leaf {cfg['leaf_size']}: host build {host_s:.2f} s (g++ "
-            f"builder, leaf sort, window tables), SO tables "
-            f"{time.perf_counter() - t - host_s:.2f} s; {st['nodes']} nodes, "
+            f"builder, leaf sort, window tables, wide table), SO tables "
+            f"{so_s:.2f} s; {st['nodes']} nodes, "
             f"{st['leaves']} leaves, largest leaf "
             f"{st['max_tris_per_leaf']}, {st['leaf_tris']} leaf slots, "
-            f"{st['windows']} windows, {tree.nbytes()} device bytes")
+            f"{st['windows']} windows, {wt.shape[0]} supernodes (wide table "
+            f"{wide_s:.3f} s on the host), {tree.nbytes()} device bytes")
         return tree
     tree = build_tree(scene, TERRAIN_KD)
     stree = build_tree(soup, SOUP_KD)
@@ -1135,9 +1181,9 @@ def queue_engine(ctx, launches):
             f"{int((s_out[1] >= 0).sum())} hits")
         if not (same_hit and same_t):
             raise AssertionError(f"K5 {name}: hits or t differ from K3's")
-        k3_ms, q_ms = paired_ms(lambda: packet.packet_stream(*args, **kw),
-                                lambda: packet.packet_queue(*args, **kw),
-                                4 if name == "mirror wave" else 10)
+        k3_ms, q_ms = turns_ms([lambda: packet.packet_stream(*args, **kw),
+                                lambda: packet.packet_queue(*args, **kw)],
+                               4 if name == "mirror wave" else 10)
         if so:
             tests = k3_tests(q_out[2], tile)
             bnd, by = bound(k3_tensors(args, kw, q_out), tests * K1_OPS)
@@ -1167,6 +1213,264 @@ def queue_engine(ctx, launches):
             "mirror_wave_ms": k5["mirror wave"]["ms"],
             "mirror_wave_k3_ms": k5["mirror wave"]["k3_ms"],
             "mirror_wave_bound_ms": k5["mirror wave"]["bound"]}
+
+
+def chain_tables(depth, wide_depth, device):
+    """Degenerate tables for the stack guard, for rays from z < -10 that
+    travel along +z (the soup's primaries): a binary chain whose walk
+    grows the stack one entry a level (split i on axis z pushes a far
+    child behind the rays, popped last and culled, and the near child
+    i + 1), a leaf at the end; a supernode chain that grows it 7 entries
+    a level (7 live children that are an empty row, and the next row on
+    top). Boxes that contain the origins are live."""
+    t = np.zeros((depth + 2, 16), np.float32)
+    t[:, 0:3], t[:, 3:6] = -1e3, 1e3
+    t[:depth, 7] = 2.0
+    t[:depth, 8] = np.arange(1, depth + 1)
+    t[:depth, 9] = depth + 1
+    t[depth, 7] = 4.0
+    t[depth + 1, 2], t[depth + 1, 5] = -100.0, -90.0     # behind the rays
+    w = np.zeros((wide_depth + 2, 8, 16), np.float32)
+    w[:wide_depth, :, 0:3], w[:wide_depth, :, 3:6] = -1e3, 1e3
+    w[:wide_depth, :, 6] = 1.0
+    w[:wide_depth, :7, 7] = wide_depth + 1
+    w[:wide_depth, 7, 7] = np.arange(1, wide_depth + 1)
+    return (torch.as_tensor(t, device=device),
+            torch.as_tensor(w.reshape(-1, 128), device=device))
+
+
+def stack_guard(recs, orig_t, dir_t, tile):
+    """Phase 20's first part: the v1 kernels' stack guard on the card."""
+    ok = chain_tables(100, 10, recs.device)
+    bad = chain_tables(200, 30, recs.device)
+    for engine, pops in (("K6b", 201), ("K9", 81)):
+        if engine == "K6b":
+            def call(tabs):
+                return packet.packet_legacy(tabs[0], recs, orig_t, dir_t,
+                                            tile=tile, resident=False)
+        else:
+            def call(tabs):
+                return packet.packet_wide(tabs[1], recs, orig_t, dir_t,
+                                          tile=tile)
+        st = call(ok)[2]
+        if not (bool((st[:, 0] == pops).all())
+                and bool((st[:, 1] == 0).all())):
+            raise AssertionError(f"stack guard: {engine} pops "
+                                 f"{st[:, 0].tolist()}, want {pops}")
+        try:
+            call(bad)
+        except RuntimeError as e:
+            if "overflowed" not in str(e):
+                raise
+            say("stack guard", f"{engine}: {pops} pops inside the stack; "
+                f"the deeper chain raised: {e}")
+        else:
+            raise AssertionError(f"stack guard: {engine} did not raise")
+        torch.cuda.synchronize()
+
+
+def v1_bound(args, out, tile, tally, ref_stats, resident):
+    """The bound of a v1 call: its MT pairs weighted by the early exits
+    that the plain run counted on its tiles (tally: pairs tested, then
+    those that pass det, u, v), applied to all pairs. K6b and K9: 128
+    records per window streamed against every lane of the tile; K6a,
+    whose stats count leaves and not records: the plain run's pairs
+    scaled by the leaves of all tiles over those of its tiles. Returns
+    (bound ms, bound_by, pairs, FP32 operations)."""
+    st = out[2].to(torch.int64)
+    sample = int(tally[0])
+    if resident:
+        tests = int(sample * int(st[:, 1].sum())
+                    / max(int(ref_stats[:, 1].sum()), 1))
+    else:
+        tests = int(st[:, 1].sum()) * 128 * tile
+    ops = int(mt_ops(sample, tally[1:]) * tests / max(sample, 1))
+    return (*bound([*args, *out], ops), tests, ops)
+
+
+def v1_line(stats, tile, lane1):
+    st = stats.to(torch.float64)
+    return (f"per tile: node pops {float(st[:, 0].mean()):.2f} (max "
+            f"{int(st[:, 0].max())}), {lane1} {float(st[:, 1].mean()):.2f} "
+            f"(max {int(st[:, 1].max())}); {stats.shape[0]} tiles of {tile}")
+
+
+def v1_engines(ctx, launches):
+    """Phases 20-23: the v1 walks K6a, K6b and K9, beside K3. Returns
+    their kernels entries."""
+    n = SIZE * SIZE
+    t_tile, s_tile = TERRAIN_KD["tile"], SOUP_KD["tile"]
+    tree, stree = ctx["tree"], ctx["stree"]
+    device = ctx["orig"].device
+    calls = {"terrain": (tree, ctx["orig"], ctx["dirs"], (SIZE, SIZE),
+                         t_tile, None),
+             "soup": (stree, ctx["s_orig"], ctx["s_dirs"], (SIZE, SIZE),
+                      s_tile, None),
+             "mirror wave": (tree, ctx["bo"], ctx["bd"], None, t_tile,
+                             ctx["ba"])}
+    kernels = {"K6a": ("vmem", "packet_legacy_resident", "leaves"),
+               "K6b": ("tri_stream", "packet_legacy", "windows"),
+               "K9": ("wide", "packet_wide", "windows")}
+
+    def v1_call(name, kernel):
+        tr, o, d, shape, tile, _ = calls[name]
+        mode = kernels[kernel][0]
+        args, layout = packet.v1_kernel_args(tr, o, d, shape, tile, mode)
+        kw = {"tile": tile}
+        if mode == "wide":
+            return args, kw, layout, packet.packet_wide, \
+                packet.packet_wide_reference
+        kw["resident"] = mode == "vmem"
+        return args, kw, layout, packet.packet_legacy, \
+            packet.packet_legacy_reference
+
+    # 20. the stack guard and the byte rule
+    s_args = v1_call("soup", "K6b")[0]
+    stack_guard(s_args[1], s_args[2][:, :s_tile].contiguous(),
+                s_args[3][:, :s_tile].contiguous(), s_tile)
+    for name, tr in (("terrain", tree), ("soup", stree)):
+        mode = packet.packet_mode(tr, n, t_tile, "legacy")
+        say("v1", f"{name}: engine='legacy' picks {mode}: node table "
+            f"{tr.num_nodes * 64} B + records {tr.tri_indices.shape[0] * 64}"
+            f" B > VMEM_BUDGET {packet.VMEM_BUDGET} B, the JAX package's "
+            "rule; K6a is reached only through packet_legacy(resident=True)")
+        if mode != "tri_stream":
+            raise AssertionError(f"v1: legacy picks {mode} at 1M")
+
+    # 21. the six calls through traverse_packet, counted; K6a's three
+    # op-level calls, counted; oracles
+    reset_counts()
+    recs = {(name, e): packet.traverse_packet(
+                tr, o, d, shape, tile, engine=e, active=act)
+            for name, (tr, o, d, shape, tile, act) in calls.items()
+            for e in ("legacy", "wide")}
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("v1", got, {"packet_legacy": 3, "packet_wide": 3})
+    launches["v1 traverse"] = got
+    reset_counts()
+    outs = {}
+    for name in calls:
+        args, kw, layout, fn, _ = v1_call(name, "K6a")
+        outs[name, "K6a"] = fn(*args, **kw)
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("v1 K6a", got, {"packet_legacy_resident": 3})
+    launches["v1 K6a"] = got
+    for name, (tr, o, d, shape, tile, act) in calls.items():
+        for kernel in kernels:
+            args, kw, layout, fn, _ = v1_call(name, kernel)
+            if kernel != "K6a":
+                outs[name, kernel] = fn(*args, **kw)
+                e = "wide" if kernel == "K9" else "legacy"
+                hit = packet._to_wave_order(outs[name, kernel][1], layout) >= 0
+                if not torch.equal(hit, recs[name, e]["hit"]):
+                    raise AssertionError(f"{kernel} {name}: traverse_packet's"
+                                         " hits differ from the kernel's")
+            if name == "soup":
+                continue
+            out = outs[name, kernel]
+            rec = packet._resolve_stream_winners(
+                tr, packet._to_wave_order(out[1], layout), o, d, out[2])
+            if name == "terrain":
+                pix = torch.as_tensor(np.random.default_rng(4).choice(
+                    n, ORACLE_PIXELS, replace=False), device=device)
+                check_oracle(f"{kernel} oracle", ctx["scene"], rec, o, d,
+                             pix, 2e-3, 1e-4, 1e-5)
+            else:
+                live = torch.nonzero(act).squeeze(1)
+                pick = live[torch.as_tensor(np.random.default_rng(5).choice(
+                    live.numel(), min(ORACLE_PIXELS, live.numel()),
+                    replace=False), device=device)]
+                check_oracle(f"{kernel} bounce oracle", ctx["scene"], rec,
+                             o, d, pick, 1e-3, 1e-5, 1e-6)
+    del recs
+
+    # 22. each kernel against its plain version; 23. beside K3, in turns
+    res, err = {}, {k: 0.0 for k in kernels}
+    for name, (tr, o, d, shape, tile, act) in calls.items():
+        every = 16 if name == "mirror wave" else EVERY
+        k3_args, k3_kw, _ = packet.stream_kernel_args(
+            tr, o, d, shape, tile, act, strips=False, frustum=False)
+        fns = [lambda: packet.packet_stream(*k3_args, **k3_kw)]
+        for kernel in kernels:
+            args, kw, _, fn, plain = v1_call(name, kernel)
+            out = outs[name, kernel]
+            tally = torch.zeros(4, dtype=torch.int64, device=device)
+            e, plain_ms, ref_stats = compare_v1(
+                f"{kernel} {name}", out, args, kw, plain, every, tally)
+            err[kernel] = max(err[kernel], e)
+            bnd, by, tests, ops = v1_bound(args, out, tile, tally, ref_stats,
+                                           kernel == "K6a")
+            res[name, kernel] = dict(plain_ms=plain_ms, bound=bnd, by=by,
+                                     tests=tests, ops=ops)
+            fns.append(lambda args=args, kw=kw, fn=fn: fn(*args, **kw))
+        ms = turns_ms(fns, 2 if name == "mirror wave" else 5)
+        k3_out = packet.packet_stream(*k3_args, **k3_kw)
+        torch.cuda.synchronize()
+        say(f"v1 vs K3 {name}", f"K3 (MT, AABB cull) {ms[0]:.4f} ms; "
+            + tile_stats_line(k3_out[2], tile))
+        for (kernel, (_, _, lane1)), kms in zip(kernels.items(), ms[1:]):
+            r = res[name, kernel]
+            r.update(ms=kms, k3_ms=ms[0])
+            say(f"v1 vs K3 {name}", f"{kernel} {kms:.4f} ms ({kms / ms[0]:.3f}"
+                f" x K3), plain {r['plain_ms']:.1f} ms on every {every}th "
+                f"tile, bound {r['bound']:.4f} ms ({r['by']}; {r['tests']} MT "
+                f"pairs, {r['ops'] / max(r['tests'], 1):.3f} FP32 operations "
+                f"each by early exit); " + v1_line(outs[name, kernel][2],
+                                                  tile, lane1))
+    entries = []
+    for kernel, (mode, cname, _) in kernels.items():
+        t, s_, m = (res[c, kernel] for c in calls)
+        entries.append({
+            "name": cname, "route": "cuda",
+            "source": "clpathtracer_tpu_torch/ops/csrc/packet_v1.cu",
+            "replaces": {"K6a": "clpathtracer_tpu/ops/packet.py:744",
+                         "K6b": "clpathtracer_tpu/ops/packet.py:808",
+                         "K9": "clpathtracer_tpu/ops/packet.py:831"}[kernel],
+            "launches": launches["v1 K6a" if kernel == "K6a"
+                                 else "v1 traverse"][cname],
+            "launches_by_path": {p: c.get(cname, 0)
+                                 for p, c in launches.items()},
+            "max_abs_err": err[kernel], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "plain_tiles": f"every {EVERY}th",
+            "bound_ms": t["bound"], "bound_by": t["by"], "library_ms": None,
+            "k3_ms": t["k3_ms"], "soup_ms": s_["ms"],
+            "soup_k3_ms": s_["k3_ms"], "soup_bound_ms": s_["bound"],
+            "mirror_wave_ms": m["ms"], "mirror_wave_k3_ms": m["k3_ms"],
+            "mirror_wave_bound_ms": m["bound"]})
+    return entries
+
+
+def compare_v1(name, kernel_out, args, kw, plain, every, tally):
+    """Run a v1 kernel's plain version on every `every`-th tile of the
+    call (args, kw) and hold the kernel's outputs to it exactly. Returns
+    (max |dt| over the plain hits, the plain run's ms, its stats)."""
+    best_t, best_slot, stats = kernel_out
+    table, recs, orig_t, dir_t = args
+    tile = kw["tile"]
+    device = orig_t.device
+    n_tiles = orig_t.shape[1] // tile
+    sel = torch.arange(0, n_tiles, every, device=device)
+    lanes = (sel[:, None] * tile
+             + torch.arange(tile, device=device)).reshape(-1)
+    (ref_t, ref_slot, ref_stats), plain_ms = timed(lambda: plain(
+        table, recs, orig_t[:, lanes].contiguous(),
+        dir_t[:, lanes].contiguous(), tally=tally, **kw))
+    bad_t = int((best_t[lanes] != ref_t).sum())
+    bad_slot = int((best_slot[lanes] != ref_slot).sum())
+    bad_stats = int((stats[sel] != ref_stats).sum())
+    hit = ref_slot >= 0
+    err = float((best_t[lanes] - ref_t)[hit].abs().max()) \
+        if bool(hit.any()) else 0.0
+    say(name, f"{sel.numel()} of {n_tiles} tiles of {tile} rays against the "
+        f"plain version (tolerance: exact): t mismatches {bad_t}, slot "
+        f"mismatches {bad_slot}, stats mismatches {bad_stats} (5 lanes), "
+        f"max |dt| {err}, {int(hit.sum())} hits; plain {plain_ms:.1f} ms")
+    if bad_t or bad_slot or bad_stats:
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             "version")
+    return err, plain_ms, ref_stats
 
 
 if __name__ == "__main__":

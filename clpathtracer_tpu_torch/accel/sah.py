@@ -14,9 +14,10 @@ On top of it sit the stream engine's tables:
 
 The numpy arithmetic is the JAX package's own, so both packages build the
 same tree, the same records and the same tables from the same triangles.
-The JAX package's Python builder (_build_recursive, _add_ropes) and its
-other attachments (Morton windows, grid, shadow tree, wide table) are not
-ported here.
+The 8-wide supernode table of the wide packet walk (accel/wide.py) is
+attached as the JAX package attaches it, for leaf_size >= 8. The JAX
+package's Python builder (_build_recursive, _add_ropes) and its other
+attachments (Morton windows, grid, shadow tree) are not ported here.
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ class FlatKdTree(TensorStruct):
       a real triangle carries an inverted box (+3.4e38 / -3.4e38).
     so_base: optional [4, Tp, 16] shared-origin tables over the padded
       records (attach_so_tables).
+    wide_table: optional [S, 128] f32 8-wide supernode rows
+      (accel/wide.py::build_wide_table) of the wide packet walk.
     max_leaf_tris: the largest leaf's triangle count.
     """
 
@@ -68,6 +71,7 @@ class FlatKdTree(TensorStruct):
     chunk_start: torch.Tensor = None
     chunk_bnd: torch.Tensor = None
     so_base: torch.Tensor = None
+    wide_table: torch.Tensor = None
     max_leaf_tris: int = 0
 
     @property
@@ -114,7 +118,8 @@ def build_kd_tree(tri_verts: np.ndarray, max_depth: int = DEFAULT_DEPTH,
                   leaf_size: int = 1, tri_block: int = 4, *,
                   device) -> FlatKdTree:
     """Build the SAH kd-tree with the native builder and attach the
-    stream engine's window tables (not the SO tables: attach_so_tables).
+    stream engine's window tables and, for leaf_size >= 8, the wide table
+    (not the SO tables: attach_so_tables).
 
     tri_verts: [F, 3, 3] triangle corners (host numpy, face-winding
     order). max_depth, leaf_size: as the JAX package's build_kd_tree.
@@ -129,8 +134,10 @@ def build_kd_tree(tri_verts: np.ndarray, max_depth: int = DEFAULT_DEPTH,
     table, tri_indices = build_kd_native(
         np.asarray(tri_verts, np.float32), max_depth, max(1, leaf_size),
         tri_block)
-    return attach_chunk_info(
-        tree_from_node_table(table, tri_indices, tri_verts, device=device))
+    tree = tree_from_node_table(table, tri_indices, tri_verts, device=device)
+    if leaf_size >= 8:
+        tree = attach_wide_table(tree)
+    return attach_chunk_info(tree)
 
 
 def tree_from_node_table(table: np.ndarray, tri_indices: np.ndarray,
@@ -269,6 +276,14 @@ def attach_chunk_info(tree: FlatKdTree) -> FlatKdTree:
     device = tree.tris.device
     return tree.replace(chunk_start=torch.as_tensor(cs, device=device),
                         chunk_bnd=torch.as_tensor(bnd, device=device))
+
+
+def attach_wide_table(tree: FlatKdTree) -> FlatKdTree:
+    """Build (on the host) and attach the 8-wide supernode table
+    (accel/wide.py::build_wide_table) on the tree's device."""
+    from clpathtracer_tpu_torch.accel.wide import build_wide_table
+    return tree.replace(wide_table=torch.as_tensor(
+        build_wide_table(tree), device=tree.node_table.device))
 
 
 def attach_so_tables(tree: FlatKdTree) -> FlatKdTree:

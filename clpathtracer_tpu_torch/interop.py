@@ -53,11 +53,13 @@ def windows_from_numpy(tris128, win_bnd, so_base, resolve_rows, slot_of_tri,
 
 
 def tree_from_numpy(node_table, tri_indices, quads, chunk_start, chunk_bnd,
-                    so_base, max_leaf_tris: int, *, device) -> FlatKdTree:
+                    so_base, max_leaf_tris: int, wide_table=None, *,
+                    device) -> FlatKdTree:
     """FlatKdTree from clpathtracer_tpu.accel.sah.FlatKdTree's arrays:
     node_table [M, 24], tri_indices [T], quads [T/4, 64], chunk_start [M],
     chunk_bnd [ceil(W/16), 128] (8 lanes per window, padded to whole rows
-    of 16 windows), so_base [4, R, 128] or None."""
+    of 16 windows), so_base [4, R, 128] or None, wide_table [S, 128] or
+    None."""
     table = np.array(node_table, np.float32)
     flags = table[:, 7].astype(np.int32)
     leaf_start = table[:, 10].astype(np.int32) * 4
@@ -83,6 +85,8 @@ def tree_from_numpy(node_table, tri_indices, quads, chunk_start, chunk_bnd,
                       .reshape(-1, 8)[:n_win, :6]),
         so_base=(None if so_base is None else dev(
             np.asarray(so_base, np.float32).reshape(4, -1, 16))),
+        wide_table=(None if wide_table is None else dev(
+            np.asarray(wide_table, np.float32))),
         max_leaf_tris=int(max_leaf_tris))
 
 

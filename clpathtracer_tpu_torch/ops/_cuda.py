@@ -55,6 +55,11 @@ SIGNATURES = {
         # best_slot, stats, n_rays, tile, n_rows, so, stream
         "packet_queue_launch": [_P] * 10 + [_I] * 4 + [_P],
     },
+    "packet_v1": {
+        # table, recs, orig_t, dir_t, best_t, best_slot, stats, overflow,
+        # n_rays, tile, n_recs, engine, stream
+        "packet_v1_launch": [_P] * 8 + [_I] * 4 + [_P],
+    },
 }
 
 

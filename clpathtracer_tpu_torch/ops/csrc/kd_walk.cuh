@@ -1,8 +1,9 @@
-// The kd-tree interval walk's device functions, shared by the stream kernel
-// K3/K4 (packet_stream.cu) and the queue kernel K5 (packet_queue.cu): one
-// copy, so both walks round every interval as the other and as the plain
-// torch versions do (clpathtracer_tpu_torch/ops/packet.py::_walk_tile,
-// _queue_tile).
+// The kd-tree walks' device functions, shared by the stream kernel K3/K4
+// (packet_stream.cu), the queue kernel K5 (packet_queue.cu) and the v1
+// kernels K6a, K6b and K9 (packet_v1.cu): one copy, so every walk rounds
+// every interval as the others and as the plain torch versions do
+// (clpathtracer_tpu_torch/ops/packet.py::_walk_tile, _queue_tile,
+// _binary_v1_walk, _wide_v1_walk).
 //
 // A walk is block-uniform: every thread of the block computes the same
 // pops, interval tests and window decisions from the same reads; thread 0
@@ -20,7 +21,9 @@
 //   dense_window: the dense test of one staged window of 128 records
 //     against a thread's rays, merged with the TPU kernels' tie rule;
 //   load_rays, push_root, push_children, store_tile: the frame of a
-//     walk around them.
+//     walk around them;
+//   cp_async16, cp_async_commit, cp_async_wait, wait_pending: 16-byte
+//     cp.async copies into shared memory and their commit groups.
 
 #pragma once
 
@@ -37,6 +40,36 @@ constexpr int kRecF4 = 4;            // float4s per 16-float record
 constexpr int kMaxThreads = 512;
 constexpr float kBig = 3.4e38f;
 constexpr float kInvBig = 1e30f;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void wait_pending(int pending) {
+  switch (pending) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
 
 // Block reductions; every thread gets the result. Callers are uniform.
 __device__ __forceinline__ float block_min(float v, float* red) {
@@ -81,7 +114,8 @@ __device__ __forceinline__ float tile_t_upper(const float* bt, const bool* on,
 }
 
 // This thread's rays of tile `base` (lane tid + k * blockDim.x) from the
-// [3, n_rays] tile-major arrays, their active flags, and empty winners.
+// [3, n_rays] tile-major arrays, their active flags (all active when act is
+// null), and empty winners.
 template <int RPT>
 __device__ __forceinline__ void load_rays(const float* orig_t,
                                           const float* dir_t,
@@ -97,7 +131,7 @@ __device__ __forceinline__ void load_rays(const float* orig_t,
     ray[k].dx = dir_t[g];
     ray[k].dy = dir_t[n_rays + g];
     ray[k].dz = dir_t[2 * (size_t)n_rays + g];
-    on[k] = act[g] > 0.f;
+    on[k] = act == nullptr || act[g] > 0.f;
     bt[k] = kBig;
     bs[k] = -1;
   }

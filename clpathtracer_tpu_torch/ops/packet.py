@@ -1,7 +1,8 @@
 """Packet tracing of coherent ray tiles against a kd-tree (the port's part
-of clpathtracer_tpu/ops/packet.py): the stream and queue engines, their
-host and prepass code, and the shared-origin tables, gate frustum planes
-and pixel-block layouts that the window engine (ops/plist.py) shares.
+of clpathtracer_tpu/ops/packet.py): the stream, queue, legacy and wide
+engines, their host and prepass code, and the shared-origin tables, gate
+frustum planes and pixel-block layouts that the window engine
+(ops/plist.py) shares.
 
 traverse_packet cuts a wave into tiles of `tile` rays (square or 1:2 pixel
 blocks of a frame, else consecutive rays) and runs K3 on them: one
@@ -20,11 +21,18 @@ plain version (packet_stream_reference) on the CPU. precision="bf16" runs
 the bf16 preview K4, K3's kernel with a bf16 dense test (MT records, the
 AABB cull only); engine="queue" runs K5 (ops/csrc/packet_queue.cu,
 packet_queue), the same walk decoupled from the dense test by a ring of
-QUEUE_DEPTH window copies in flight. The winners re-resolve t/u/v with one
-exact Moller-Trumbore per ray. The JAX package's other engines (legacy,
-stream2, mxu, wide) raise NotImplementedError naming their kernels; its
-TPU scalar-memory packing (6-bit window counts, the 900 KB budget) and its
-environment switches are not ported: the culls are explicit arguments at
+QUEUE_DEPTH window copies in flight. engine="legacy" runs the JAX
+package's v1 walk (ops/csrc/packet_v1.cu, packet_legacy): a stack walk
+over binary nodes culled against the packet bounds, children ordered by
+the packet's direction sign, t_upper the largest best t after every leaf;
+K6a tests a leaf's own records in order from the resident array, K6b
+streams its unculled 128-record windows; engine="wide" runs K9
+(packet_wide), the same idea over the 8-wide supernodes of accel/wide.py
+with K6b's leaf stream. The winners re-resolve t/u/v with one exact
+Moller-Trumbore per ray. The JAX package's other engines (stream2, mxu)
+raise NotImplementedError naming their kernels; its TPU scalar-memory
+packing (6-bit window counts, the 900 KB budget) and its environment
+switches are not ported: the culls and engines are explicit arguments at
 the JAX defaults.
 """
 
@@ -56,10 +64,16 @@ _REF_PAIRS = 1 << 22
 _NO_CULL, _CULL, _CULL_FRUSTUM, _STRIPS = range(4)
 # engines of the JAX package's packet_mode that are not ported yet, by the
 # kernel they run
-_OTHER_ENGINES = {"legacy": "K6 (_kernel, _kernel_tri_stream)",
-                  "stream2": "K7 (_kernel_stream2)",
-                  "mxu": "K8 (_kernel_mxu)",
-                  "wide": "K9 (_kernel_wide)"}
+_OTHER_ENGINES = {"stream2": "K7 (_kernel_stream2)",
+                  "mxu": "K8 (_kernel_mxu)"}
+# The JAX package's rule for choosing between its two legacy kernels: the
+# node table (64 B per node) and the records (64 B each) resident when both
+# fit this TPU VMEM budget (K6a), else the node table alone (K6b). Kept as
+# that rule, so that engine="legacy" runs the kernel JAX runs; it is not a
+# limit of the card.
+VMEM_BUDGET = 12 * 1024 * 1024
+# v1 kernel engines (ops/csrc/packet_v1.cu)
+_V1_RESIDENT, _V1_STREAM, _V1_WIDE = range(3)
 
 
 # ---------------------------------------------------------------------------
@@ -540,28 +554,32 @@ def _check_precision(precision, so=False, frustum=None, masks=None):
                          "AABB cull or none: no SO rows, frustum or strips")
 
 
-def _launch_walk(entry, tile, inputs, ints):
-    """Launch a kd-walk kernel's C entry (ops/_cuda.py::SIGNATURES) on the
+def _launch_walk(entry, tile, n, inputs, ints, overflow=False):
+    """Launch a walk kernel's C entry (ops/_cuda.py::SIGNATURES) on the
     current stream of the inputs' device: the inputs' pointers (None for
-    an absent table), the outputs' (best_t [N] f32, best_slot [N] i32,
-    stats [N / tile, 5] i32, with N the rays of inputs[5], the active
-    mask), the ints, the stream. Returns the outputs; raises when the
-    launch fails."""
+    an absent table), the outputs' (best_t [n] f32, best_slot [n] i32,
+    stats [n / tile, 5] i32; with `overflow`, then a zeroed i32 flag the
+    kernel sets when its stack overflows), the ints, the stream. Returns
+    the outputs; raises when the launch fails or the flag is set (which
+    waits for the kernel)."""
     from clpathtracer_tpu_torch.ops._cuda import load_kernels
     fn = load_kernels().fns[entry]
-    act = inputs[5]
-    device = act.device
-    n = act.shape[0]
+    device = inputs[0].device
     out = (torch.empty((n,), dtype=torch.float32, device=device),
            torch.empty((n,), dtype=torch.int32, device=device),
            torch.empty((n // tile, 5), dtype=torch.int32, device=device))
+    flag = (torch.zeros((1,), dtype=torch.int32, device=device),) \
+        if overflow else ()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(None if t is None else t.data_ptr() for t in inputs),
-                 *(t.data_ptr() for t in out), *ints, stream)
+                 *(t.data_ptr() for t in out + flag), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: cudaError {err} (N={n}, "
                            f"tile={tile}, arguments {ints})")
+    if overflow and int(flag[0].item()):
+        raise RuntimeError(f"{entry}: the walk's stack of {STACK_DEPTH} "
+                           f"entries overflowed (N={n}, tile={tile})")
     return out
 
 
@@ -608,7 +626,7 @@ def packet_stream(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
     if device.type != "cuda":
         raise ValueError(f"packet_stream: no kernel for device {device}")
     out = _launch_walk(
-        "packet_stream_launch", tile,
+        "packet_stream_launch", tile, act.shape[0],
         (nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, frustum, masks,
          ten),
         (act.shape[0], tile, rows.shape[0] // 8,
@@ -862,7 +880,7 @@ def packet_queue(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
     if device.type != "cuda":
         raise ValueError(f"packet_queue: no kernel for device {device}")
     out = _launch_walk(
-        "packet_queue_launch", tile,
+        "packet_queue_launch", tile, act.shape[0],
         (nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd),
         (act.shape[0], tile, rows.shape[0] // 8, int(so)))
     packet_queue.launches += 1
@@ -970,22 +988,319 @@ def _queue_tile(host, ob, ib, n_act, recs, rays, on, so, n_rows, tally):
 
 
 # ---------------------------------------------------------------------------
+# the v1 kernels K6a, K6b, K9 and their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _check_v1_args(table, width, recs, orig_t, dir_t, tile, padded, name):
+    tensors = dict(table=table, recs=recs, orig_t=orig_t, dir_t=dir_t)
+    devices = {t.device for t in tensors.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    for arg, t in tensors.items():
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous "
+                             f"torch.float32 tensor, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    n = orig_t.shape[1] if orig_t.dim() == 2 else -1
+    if tile <= 0 or tile % 32 or tile > 4096 or n % tile \
+            or (tile > 512 and tile % 512):
+        raise ValueError(f"{name}: tile {tile} must be a multiple of 32 "
+                         "that divides the rays, at most 4096, and a "
+                         f"multiple of 512 above 512 ({n} rays)")
+    if table.dim() != 2 or table.shape[1] != width or table.shape[0] == 0:
+        raise ValueError(f"{name}: table {tuple(table.shape)} is not "
+                         f"[M, {width}]")
+    if recs.dim() != 2 or recs.shape[1] != 16 or (padded and (
+            recs.shape[0] % 8 or recs.shape[0] < _WIN_RECS)):
+        raise ValueError(f"{name}: recs {tuple(recs.shape)} is not [T, 16]"
+                         + (f" with T a multiple of 8 and at least "
+                            f"{_WIN_RECS} (pad_records)" if padded else ""))
+    if orig_t.shape != (3, n) or dir_t.shape != (3, n):
+        raise ValueError(f"{name}: orig_t {tuple(orig_t.shape)} / dir_t "
+                         f"{tuple(dir_t.shape)} are not [3, N]")
+
+
+def packet_legacy(table16, recs, orig_t, dir_t, *, tile: int,
+                  resident: bool):
+    """Nearest hit of every ray of every packet tile through the v1 walk
+    of the kd-tree: K6a (resident=True; replaces clpathtracer_tpu/ops/
+    packet.py::_kernel) or K6b (replaces _kernel_tri_stream).
+
+    table16: [M, 16] f32, node_table[:, :16] (lo xyz, hi xyz, split,
+    flags, child_lo, child_hi, quad start, triangle count); recs: [T, 16]
+    records, as they are for K6a, pad_records for K6b; orig_t / dir_t:
+    [3, N] tile-major rays. Every lane takes part: there is no active
+    mask, as in the JAX package's legacy kernels.
+
+    The walk: a stack of nodes from the root; a popped node is live when
+    its box's packet interval (the bounds of all lanes) has t_enter <=
+    t_exit, t_exit > 0 and t_enter <= t_upper; a live split pushes the
+    far child, then the near one, ordered by the sign of the packet's
+    inverse-direction sum on its axis; a live leaf is tested and t_upper
+    becomes the largest best t over the tile's lanes. K6a tests the leaf's
+    records in order, the later record winning at equal t; K6b streams
+    the leaf's 128-record windows on the clamped grid of pad_records,
+    none culled, with _mt_chunk_math's tie rule (see ops/csrc/
+    packet_v1.cu).
+
+    Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss, stats
+    [n_tiles, 5] i32 = node pops, leaves tested (K6a) or windows streamed
+    (K6b), 0, 0, 0).
+
+    A CPU tensor runs the plain version (packet_legacy_reference); a CUDA
+    tensor launches ops/csrc/packet_v1.cu on the current stream or raises,
+    also when the walk's stack overflows. `packet_legacy.resident_launches`
+    counts K6a's launches and `packet_legacy.launches` K6b's."""
+    name = "packet_legacy"
+    _check_v1_args(table16, 16, recs, orig_t, dir_t, tile, not resident,
+                   name)
+    device = orig_t.device
+    if device.type == "cpu":
+        return packet_legacy_reference(table16, recs, orig_t, dir_t,
+                                       tile=tile, resident=resident)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    out = _launch_walk(
+        "packet_v1_launch", tile, orig_t.shape[1],
+        (table16, recs, orig_t, dir_t),
+        (orig_t.shape[1], tile, recs.shape[0],
+         _V1_RESIDENT if resident else _V1_STREAM), overflow=True)
+    if resident:
+        packet_legacy.resident_launches += 1
+    else:
+        packet_legacy.launches += 1
+    return out
+
+
+packet_legacy.launches = 0
+packet_legacy.resident_launches = 0
+
+
+def packet_wide(wide, recs, orig_t, dir_t, *, tile: int):
+    """Nearest hit of every ray of every packet tile through the 8-wide
+    supernode walk (K9; replaces clpathtracer_tpu/ops/packet.py::
+    _kernel_wide).
+
+    wide: [S, 128] f32 supernode rows (accel/wide.py::build_wide_table);
+    recs: [T, 16] records padded by pad_records; orig_t / dir_t: [3, N]
+    tile-major rays, every lane taking part. A popped supernode tests its
+    8 child slots in order: a live internal child (the packet-interval
+    test of packet_legacy) is pushed, a live leaf streams its windows as
+    K6b does at once, so that its t_upper holds for the next slot.
+
+    Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss, stats
+    [n_tiles, 5] i32 = supernode pops, windows streamed, 0, 0, 0).
+
+    A CPU tensor runs the plain version (packet_wide_reference); a CUDA
+    tensor launches ops/csrc/packet_v1.cu on the current stream or raises,
+    also when the walk's stack overflows. `packet_wide.launches` counts
+    its launches."""
+    name = "packet_wide"
+    _check_v1_args(wide, 128, recs, orig_t, dir_t, tile, True, name)
+    device = orig_t.device
+    if device.type == "cpu":
+        return packet_wide_reference(wide, recs, orig_t, dir_t, tile=tile)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    out = _launch_walk(
+        "packet_v1_launch", tile, orig_t.shape[1],
+        (wide, recs, orig_t, dir_t),
+        (orig_t.shape[1], tile, recs.shape[0], _V1_WIDE), overflow=True)
+    packet_wide.launches += 1
+    return out
+
+
+packet_wide.launches = 0
+
+
+def packet_legacy_reference(table16, recs, orig_t, dir_t, *, tile: int,
+                            resident: bool, tally=None):
+    """Plain torch version of packet_legacy: same signature, same outputs,
+    stats included, on any device. The walk runs per tile on the host in
+    numpy float32 scalars (the kernel's f32 arithmetic); a leaf's dense
+    test runs on the tensors' device as torch ops. tally (optional int64
+    [4] tensor): adds the pairs tested, then mt_pairs' three counts of the
+    pairs that pass its early exits."""
+    table = table16.cpu().numpy()
+    n_rows = recs.shape[0] // 8
+
+    def walk(ti, ob, ib, n_act, recs10, rays, on):
+        if resident:
+            def leaf(qstart, count, bt, bs):
+                return (*_resident_leaf(recs10, rays, qstart * 4, count, bt,
+                                        bs, tally), 1)
+        else:
+            def leaf(qstart, count, bt, bs):
+                return _stream_leaf(recs10, rays, on, qstart, count, n_rows,
+                                    bt, bs, tally)
+        return _binary_v1_walk(table, ob, ib, tile, on.device, leaf)
+    return _per_tile(walk, recs, orig_t, dir_t, _all_lanes(orig_t), tile)
+
+
+def packet_wide_reference(wide, recs, orig_t, dir_t, *, tile: int,
+                          tally=None):
+    """Plain torch version of packet_wide: same signature, same outputs,
+    stats included, on any device (as packet_legacy_reference, tally
+    too)."""
+    table = wide.cpu().numpy()
+    n_rows = recs.shape[0] // 8
+
+    def walk(ti, ob, ib, n_act, recs10, rays, on):
+        def leaf(qstart, count, bt, bs):
+            return _stream_leaf(recs10, rays, on, qstart, count, n_rows, bt,
+                                bs, tally)
+        return _wide_v1_walk(table, ob, ib, tile, on.device, leaf)
+    return _per_tile(walk, recs, orig_t, dir_t, _all_lanes(orig_t), tile)
+
+
+def _all_lanes(orig_t):
+    """The v1 kernels' lanes: all of them (the packet bounds of every
+    lane; no dead lane)."""
+    return torch.ones((orig_t.shape[1],), dtype=torch.float32,
+                      device=orig_t.device)
+
+
+def _binary_v1_walk(table, ob, ib, tile, dev, leaf):
+    """One tile of the plain K6a / K6b (clpathtracer_tpu/ops/packet.py::
+    _binary_walk): (best_t [L], best_slot [L], stats [5]). leaf(quad
+    start, count, bt, bs) -> (bt, bs, lane-1 count)."""
+    f32 = np.float32
+    bt = torch.full((tile,), BIG, dtype=torch.float32, device=dev)
+    bs = torch.full((tile,), -1, dtype=torch.int32, device=dev)
+    stack = [0]
+    t_upper = f32(BIG)
+    nv = nl = 0
+    while stack:
+        node = stack.pop()
+        nv += 1
+        f = table[node]
+        t_en, t_ex = _box_interval(f[0:3], f[3:6], ob, ib)
+        if not (t_en <= t_ex and t_ex > 0.0 and t_en <= t_upper):
+            continue
+        flags = int(f[7])
+        if flags >= 4:
+            bt, bs, k = leaf(int(f[10]), int(f[11]), bt, bs)
+            nl += k
+            t_upper = f32(bt.max().item())
+            continue
+        il, ih = ib[flags & 3]
+        cl, ch = int(f[8]), int(f[9])
+        if len(stack) + 2 > STACK_DEPTH:
+            raise RuntimeError(f"packet walk: the stack of {STACK_DEPTH} "
+                               "entries overflowed")
+        stack += [ch, cl] if il + ih > 0.0 else [cl, ch]   # near on top
+    return bt, bs, (nv, nl, 0, 0, 0)
+
+
+def _wide_v1_walk(table, ob, ib, tile, dev, leaf):
+    """One tile of the plain K9 (clpathtracer_tpu/ops/packet.py::
+    _kernel_wide): (best_t [L], best_slot [L], stats [5])."""
+    f32 = np.float32
+    bt = torch.full((tile,), BIG, dtype=torch.float32, device=dev)
+    bs = torch.full((tile,), -1, dtype=torch.int32, device=dev)
+    stack = [0]
+    t_upper = f32(BIG)
+    nv = nl = 0
+    while stack:
+        c = table[stack.pop()].reshape(8, 16)
+        nv += 1
+        # the 8 children's intervals; t_upper may fall between children
+        t_en, t_ex = _box_interval([c[:, j] for j in range(3)],
+                                   [c[:, 3 + j] for j in range(3)], ob, ib)
+        for k in range(8):
+            kind = c[k, 6]
+            if not (t_en[k] <= t_ex[k] and t_ex[k] > 0.0
+                    and t_en[k] <= t_upper and kind > 0.5):
+                continue
+            if kind < 1.5:
+                if len(stack) + 1 > STACK_DEPTH:
+                    raise RuntimeError(f"packet walk: the stack of "
+                                       f"{STACK_DEPTH} entries overflowed")
+                stack.append(int(c[k, 7]))
+            else:
+                bt, bs, n = leaf(int(c[k, 7]), int(c[k, 8]), bt, bs)
+                nl += n
+                t_upper = f32(bt.max().item())
+    return bt, bs, (nv, nl, 0, 0, 0)
+
+
+def _resident_leaf(recs, rays, first, count, bt, bs, tally=None):
+    """K6a's leaf: the records [first, first + count) in order against
+    the tile's rays, a record taken where it hits at t <= the best t so
+    far, so the later record wins at equal t (in steps of at most
+    _REF_PAIRS pairs, merged in order with the same rule)."""
+    tile = bt.shape[0]
+    ox, oy, oz, dx, dy, dz = (r[None, :] for r in rays)
+    step = max(1, _REF_PAIRS // tile)
+    for c0 in range(0, count, step):
+        r = recs[first + c0:first + min(count, c0 + step)][:, None, :]
+        if tally is not None:
+            tally[0] += r.shape[0] * tile
+        ok, t = mt_pairs(r, ox, oy, oz, dx, dy, dz,
+                         None if tally is None else tally[1:])
+        t = torch.where(ok, t, float("inf"))                   # [C, L]
+        m = t.amin(dim=0)
+        idx = torch.arange(r.shape[0], device=bt.device)[:, None]
+        last = torch.where(ok & (t == m), idx, -1).amax(dim=0)
+        take = m <= bt
+        bt = torch.where(take, m, bt)
+        bs = torch.where(take, (first + c0 + last).to(torch.int32), bs)
+    return bt, bs
+
+
+def _stream_leaf(recs, rays, on, qstart, count, n_rows, bt, bs, tally=None):
+    """K6b's and K9's leaf (clpathtracer_tpu/ops/packet.py::
+    _chunk_pipeline's stream_leaf): the windows of rows [first // 8,
+    (first + count + 7) // 8) on the clamped grid, none culled, tested in
+    order. Returns (bt, bs, windows)."""
+    first = qstart * 4
+    row0 = first // 8
+    nch = ((first + count + 7) // 8 - row0 + CHUNK_ROWS - 1) // CHUNK_ROWS
+    rows0 = np.minimum(row0 + np.arange(nch) * CHUNK_ROWS,
+                       n_rows - CHUNK_ROWS)
+    if tally is not None:
+        tally[0] += nch * _WIN_RECS * bt.shape[0]
+    bt, bs = _dense_windows(recs, rows0, rays, on.expand(nch, bt.shape[0]),
+                            False, bt, bs,
+                            None if tally is None else tally[1:])
+    return bt, bs, nch
+
+
+# ---------------------------------------------------------------------------
 # host entry
 # ---------------------------------------------------------------------------
 
 
 def packet_mode(tree, n_rays: int, tile: int = TILE, engine: str = "auto"):
     """The engine traverse_packet runs, or None when it cannot run (no
-    tree, or a wave that is not whole tiles). "auto" and "stream" select
-    the stream engine (K3, or K4 in the bf16 preview), "queue" the queue
-    engine (K5); the JAX package's other engines are named as asked and
-    raise in traverse_packet."""
+    tree, a wave that is not whole tiles, a legacy node table beyond
+    VMEM_BUDGET, "wide" without a wide table):
+
+    * "auto" and "stream": "stream" (K3, or K4 in the bf16 preview); the
+      JAX package's "auto" leaves the stream engine only when its tables
+      exceed the TPU's VMEM budget, which the card does not have;
+    * "queue": "queue" (K5);
+    * "legacy": the JAX package's v1 selection, "vmem" (K6a) when the
+      node table and the records fit VMEM_BUDGET at 64 B each, else
+      "tri_stream" (K6b) when the node table does;
+    * "wide": "wide" (K9) when the tree has a wide table (the JAX
+      package's CLPT_WIDE=1);
+    * stream2 and mxu are named as asked and raise in traverse_packet."""
     if tree is None or tree.node_table is None or n_rays % tile:
         return None
     if engine in ("auto", "stream"):
         return "stream"
     if engine == "queue" or engine in _OTHER_ENGINES:
         return engine
+    if engine == "legacy":
+        table_bytes = tree.num_nodes * 16 * 4
+        tri_bytes = tree.tri_indices.shape[0] * 16 * 4
+        if table_bytes + tri_bytes <= VMEM_BUDGET:
+            return "vmem"
+        return "tri_stream" if table_bytes <= VMEM_BUDGET else None
+    if engine == "wide":
+        return "wide" if tree.wide_table is not None else None
     raise ValueError(f"unknown packet engine {engine!r}")
 
 
@@ -997,6 +1312,37 @@ def tile_shape(tile: int):
         th = math.isqrt(tile // 2)
         tw = 2 * th
     return th, tw
+
+
+def _pixel_blocks(image_shape, tile: int):
+    """(h, w, th, tw) when the frame image_shape = (h, w) divides into
+    tile_shape pixel blocks of `tile` rays, else None (consecutive
+    rays)."""
+    th, tw = tile_shape(tile)
+    if (image_shape is not None and th * tw == tile
+            and image_shape[0] % th == 0 and image_shape[1] % tw == 0):
+        return (*image_shape, th, tw)
+    return None
+
+
+def v1_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
+                   mode: str = "tri_stream"):
+    """The host side of traverse_packet's legacy and wide branches for
+    mode "vmem" (K6a), "tri_stream" (K6b) or "wide" (K9): (args, layout)
+    with packet_legacy(*args, tile=tile, resident=mode == "vmem") or
+    packet_wide(*args, tile=tile) the kernel call and layout as
+    stream_kernel_args'. The records: tree.tris as they are for K6a,
+    pad_records for K6b and K9; the rays pixel-blocked when image_shape
+    divides into tiles."""
+    blocks = _pixel_blocks(image_shape, tile)
+    if blocks is not None:
+        orig, dir = _blockify(orig, *blocks), _blockify(dir, *blocks)
+    table = (tree.wide_table if mode == "wide"
+             else tree.node_table[:, :16].contiguous())
+    recs = tree.tris if mode == "vmem" else pad_records(tree.tris)
+    args = (table, recs, orig.T.to(torch.float32).contiguous(),
+            dir.T.to(torch.float32).contiguous())
+    return args, None if blocks is None else ("blocks", *blocks)
 
 
 def stream_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
@@ -1016,10 +1362,9 @@ def stream_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
     512-lane gates when tile >= 1024; else the AABB cull (chunk_cull), with
     the corner frustum (frustum=True) on such frames."""
     n = orig.shape[0]
-    th, tw = tile_shape(tile)
-    blocked = (image_shape is not None and th * tw == tile
-               and image_shape[0] % th == 0 and image_shape[1] % tw == 0)
-    h, w = image_shape if blocked else (None, None)
+    blocks = _pixel_blocks(image_shape, tile)
+    blocked = blocks is not None
+    h, w, th, tw = blocks if blocked else (None, None, *tile_shape(tile))
     cbnd = tree.chunk_bnd if chunk_cull else None
     so = shared_origin and tree.so_base is not None
     act = (torch.ones((n,), dtype=torch.float32, device=orig.device)
@@ -1071,8 +1416,9 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
                     precision: str = "f32", shared_origin: bool = False,
                     grid_dirs: bool = False, strips: bool = True,
                     frustum: bool = True, chunk_cull: bool = True):
-    """Packet-trace a coherent wave through the kd-tree (the stream and
-    queue branches of clpathtracer_tpu/ops/packet.py::traverse_packet).
+    """Packet-trace a coherent wave through the kd-tree (the stream,
+    queue, legacy and wide branches of clpathtracer_tpu/ops/packet.py::
+    traverse_packet).
 
     tree: accel/sah.py::FlatKdTree with window tables (attach_chunk_info)
     and, for the SO form, SO tables (attach_so_tables). image_shape:
@@ -1086,6 +1432,11 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
     engine "auto" / "stream" runs K3; "queue" runs K5 with the SO form
     when shared_origin and the tree has SO tables, the AABB cull when it
     has window tables (and chunk_cull), never strips or the frustum.
+    "legacy" runs K6a or K6b by the JAX package's byte rule (packet_mode)
+    and "wide" K9 (the JAX package's CLPT_WIDE=1); as in the JAX package
+    they take the MT records of every lane and ignore active,
+    shared_origin, grid_dirs, strips, frustum, chunk_cull and precision:
+    dead lanes join the packet bounds and can report hits.
     precision "bf16" (the stream engine's preview) runs K4: MT records,
     the AABB cull, no strips, frustum or SO form; hit comes from its
     winner slot and t/u/v from the f32 re-resolve, so a bf16 false hit
@@ -1094,16 +1445,28 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
 
     Returns hit, t, tri, u, v ([N]) and tile_stats [n_tiles, 5] (node
     pops, windows streamed, active lanes, windows culled, dense
-    executions; K4 and K5 write 0 in the last)."""
+    executions; K4 and K5 write 0 in the last; K6a, K6b and K9 write node
+    (K9: supernode) pops, leaves (K6a) or windows streamed, then 0s)."""
     n = orig.shape[0]
     _check_precision(precision)
     mode = packet_mode(tree, n, tile, engine)
     if mode is None:
-        raise ValueError(f"traverse_packet: {n} rays are not whole tiles of "
-                         f"{tile}, or there is no tree")
-    if mode not in ("stream", "queue"):
+        raise ValueError(f"traverse_packet: engine {engine!r} cannot run: "
+                         f"{n} rays are not whole tiles of {tile}, there is "
+                         "no tree, or the tree lacks the engine's tables")
+    if mode in _OTHER_ENGINES:
         raise NotImplementedError(
             f"engine={engine!r} runs {_OTHER_ENGINES[mode]}, not ported yet")
+    if mode in ("vmem", "tri_stream", "wide"):
+        args, layout = v1_kernel_args(tree, orig, dir, image_shape, tile,
+                                      mode)
+        if mode == "wide":
+            _, best_slot, tile_stats = packet_wide(*args, tile=tile)
+        else:
+            _, best_slot, tile_stats = packet_legacy(
+                *args, tile=tile, resident=mode == "vmem")
+        return _resolve_stream_winners(
+            tree, _to_wave_order(best_slot, layout), orig, dir, tile_stats)
     if mode == "queue" or precision == "bf16":
         # the JAX package's VMEM-table and queue calls: no strips, no
         # frustum; the SO form only in f32

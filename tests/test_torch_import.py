@@ -1,5 +1,6 @@
 """The port stands alone: it imports and renders (windows and kd-tree
-routes) with jax and flax blocked, no file of it or of chip_smoke.py
+routes; the legacy and wide engines and accel/wide.py) with jax and flax
+blocked, no file of it or of chip_smoke.py
 imports either or the JAX package, and its kernel loader fails clearly
 where there is no CUDA toolkit."""
 
@@ -52,6 +53,20 @@ for mode, ref in (("normal", img), ("mirror", mirror)):
                                                 mode=mode, packet_tile=256),
                       tree=tree)
     assert torch.allclose(kd, ref, atol=1e-6), mode
+# the legacy and wide engines (K6a, K9 plain) on a tree with a wide table
+from clpathtracer_tpu_torch.accel import wide
+from clpathtracer_tpu_torch.core.camera import cam_matrix, generate_rays
+from clpathtracer_tpu_torch.ops import packet
+wtree = sah.build_kd_tree(scene.tri_corners(), leaf_size=8, device=cpu)
+assert wtree.wide_table is not None
+assert torch.equal(wtree.wide_table, torch.as_tensor(
+    wide.build_wide_table(wtree)))
+o, d = generate_rays(cam_matrix(cam, 32), 32, 32)
+hits = [packet.traverse_packet(wtree, o, d, (32, 32), 256,
+                               engine=e)["hit"].reshape(32, 32)
+        for e in ("auto", "legacy", "wide")]
+assert torch.equal(hits[0], hit) and torch.equal(hits[1], hit)
+assert torch.equal(hits[2], hit)
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
                                    "clpathtracer_tpu")
                for m in sys.modules if sys.modules[m] is not None)

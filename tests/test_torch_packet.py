@@ -302,20 +302,26 @@ def test_resolve_tri_hits_matches_jax(baked):
 @pytest.mark.parametrize("case", ["queue", "legacy", "stream2", "mxu",
                                   "wide", "bf16", "frame", "no_tree"])
 def test_outside_the_route_raises(terrain, case):
-    """What the route does not carry raises; the queue engine and the bf16
-    preview, once outside it, now run (their parity is in
-    test_torch_queue.py and test_torch_bf16.py)."""
+    """What the route does not carry raises; the queue engine, the bf16
+    preview and the legacy and wide engines, once outside it, now run
+    (their parity is in test_torch_queue.py, test_torch_bf16.py and
+    test_torch_legacy.py)."""
     tree = terrain["tree"]
     o = torch.zeros((4096, 3))
     d = torch.ones((4096, 3))
-    if case in ("queue", "bf16"):     # ported: the run agrees with K3's
-        kw = ({"engine": "queue"} if case == "queue"
-              else {"precision": "bf16"})
+    if case in ("queue", "bf16", "legacy", "wide"):   # ported: the run
+        kw = ({"precision": "bf16"} if case == "bf16"  # agrees with K3's
+              else {"engine": case})
         rec = tpk.traverse_packet(tree, o, d, **kw)
         ref = tpk.traverse_packet(tree, o, d)
         assert rec["tile_stats"].shape == ref["tile_stats"].shape == (4, 5)
-        assert torch.equal(rec["tile_stats"][:, 2], ref["tile_stats"][:, 2])
-        if case == "queue":
+        if case in ("queue", "bf16"):
+            assert torch.equal(rec["tile_stats"][:, 2],
+                               ref["tile_stats"][:, 2])
+        else:       # the v1 kernels write 0 where K3 counts active lanes
+            assert (rec["tile_stats"][:, 2:] == 0).all()
+            assert (rec["tile_stats"][:, :2] > 0).all()
+        if case != "bf16":
             assert torch.equal(rec["hit"], ref["hit"])
     elif case == "frame":      # not whole packet tiles: traverse_fast
         cam = Camera.create(POS, FWD, device=CPU)
