@@ -13,8 +13,13 @@ bundles through the bundle prepass and its general Moller-Trumbore form
 (ops/csrc/plist_super.cu), fused winner resolution. The kd-tree stream
 engine: the native SAH builder (accel/native, accel/sah.py), packet tiles
 through the strip prepass or window AABB culls and the stream kernel
-(ops/csrc/packet_stream.cu), resolve_tri_hits. The kernels run as CUDA on
-the GPU and as their plain torch versions on the CPU.
+(ops/csrc/packet_stream.cu), resolve_tri_hits. ops/packet.py::
+traverse_packet also runs the JAX package's other packet engines, which no
+frame takes: the bf16 preview, the queue, the v1 legacy and wide walks,
+the half-split stream2 walk (ops/csrc/packet_stream2.cu) and the
+plane-form mxu walk (ops/packet_mxu.py, ops/csrc/packet_mxu.cu). The
+kernels run as CUDA on the GPU and as their plain torch versions on the
+CPU.
 """
 
 from clpathtracer_tpu_torch.core.camera import Camera

@@ -46,14 +46,24 @@ SIGNATURES = {
     },
     "packet_stream": {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, frustum, masks,
-        # ten, best_t, best_slot, stats, n_rays, tile, n_rows, n_windows,
-        # mode, n_strips, so, bf16, stream
-        "packet_stream_launch": [_P] * 13 + [_I] * 8 + [_P],
+        # ten, best_t, best_slot, stats, overflow, n_rays, tile, n_rows,
+        # n_windows, mode, n_strips, so, bf16, stream
+        "packet_stream_launch": [_P] * 14 + [_I] * 8 + [_P],
     },
     "packet_queue": {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, best_t,
-        # best_slot, stats, n_rays, tile, n_rows, so, stream
-        "packet_queue_launch": [_P] * 10 + [_I] * 4 + [_P],
+        # best_slot, stats, overflow, n_rays, tile, n_rows, so, stream
+        "packet_queue_launch": [_P] * 11 + [_I] * 4 + [_P],
+    },
+    "packet_stream2": {
+        # nodes_i, nodes_f, rows, orig_t, dir_t, act, best_t, best_slot,
+        # stats, overflow, n_rays, tile, n_rows, stream
+        "packet_stream2_launch": [_P] * 10 + [_I] * 3 + [_P],
+    },
+    "packet_mxu": {
+        # nodes_i, nodes_f, chunks, orig_t, dir_t, act, best_t, best_slot,
+        # stats, overflow, n_rays, tile, n_chunks, stream
+        "packet_mxu_launch": [_P] * 10 + [_I] * 3 + [_P],
     },
     "packet_v1": {
         # table, recs, orig_t, dir_t, best_t, best_slot, stats, overflow,

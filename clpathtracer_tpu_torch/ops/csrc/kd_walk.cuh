@@ -1,9 +1,11 @@
 // The kd-tree walks' device functions, shared by the stream kernel K3/K4
-// (packet_stream.cu), the queue kernel K5 (packet_queue.cu) and the v1
-// kernels K6a, K6b and K9 (packet_v1.cu): one copy, so every walk rounds
-// every interval as the others and as the plain torch versions do
-// (clpathtracer_tpu_torch/ops/packet.py::_walk_tile, _queue_tile,
-// _binary_v1_walk, _wide_v1_walk).
+// (packet_stream.cu), the queue kernel K5 (packet_queue.cu), the v1
+// kernels K6a, K6b and K9 (packet_v1.cu), the half-split kernel K7
+// (packet_stream2.cu) and the plane-form kernel K8 (packet_mxu.cu): one
+// copy, so every walk rounds every interval as the others and as the plain
+// torch versions do (clpathtracer_tpu_torch/ops/packet.py::_walk_tile,
+// _queue_tile, _binary_v1_walk, _wide_v1_walk, _stream2_tile and
+// ops/packet_mxu.py::_mxu_tile).
 //
 // A walk is block-uniform: every thread of the block computes the same
 // pops, interval tests and window decisions from the same reads; thread 0
@@ -12,7 +14,9 @@
 //
 //   packet bounds: per axis the origin range and the clipped inverse-
 //     direction range over the tile's active lanes
-//     (clpathtracer_tpu/ops/packet.py::_packet_bounds_masked);
+//     (clpathtracer_tpu/ops/packet.py::_packet_bounds_masked); with
+//     half_lanes, over one half of the tile (K7's half split), and
+//     tile_t_upper likewise;
 //   box_interval: the packet-conservative [t_enter, t_exit] of an AABB
 //     (_box_interval);
 //   split_interval: the crossing of one split plane (_split_plane_interval);
@@ -20,10 +24,18 @@
 //     the window's box interval;
 //   dense_window: the dense test of one staged window of 128 records
 //     against a thread's rays, merged with the TPU kernels' tie rule;
+//   stream_windows: a run of windows on the clamped grid, double-buffered
+//     with cp.async, each tested by dense_window;
 //   load_rays, push_root, push_children, store_tile: the frame of a
 //     walk around them;
-//   cp_async16, cp_async_commit, cp_async_wait, wait_pending: 16-byte
+//   cp_async16, cp_async4, cp_async_commit, cp_async_wait, wait_pending:
 //     cp.async copies into shared memory and their commit groups.
+//
+// The stack guard: a split whose two pushes could pass the kStack entries
+// ends the walk instead (push_children returns -1 and writes nothing); the
+// kernel then sets its overflow flag, which the wrapper raises on after
+// the launch. The decision is block-uniform, so the block leaves the walk
+// as a whole and the CUDA context stays usable.
 
 #pragma once
 
@@ -37,6 +49,9 @@ constexpr int kStack = 128;          // stack entries (the TPU kernels')
 constexpr int kChunkRows = 16;       // rows of 8 records per window
 constexpr int kWinRecs = kChunkRows * 8;
 constexpr int kRecF4 = 4;            // float4s per 16-float record
+constexpr int kUsedF4 = 3;           // float4s staged per record (cols 0-11)
+constexpr int kWinUsedF4 = kWinRecs * kUsedF4;
+constexpr int kTupMask = 3;          // t_upper after a leaf on every 4th pop
 constexpr int kMaxThreads = 512;
 constexpr float kBig = 3.4e38f;
 constexpr float kInvBig = 1e30f;
@@ -44,6 +59,13 @@ constexpr float kInvBig = 1e30f;
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }
@@ -111,6 +133,17 @@ __device__ __forceinline__ float tile_t_upper(const float* bt, const bool* on,
   for (int k = 0; k < RPT; ++k)
     if (on[k]) m = fmaxf(m, bt[k]);
   return block_max(m, red);
+}
+
+// The active flags of one half of the tile: lanes [0, tile / 2) (right =
+// false) or [tile / 2, tile) (right = true).
+template <int RPT>
+__device__ __forceinline__ void half_lanes(const bool* on, int tile,
+                                           bool right, bool* out) {
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    out[k] = on[k] &&
+             (((int)(threadIdx.x + k * blockDim.x) >= tile / 2) == right);
 }
 
 // This thread's rays of tile `base` (lane tid + k * blockDim.x) from the
@@ -281,7 +314,8 @@ __device__ __forceinline__ bool window_keeps(const float* c, const Bounds& B,
 
 // A split's children onto the stack, far child first (popped last), each
 // when its interval is live; thread 0 writes, the barrier publishes.
-// Returns the new stack pointer.
+// Returns the new stack pointer, or -1 without a write when the two pushes
+// could pass kStack entries (the stack guard; the caller ends its walk).
 __device__ __forceinline__ int push_children(const Bounds& B, int4 nd,
                                              float split, float tlo,
                                              float thi, float t_upper, int sp,
@@ -294,7 +328,7 @@ __device__ __forceinline__ int push_children(const Bounds& B, int4 nd,
   const int far = nlo ? nd.z : nd.y;
   const float far_lo = fmaxf(tlo, tp_min);
   const float near_hi = fminf(thi, tp_max);
-  if (sp + 2 > kStack) __trap();  // the stack cannot overflow silently
+  if (sp + 2 > kStack) return -1;
   if (far_lo <= fminf(thi, t_upper)) {
     if (threadIdx.x == 0) {
       s_node[sp] = far;
@@ -353,6 +387,44 @@ __device__ __forceinline__ void dense_window(const float4* win, const Ray* ray,
       bt[k] = ct;
       bs[k] = (int)(rec0 + cr);
     }
+  }
+}
+
+// One window (rows [row, row + 16), cols 0-11 of each record) into `dst`:
+// this thread's share of the 16-byte copies, then its commit group.
+__device__ __forceinline__ void copy_window(float4* dst, const float4* recs,
+                                            int row) {
+  const float4* src = recs + (size_t)row * 8 * kRecF4;
+  for (int i = threadIdx.x; i < kWinUsedF4; i += blockDim.x)
+    cp_async16(dst + i, src + (i / kUsedF4) * kRecF4 + i % kUsedF4);
+  cp_async_commit();
+}
+
+// Stream and test nch windows, rows row0 + 16 b clamped to n_rows - 16 for
+// b < nch, in order, double-buffered in buf[2 * kWinUsedF4]: window b + 1's
+// copy is in flight while window b is tested; one commit group per window
+// and thread, each waited exactly once (wait_group 1 while the next copy
+// flies, 0 for the last window); nch = 0 starts no copy. `on`: the lanes
+// that test. Every thread calls it (uniform).
+template <int RPT>
+__device__ void stream_windows(const float4* recs, int n_rows, int row0,
+                               int nch, float4* buf, const Ray* ray,
+                               const bool* on, float* bt, int* bs) {
+  if (nch > 0) copy_window(buf, recs, min(row0, n_rows - kChunkRows));
+  for (int b = 0; b < nch; ++b) {
+    if (b + 1 < nch) {
+      copy_window(buf + ((b + 1) & 1) * kWinUsedF4, recs,
+                  min(row0 + (b + 1) * kChunkRows, n_rows - kChunkRows));
+      cp_async_wait<1>();  // window b's group is complete, b + 1's flies
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // every thread's part of window b has landed
+    const int row = min(row0 + b * kChunkRows, n_rows - kChunkRows);
+    dense_window<RPT, false, false, kUsedF4, kMaxThreads>(
+        buf + (b & 1) * kWinUsedF4, ray, on, 0xffffffffu, (long long)row * 8,
+        bt, bs);
+    __syncthreads();  // every thread is done with it before its reuse
   }
 }
 

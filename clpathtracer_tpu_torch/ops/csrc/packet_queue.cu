@@ -23,7 +23,10 @@
 //     as culled when it died; then refresh t_upper, the largest best t
 //     over the active lanes, once per drain.
 // Stats per tile: node pops, windows tested, active lanes, windows culled
-// or skipped, and 0 in lane 4, as the TPU kernel writes them. The plain
+// or skipped, and 0 in lane 4, as the TPU kernel writes them. A split whose
+// pushes could pass the 128-entry stack ends the walk (the ring drains, no
+// new window starts) and sets the overflow flag, which the wrapper raises
+// on. The plain
 // torch version (ops/packet.py::packet_queue_reference) replays the same
 // schedule and agrees exactly in t, slot and stats.
 //
@@ -68,6 +71,7 @@ struct QArgs {
   float* best_t;           // [n_rays]
   int* best_slot;          // [n_rays]
   int* stats;              // [n_tiles, 5]
+  int* overflow;           // [1], set to 1 when a walk's stack overflows
   int n_rays, tile, n_rows;
 };
 
@@ -104,6 +108,7 @@ packet_queue_kernel(const QArgs a) {
   int lrow0 = 0, win0 = 0;         // its first record row and window id
   float ltlo = 0.f, lthi = kBig;   // its interval
   int nv = 0, nl = 0, nc = 0;
+  bool overflow = false;
   while (sp > 0 || wcur < wend || head < tail) {
     // produce: until the ring is full or the walk is exhausted
     while (tail - head < kDepth && (wcur < wend || sp > 0)) {
@@ -149,6 +154,11 @@ packet_queue_kernel(const QArgs a) {
           } else {
             sp = push_children(B, nd, a.nodes_f[6 + node], tlo, thi, t_upper,
                                sp, s_node, s_tlo, s_thi);
+            if (sp < 0) {  // end the walk: the ring drains below
+              overflow = true;
+              sp = 0;
+              wcur = wend = 0;
+            }
           }
         }
       }
@@ -177,6 +187,7 @@ packet_queue_kernel(const QArgs a) {
     __syncthreads();  // every thread is done with the drained slots
     t_upper = tile_t_upper<RPT>(bt, on, red);
   }
+  if (overflow && tid == 0) *a.overflow = 1;
 
   store_tile<RPT>(bt, bs, base, a.best_t, a.best_slot, a.stats, nv, nl,
                   n_act, nc, 0);
@@ -205,14 +216,15 @@ int launch_rpt(const QArgs& a, bool so, cudaStream_t stream) {
 // tri_id)), 16-byte aligned; orig_t, dir_t: [3, n_rays] f32 tile-major;
 // act: [n_rays] f32; cbnd: [W, 6] f32 window AABBs or null. Outputs best_t
 // [n_rays] f32, best_slot [n_rays] i32 (-1 on a miss), stats
-// [n_rays / tile, 5] i32. tile: a multiple of 32 up to 4096, with
+// [n_rays / tile, 5] i32, and overflow [1] i32 (zeroed by the caller; set
+// to 1 when a stack overflows). tile: a multiple of 32 up to 4096, with
 // tile / 512 rays per thread above 512. Returns cudaGetLastError() after
 // the launch.
 extern "C" int packet_queue_launch(
     const void* nodes_i, const void* nodes_f, const void* rows,
     const void* orig_t, const void* dir_t, const void* act, const void* cbnd,
-    void* best_t, void* best_slot, void* stats, int n_rays, int tile,
-    int n_rows, int so, void* stream) {
+    void* best_t, void* best_slot, void* stats, void* overflow, int n_rays,
+    int tile, int n_rows, int so, void* stream) {
   QArgs a;
   a.nodes_i = static_cast<const int4*>(nodes_i);
   a.nodes_f = static_cast<const float*>(nodes_f);
@@ -224,6 +236,7 @@ extern "C" int packet_queue_launch(
   a.best_t = static_cast<float*>(best_t);
   a.best_slot = static_cast<int*>(best_slot);
   a.stats = static_cast<int*>(stats);
+  a.overflow = static_cast<int*>(overflow);
   a.n_rays = n_rays;
   a.tile = tile;
   a.n_rows = n_rows;

@@ -28,7 +28,9 @@
 // before the near one; the strip survey compares against min(t_hi,
 // t_upper) frozen at leaf entry. Outputs: best t and best slot per ray (-1
 // on a miss) and per tile (node pops, windows streamed, active lanes,
-// windows culled, dense executions).
+// windows culled, dense executions). A split whose pushes could pass the
+// 128-entry stack ends the walk and sets the overflow flag (kd_walk.cuh),
+// which the wrapper raises on.
 //
 // Tie rule, that of clpathtracer_tpu/ops/packet.py::_mt_chunk_math: within
 // a window the least t wins, among equal t the lowest row of 8 records, and
@@ -63,7 +65,6 @@ namespace {
 
 using namespace clpt;
 
-constexpr int kUsedF4 = 3;           // float4s staged per record (cols 0-11)
 constexpr int kGateLanes = 512;      // lanes per gate in half-gate mode
 
 enum Mode { kNoCull = 0, kCull = 1, kCullFrustum = 2, kStrips = 3 };
@@ -83,6 +84,7 @@ struct Args {
   float* best_t;           // [n_rays]
   int* best_slot;          // [n_rays]
   int* stats;              // [n_tiles, 5]
+  int* overflow;           // [1], set to 1 when a walk's stack overflows
   int n_rays, tile, n_rows, n_windows, mode, n_strips;
 };
 
@@ -157,6 +159,7 @@ packet_stream_kernel(const Args a) {
 
   float t_upper = kBig;
   int nv = 0, nl = 0, nc = 0, nsm = 0;
+  bool overflow = false;
   while (sp > 0) {
     --sp;
     const int node = s_node[sp];
@@ -200,12 +203,17 @@ packet_stream_kernel(const Args a) {
       }
       nl += streamed;
       if (a.mode != kNoCull) nc += nwin - streamed;
-      if ((nv & 3) == 0) t_upper = tile_t_upper<RPT>(bt, on, red);
+      if ((nv & kTupMask) == 0) t_upper = tile_t_upper<RPT>(bt, on, red);
     } else {  // split: far child first, then the near child
       sp = push_children(B, nd, a.nodes_f[6 + node], tlo, thi, t_upper, sp,
                          s_node, s_tlo, s_thi);
+      if (sp < 0) {
+        overflow = true;
+        break;
+      }
     }
   }
+  if (overflow && tid == 0) *a.overflow = 1;
 
   store_tile<RPT>(bt, bs, base, a.best_t, a.best_slot, a.stats, nv, nl,
                   n_act, nc, kBF16 ? 0 : nsm);
@@ -233,14 +241,16 @@ int launch_rpt(const Args& a, bool so, bool bf16, cudaStream_t stream) {
 // dir_t: [3, n_rays] f32 tile-major; act: [n_rays] f32; cbnd: [W, 6] f32
 // (modes 1, 2); frustum: [n_rays / tile, 16] f32 (mode 2); masks, ten:
 // [n_rays / tile, W] i32 / f32 (mode 3). Outputs best_t [n_rays] f32,
-// best_slot [n_rays] i32 (-1 on a miss), stats [n_rays / tile, 5] i32.
+// best_slot [n_rays] i32 (-1 on a miss), stats [n_rays / tile, 5] i32, and
+// overflow [1] i32 (zeroed by the caller; set to 1 when a stack overflows).
 // tile: a multiple of 32 up to 4096, with tile / 512 rays per thread above
 // 512. Returns cudaGetLastError() after the launch.
 extern "C" int packet_stream_launch(
     const void* nodes_i, const void* nodes_f, const void* rows,
     const void* orig_t, const void* dir_t, const void* act, const void* cbnd,
     const void* frustum, const void* masks, const void* ten, void* best_t,
-    void* best_slot, void* stats, int n_rays, int tile, int n_rows,
+    void* best_slot, void* stats, void* overflow, int n_rays, int tile,
+    int n_rows,
     int n_windows, int mode, int n_strips, int so, int bf16, void* stream) {
   Args a;
   a.nodes_i = static_cast<const int4*>(nodes_i);
@@ -256,6 +266,7 @@ extern "C" int packet_stream_launch(
   a.best_t = static_cast<float*>(best_t);
   a.best_slot = static_cast<int*>(best_slot);
   a.stats = static_cast<int*>(stats);
+  a.overflow = static_cast<int*>(overflow);
   a.n_rays = n_rays;
   a.tile = tile;
   a.n_rows = n_rows;

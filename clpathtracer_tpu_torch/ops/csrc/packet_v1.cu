@@ -64,9 +64,6 @@ namespace {
 
 using namespace clpt;
 
-constexpr int kUsedF4 = 3;                   // float4s staged per record
-constexpr int kWinUsedF4 = kWinRecs * kUsedF4;
-
 enum Engine { kResident = 0, kStream = 1, kWide = 2 };
 
 struct V1Args {
@@ -81,44 +78,19 @@ struct V1Args {
   int n_rays, tile, n_recs;
 };
 
-// One window (rows [row, row + 16), cols 0-11 of each record) into `dst`:
-// this thread's share of the 16-byte copies, then its commit group.
-__device__ __forceinline__ void copy_window(float4* dst, const float4* recs,
-                                            int row) {
-  const float4* src = recs + (size_t)row * 8 * kRecF4;
-  for (int i = threadIdx.x; i < kWinUsedF4; i += blockDim.x)
-    cp_async16(dst + i, src + (i / kUsedF4) * kRecF4 + i % kUsedF4);
-  cp_async_commit();
-}
-
 // K6b's and K9's leaf: stream and test the windows of the leaf at quad row
-// qstart with `count` records, double-buffered in buf[2 * kWinUsedF4].
-// Returns the windows streamed. Every thread calls it (uniform).
+// qstart with `count` records (kd_walk.cuh::stream_windows, double-buffered
+// in buf[2 * kWinUsedF4]). Returns the windows streamed. Every thread calls
+// it (uniform).
 template <int RPT>
 __device__ int stream_leaf(const V1Args& a, int qstart, int count,
                            float4* buf, const Ray* ray, const bool* on,
                            float* bt, int* bs) {
-  const int n_rows = a.n_recs / 8;
   const int first = qstart * 4;
   const int row0 = first / 8;
   const int nch = ((first + count + 7) / 8 - row0 + kChunkRows - 1) /
                   kChunkRows;
-  if (nch > 0) copy_window(buf, a.recs, min(row0, n_rows - kChunkRows));
-  for (int b = 0; b < nch; ++b) {
-    if (b + 1 < nch) {
-      copy_window(buf + ((b + 1) & 1) * kWinUsedF4, a.recs,
-                  min(row0 + (b + 1) * kChunkRows, n_rows - kChunkRows));
-      cp_async_wait<1>();  // window b's group is complete, b + 1's flies
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // every thread's part of window b has landed
-    const int row = min(row0 + b * kChunkRows, n_rows - kChunkRows);
-    dense_window<RPT, false, false, kUsedF4, kMaxThreads>(
-        buf + (b & 1) * kWinUsedF4, ray, on, 0xffffffffu, (long long)row * 8,
-        bt, bs);
-    __syncthreads();  // every thread is done with it before its reuse
-  }
+  stream_windows<RPT>(a.recs, a.n_recs / 8, row0, nch, buf, ray, on, bt, bs);
   return nch;
 }
 

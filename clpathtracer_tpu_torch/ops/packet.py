@@ -28,12 +28,18 @@ the packet's direction sign, t_upper the largest best t after every leaf;
 K6a tests a leaf's own records in order from the resident array, K6b
 streams its unculled 128-record windows; engine="wide" runs K9
 (packet_wide), the same idea over the 8-wide supernodes of accel/wide.py
-with K6b's leaf stream. The winners re-resolve t/u/v with one exact
-Moller-Trumbore per ray. The JAX package's other engines (stream2, mxu)
-raise NotImplementedError naming their kernels; its TPU scalar-memory
-packing (6-bit window counts, the 900 KB budget) and its environment
-switches are not ported: the culls and engines are explicit arguments at
-the JAX defaults.
+with K6b's leaf stream. engine="stream2" runs K7 (ops/csrc/
+packet_stream2.cu, packet_stream2) on whole pairs of tiles, else K3: K3's
+interval walk with each tile culled in halves (an interval and a t_upper
+per half, a leaf's chunks tested only for the halves that reach it), no
+window cull; engine="mxu" runs K8 (ops/packet_mxu.py): K3's walk, no
+cull, each 128-triangle chunk tested in plane form. The winners
+re-resolve t/u/v with one exact Moller-Trumbore per ray. The JAX
+package's TPU scalar-memory packing (6-bit window counts, the 900 KB
+budget) and its environment switches are not ported: the culls and
+engines are explicit arguments at the JAX defaults. Every walk's
+128-entry stack is guarded: a walk that would pass it raises
+RuntimeError, on the card after the launch.
 """
 
 from __future__ import annotations
@@ -62,10 +68,6 @@ _INT_MAX = torch.iinfo(torch.int32).max
 _REF_PAIRS = 1 << 22
 # kernel modes (ops/csrc/packet_stream.cu)
 _NO_CULL, _CULL, _CULL_FRUSTUM, _STRIPS = range(4)
-# engines of the JAX package's packet_mode that are not ported yet, by the
-# kernel they run
-_OTHER_ENGINES = {"stream2": "K7 (_kernel_stream2)",
-                  "mxu": "K8 (_kernel_mxu)"}
 # The JAX package's rule for choosing between its two legacy kernels: the
 # node table (64 B per node) and the records (64 B each) resident when both
 # fit this TPU VMEM budget (K6a), else the node table alone (K6b). Kept as
@@ -516,8 +518,9 @@ def _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
     if nodes_i.shape != (m, 4) or nodes_f.shape != (6 + m,):
         raise ValueError(f"{name}: nodes_i {tuple(nodes_i.shape)} / nodes_f "
                          f"{tuple(nodes_f.shape)} are not [M, 4] / [6 + M]")
-    if rows.dim() != 2 or rows.shape[1] != 16 or rows.shape[0] % 8 \
-            or rows.shape[0] < _WIN_RECS:
+    if rows is not None and (rows.dim() != 2 or rows.shape[1] != 16
+                             or rows.shape[0] % 8
+                             or rows.shape[0] < _WIN_RECS):
         raise ValueError(f"{name}: rows {tuple(rows.shape)} is not [T, 16] "
                          f"with T a multiple of 8 and at least {_WIN_RECS}"
                          " (pad_records)")
@@ -554,33 +557,37 @@ def _check_precision(precision, so=False, frustum=None, masks=None):
                          "AABB cull or none: no SO rows, frustum or strips")
 
 
-def _launch_walk(entry, tile, n, inputs, ints, overflow=False):
+def _launch_walk(entry, tile, n, inputs, ints):
     """Launch a walk kernel's C entry (ops/_cuda.py::SIGNATURES) on the
     current stream of the inputs' device: the inputs' pointers (None for
     an absent table), the outputs' (best_t [n] f32, best_slot [n] i32,
-    stats [n / tile, 5] i32; with `overflow`, then a zeroed i32 flag the
-    kernel sets when its stack overflows), the ints, the stream. Returns
-    the outputs; raises when the launch fails or the flag is set (which
-    waits for the kernel)."""
+    stats [n / tile, 5] i32, then a zeroed i32 flag the kernel sets when
+    its stack overflows), the ints, the stream. Returns the outputs;
+    raises when the launch fails or (_check_overflow) the flag is set."""
     from clpathtracer_tpu_torch.ops._cuda import load_kernels
     fn = load_kernels().fns[entry]
     device = inputs[0].device
     out = (torch.empty((n,), dtype=torch.float32, device=device),
            torch.empty((n,), dtype=torch.int32, device=device),
            torch.empty((n // tile, 5), dtype=torch.int32, device=device))
-    flag = (torch.zeros((1,), dtype=torch.int32, device=device),) \
-        if overflow else ()
+    flag = torch.zeros((1,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(None if t is None else t.data_ptr() for t in inputs),
-                 *(t.data_ptr() for t in out + flag), *ints, stream)
+                 *(t.data_ptr() for t in (*out, flag)), *ints, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: cudaError {err} (N={n}, "
                            f"tile={tile}, arguments {ints})")
-    if overflow and int(flag[0].item()):
+    _check_overflow(entry, flag, n, tile)
+    return out
+
+
+def _check_overflow(entry, flag, n, tile):
+    """Raise when a walk kernel set its overflow flag. Reading the flag
+    waits for the kernel: one host synchronisation per launch."""
+    if int(flag.item()):
         raise RuntimeError(f"{entry}: the walk's stack of {STACK_DEPTH} "
                            f"entries overflowed (N={n}, tile={tile})")
-    return out
 
 
 def packet_stream(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
@@ -612,8 +619,8 @@ def packet_stream(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
 
     A CPU tensor runs the plain version (packet_stream_reference); a CUDA
     tensor launches ops/csrc/packet_stream.cu on the current stream or
-    raises. `packet_stream.launches` counts K3's launches and
-    `packet_stream.bf16_launches` K4's."""
+    raises, also when the walk's stack overflows. `packet_stream.launches`
+    counts K3's launches and `packet_stream.bf16_launches` K4's."""
     _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
                        cbnd, frustum, masks, ten, n_strips)
     _check_precision(precision, so, frustum, masks)
@@ -670,20 +677,30 @@ def packet_stream_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
             "mk": None if masks is None else masks.cpu().numpy(),
             "tn": None if ten is None else ten.cpu().numpy()}
 
-    def walk(ti, ob, ib, n_act, recs, tile_rays, on):
+    recs = rows[:, :10]
+
+    def walk(ti, ob, ib, n_act, tile_rays, on):
         bt, bs, st = _walk_tile(host, ti, ob, ib, n_act, recs, tile_rays, on,
                                 so, mode, half, n_strips, rows.shape[0] // 8,
                                 tally, dtype)
         return bt, bs, st[:4] + ((0,) if precision == "bf16" else st[4:])
-    return _per_tile(walk, rows, orig_t, dir_t, act, tile)
+    return _per_tile(walk, orig_t, dir_t, act, tile)
 
 
-def _per_tile(walk, rows, orig_t, dir_t, act, tile):
+def _guard(stack):
+    """The walks' stack guard: a split whose two pushes could pass
+    STACK_DEPTH entries raises, as the kernels' overflow flag makes their
+    wrappers do."""
+    if len(stack) + 2 > STACK_DEPTH:
+        raise RuntimeError(f"packet walk: the stack of {STACK_DEPTH} "
+                           "entries overflowed")
+
+
+def _per_tile(walk, orig_t, dir_t, act, tile):
     """The plain kernels' frame: the packet bounds of every tile, then
     walk(tile index, origin bounds, inverse-direction bounds, active
-    lanes, records [T, 10], the tile's 6 ray rows, its active mask) ->
-    (best_t, best_slot, stats) per tile, gathered as the kernels return
-    them."""
+    lanes, the tile's 6 ray rows, its active mask) -> (best_t, best_slot,
+    stats) per tile, gathered as the kernels return them."""
     n = act.shape[0]
     n_tiles = n // tile
     dev = act.device
@@ -694,7 +711,6 @@ def _per_tile(walk, rows, orig_t, dir_t, act, tile):
     obnd = [[b.cpu().numpy() for b in ax] for ax in obnd]
     ibnd = [[b.cpu().numpy() for b in ax] for ax in ibnd]
     n_act = (act_t > 0.0).sum(dim=1).cpu().numpy()
-    recs = rows[:, :10]
     best_t = torch.full((n_tiles, tile), BIG, dtype=torch.float32,
                         device=dev)
     best_slot = torch.full((n_tiles, tile), -1, dtype=torch.int32,
@@ -703,7 +719,7 @@ def _per_tile(walk, rows, orig_t, dir_t, act, tile):
     for ti in np.flatnonzero(n_act):   # a tile without active lanes: no walk
         ob = [(ax[0][ti], ax[1][ti]) for ax in obnd]
         ib = [(ax[0][ti], ax[1][ti]) for ax in ibnd]
-        bt, bs, st = walk(ti, ob, ib, int(n_act[ti]), recs,
+        bt, bs, st = walk(ti, ob, ib, int(n_act[ti]),
                           [r[ti] for r in rays], act_t[ti] > 0.0)
         best_t[ti] = bt
         best_slot[ti] = torch.where(bt < BIG, bs, -1)
@@ -767,8 +783,7 @@ def _push_children(stack, axinfo, nf, node, flags, a, b, tlo, thi, t_upper):
     near, far = (a, b) if nlo else (b, a)
     far_lo = np.maximum(tlo, tp_min)
     near_hi = np.minimum(thi, tp_max)
-    if len(stack) + 2 > STACK_DEPTH:
-        raise AssertionError("packet walk: stack overflow")
+    _guard(stack)
     if far_lo <= np.minimum(thi, t_upper):
         stack.append((far, far_lo, thi))
     if tlo <= np.minimum(near_hi, t_upper):
@@ -870,7 +885,8 @@ def packet_queue(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
 
     A CPU tensor runs the plain version (packet_queue_reference); a CUDA
     tensor launches ops/csrc/packet_queue.cu on the current stream or
-    raises. `packet_queue.launches` counts kernel launches."""
+    raises, also when the walk's stack overflows. `packet_queue.launches`
+    counts kernel launches."""
     _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
                        cbnd, None, None, None, 0, name="packet_queue")
     device = act.device
@@ -901,11 +917,12 @@ def packet_queue_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
     see mt_pairs (MT form only)."""
     host = {"ni": nodes_i.cpu().numpy(), "nf": nodes_f.cpu().numpy(),
             "cb": None if cbnd is None else cbnd.cpu().numpy()}
+    recs = rows[:, :10]
 
-    def walk(ti, ob, ib, n_act, recs, tile_rays, on):
+    def walk(ti, ob, ib, n_act, tile_rays, on):
         return _queue_tile(host, ob, ib, n_act, recs, tile_rays, on, so,
                            rows.shape[0] // 8, tally)
-    return _per_tile(walk, rows, orig_t, dir_t, act, tile)
+    return _per_tile(walk, orig_t, dir_t, act, tile)
 
 
 def _queue_tile(host, ob, ib, n_act, recs, rays, on, so, n_rows, tally):
@@ -1065,7 +1082,7 @@ def packet_legacy(table16, recs, orig_t, dir_t, *, tile: int,
         "packet_v1_launch", tile, orig_t.shape[1],
         (table16, recs, orig_t, dir_t),
         (orig_t.shape[1], tile, recs.shape[0],
-         _V1_RESIDENT if resident else _V1_STREAM), overflow=True)
+         _V1_RESIDENT if resident else _V1_STREAM))
     if resident:
         packet_legacy.resident_launches += 1
     else:
@@ -1106,7 +1123,7 @@ def packet_wide(wide, recs, orig_t, dir_t, *, tile: int):
     out = _launch_walk(
         "packet_v1_launch", tile, orig_t.shape[1],
         (wide, recs, orig_t, dir_t),
-        (orig_t.shape[1], tile, recs.shape[0], _V1_WIDE), overflow=True)
+        (orig_t.shape[1], tile, recs.shape[0], _V1_WIDE))
     packet_wide.launches += 1
     return out
 
@@ -1124,8 +1141,9 @@ def packet_legacy_reference(table16, recs, orig_t, dir_t, *, tile: int,
     pairs that pass its early exits."""
     table = table16.cpu().numpy()
     n_rows = recs.shape[0] // 8
+    recs10 = recs[:, :10]
 
-    def walk(ti, ob, ib, n_act, recs10, rays, on):
+    def walk(ti, ob, ib, n_act, rays, on):
         if resident:
             def leaf(qstart, count, bt, bs):
                 return (*_resident_leaf(recs10, rays, qstart * 4, count, bt,
@@ -1135,7 +1153,7 @@ def packet_legacy_reference(table16, recs, orig_t, dir_t, *, tile: int,
                 return _stream_leaf(recs10, rays, on, qstart, count, n_rows,
                                     bt, bs, tally)
         return _binary_v1_walk(table, ob, ib, tile, on.device, leaf)
-    return _per_tile(walk, recs, orig_t, dir_t, _all_lanes(orig_t), tile)
+    return _per_tile(walk, orig_t, dir_t, _all_lanes(orig_t), tile)
 
 
 def packet_wide_reference(wide, recs, orig_t, dir_t, *, tile: int,
@@ -1145,13 +1163,14 @@ def packet_wide_reference(wide, recs, orig_t, dir_t, *, tile: int,
     too)."""
     table = wide.cpu().numpy()
     n_rows = recs.shape[0] // 8
+    recs10 = recs[:, :10]
 
-    def walk(ti, ob, ib, n_act, recs10, rays, on):
+    def walk(ti, ob, ib, n_act, rays, on):
         def leaf(qstart, count, bt, bs):
             return _stream_leaf(recs10, rays, on, qstart, count, n_rows, bt,
                                 bs, tally)
         return _wide_v1_walk(table, ob, ib, tile, on.device, leaf)
-    return _per_tile(walk, recs, orig_t, dir_t, _all_lanes(orig_t), tile)
+    return _per_tile(walk, orig_t, dir_t, _all_lanes(orig_t), tile)
 
 
 def _all_lanes(orig_t):
@@ -1186,9 +1205,7 @@ def _binary_v1_walk(table, ob, ib, tile, dev, leaf):
             continue
         il, ih = ib[flags & 3]
         cl, ch = int(f[8]), int(f[9])
-        if len(stack) + 2 > STACK_DEPTH:
-            raise RuntimeError(f"packet walk: the stack of {STACK_DEPTH} "
-                               "entries overflowed")
+        _guard(stack)
         stack += [ch, cl] if il + ih > 0.0 else [cl, ch]   # near on top
     return bt, bs, (nv, nl, 0, 0, 0)
 
@@ -1268,6 +1285,176 @@ def _stream_leaf(recs, rays, on, qstart, count, n_rows, bt, bs, tally=None):
 
 
 # ---------------------------------------------------------------------------
+# kernel K7 and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _leaf_span(tree):
+    """(is_leaf, first record 4 * quad start, triangle count) per node of
+    the packed node table, int32 [M] each."""
+    nt = tree.node_table
+    return (nt[:, 7].to(torch.int32) >= 4, nt[:, 10].to(torch.int32) * 4,
+            nt[:, 11].to(torch.int32))
+
+
+def stream2_nodes(tree):
+    """K7's node tables: stream_nodes' with a leaf's chunk count (column
+    3) by the JAX kernel's row arithmetic (clpathtracer_tpu/ops/packet.py::
+    _make_machine's leaf_case): ceil((ceil((first + count) / 8) - r0) /
+    CHUNK_ROWS) for r0 = first // 8, so an empty leaf at an odd quad start
+    gets one chunk where stream_nodes gives it no window. Column 1 of a
+    leaf is r0, as in stream_nodes; column 2 is not read."""
+    nodes_i, nodes_f = stream_nodes(tree)
+    leaf, first, cnt = _leaf_span(tree)
+    r0 = first // 8
+    nch = ((first + cnt + 7) // 8 - r0 + CHUNK_ROWS - 1) // CHUNK_ROWS
+    nodes_i = torch.cat([nodes_i[:, :3], torch.where(leaf, nch, 0)[:, None]],
+                        dim=1)
+    return nodes_i.contiguous(), nodes_f
+
+
+def packet_stream2(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
+                   tile: int):
+    """Nearest hit of every ray of every packet tile through the kd-tree,
+    each tile culled in halves (K7; replaces clpathtracer_tpu/ops/
+    packet.py::_kernel_stream2).
+
+    nodes_i / nodes_f: stream2_nodes; rows: [T, 16] raw records padded by
+    pad_records; orig_t / dir_t: [3, N] tile-major rays; act: [N] f32, > 0
+    for an active lane. K3's interval walk with an interval and a t_upper
+    per half tile (lanes [0, tile/2) and [tile/2, tile)); a leaf's chunks
+    run the dense MT test for the halves live at its pop; no window cull
+    (see ops/csrc/packet_stream2.cu). Always f32, MT form.
+
+    Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss, stats
+    [n_tiles, 5] i32 = node pops, chunks, active lanes, 0, 0).
+
+    A CPU tensor runs the plain version (packet_stream2_reference); a CUDA
+    tensor launches ops/csrc/packet_stream2.cu on the current stream or
+    raises, also when the walk's stack overflows. `packet_stream2.launches`
+    counts its launches."""
+    name = "packet_stream2"
+    _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
+                       None, None, None, None, 0, name=name)
+    device = act.device
+    if device.type == "cpu":
+        return packet_stream2_reference(nodes_i, nodes_f, rows, orig_t,
+                                        dir_t, act, tile=tile)
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    out = _launch_walk(
+        "packet_stream2_launch", tile, act.shape[0],
+        (nodes_i, nodes_f, rows, orig_t, dir_t, act),
+        (act.shape[0], tile, rows.shape[0] // 8))
+    packet_stream2.launches += 1
+    return out
+
+
+packet_stream2.launches = 0
+
+
+def packet_stream2_reference(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
+                             tile: int, tally=None):
+    """Plain torch version of packet_stream2: same signature, same
+    outputs, stats included, on any device. Each tile's half-split walk
+    runs on the host in numpy float32 scalars (_stream2_tile); a leaf's
+    chunks run their dense tests as one batch of torch ops on the tensors'
+    device (nothing the walk reads changes within a leaf).
+
+    tally (optional int64 [5] tensor): adds the pairs tested, mt_pairs'
+    three counts of the pairs that pass its early exits, and the chunk
+    steps that tested one half only."""
+    host = {"ni": nodes_i.cpu().numpy(), "nf": nodes_f.cpu().numpy()}
+    recs = rows[:, :10]
+    n_rows = rows.shape[0] // 8
+
+    def walk(ti, ob, ib, n_act, tile_rays, on):
+        return _stream2_tile(host, n_act, recs, tile_rays, on, n_rows, tally)
+    with np.errstate(over="ignore"):   # a dead half's bounds are +-1e30
+        return _per_tile(walk, orig_t, dir_t, act, tile)
+
+
+def _stream2_tile(host, n_act, recs, rays, on, n_rows, tally):
+    """One tile of the plain K7 (clpathtracer_tpu/ops/packet.py::
+    _make_machine): (best_t [L], best_slot [L], stats [5]). A stack entry
+    is (node, t_lo left, t_hi left, t_lo right, t_hi right)."""
+    f32 = np.float32
+    ni, nf = host["ni"], host["nf"]
+    tile = on.shape[0]
+    h = tile // 2
+    dev = on.device
+    bt = torch.full((tile,), BIG, dtype=torch.float32, device=dev)
+    bs = torch.full((tile,), -1, dtype=torch.int32, device=dev)
+    right = torch.arange(tile, device=dev) >= h
+    on_h = (on & ~right, on & right)
+    obnd, ibnd = _packet_bounds_masked([r.reshape(2, h) for r in rays],
+                                       on.reshape(2, h).float())
+    obnd = [[b.cpu().numpy() for b in ax] for ax in obnd]
+    ibnd = [[b.cpu().numpy() for b in ax] for ax in ibnd]
+    ob = [[(ax[0][s], ax[1][s]) for ax in obnd] for s in (0, 1)]
+    ib = [[(ax[0][s], ax[1][s]) for ax in ibnd] for s in (0, 1)]
+    axinfo = [_axinfo(ob[s], ib[s]) for s in (0, 1)]
+    seed = []
+    for s in (0, 1):
+        lo, hi = _box_interval(nf[0:3], nf[3:6], ob[s], ib[s])
+        if not bool(on_h[s].any()):
+            hi = f32(-BIG)          # an empty half never goes live
+        seed += [lo, hi]
+    stack = ([(0, *seed)] if any(seed[2 * s] <= seed[2 * s + 1]
+                                 and seed[2 * s + 1] > 0.0 for s in (0, 1))
+             else [])
+    tu = [f32(BIG), f32(BIG)]
+    nv = nl = 0
+    while stack:
+        node, *iv = stack.pop()
+        nv += 1
+        live = [bool(iv[2 * s] <= np.minimum(iv[2 * s + 1], tu[s])
+                     and iv[2 * s + 1] > 0.0) for s in (0, 1)]
+        if not any(live):
+            continue
+        flags, a, b, c = (int(x) for x in ni[node])
+        if flags >= 4:
+            nl += c
+            if c == 0:
+                continue
+            go = (on_h[0] & live[0]) | (on_h[1] & live[1])
+            if tally is not None:
+                tally[0] += c * _WIN_RECS * int(go.sum())
+                tally[4] += c * (live[0] != live[1])
+            rows0 = np.minimum(a + np.arange(c) * CHUNK_ROWS,
+                               n_rows - CHUNK_ROWS)
+            bt, bs = _dense_windows(recs, rows0, rays, go.expand(c, tile),
+                                    False, bt, bs,
+                                    None if tally is None else tally[1:4])
+            if (nv & TUP_MASK) == 0:
+                for s in (0, 1):
+                    if live[s]:
+                        tu[s] = f32(torch.where(on_h[s], bt, -BIG).amax()
+                                    .item())
+            continue
+        _guard(stack)
+        split = nf[6 + node]
+        near_iv, far_iv = [], []     # [lo, hi] of each child for each half
+        for s in (0, 1):
+            p_min, p_max, nlo = _split_plane_interval(axinfo[s], flags & 3,
+                                                      split)
+            n_iv = (iv[2 * s], np.minimum(iv[2 * s + 1], p_max))
+            f_iv = (np.maximum(iv[2 * s], p_min), iv[2 * s + 1])
+            if s == 0:
+                l_nlo = bool(nlo)
+            elif bool(nlo) != l_nlo:   # the right half's near child is far
+                n_iv, f_iv = f_iv, n_iv
+            near_iv.append(n_iv)
+            far_iv.append(f_iv)
+        near, far = (a, b) if l_nlo else (b, a)   # the left half's order
+        for child, ivs in ((far, far_iv), (near, near_iv)):
+            if any(lo <= np.minimum(hi, tu[s])
+                   for s, (lo, hi) in enumerate(ivs)):
+                stack.append((child, *ivs[0], *ivs[1]))
+    return bt, bs, (nv, nl, n_act, 0, 0)
+
+
+# ---------------------------------------------------------------------------
 # host entry
 # ---------------------------------------------------------------------------
 
@@ -1275,23 +1462,28 @@ def _stream_leaf(recs, rays, on, qstart, count, n_rows, bt, bs, tally=None):
 def packet_mode(tree, n_rays: int, tile: int = TILE, engine: str = "auto"):
     """The engine traverse_packet runs, or None when it cannot run (no
     tree, a wave that is not whole tiles, a legacy node table beyond
-    VMEM_BUDGET, "wide" without a wide table):
+    VMEM_BUDGET, "wide" without a wide table), as the JAX package's
+    packet_mode picks it:
 
     * "auto" and "stream": "stream" (K3, or K4 in the bf16 preview); the
       JAX package's "auto" leaves the stream engine only when its tables
       exceed the TPU's VMEM budget, which the card does not have;
     * "queue": "queue" (K5);
+    * "stream2": "stream2" (K7) when the wave is whole pairs of tiles
+      (the TPU kernel steps two tiles at once), else "stream";
+    * "mxu": "mxu" (K8);
     * "legacy": the JAX package's v1 selection, "vmem" (K6a) when the
       node table and the records fit VMEM_BUDGET at 64 B each, else
       "tri_stream" (K6b) when the node table does;
     * "wide": "wide" (K9) when the tree has a wide table (the JAX
-      package's CLPT_WIDE=1);
-    * stream2 and mxu are named as asked and raise in traverse_packet."""
+      package's CLPT_WIDE=1)."""
     if tree is None or tree.node_table is None or n_rays % tile:
         return None
     if engine in ("auto", "stream"):
         return "stream"
-    if engine == "queue" or engine in _OTHER_ENGINES:
+    if engine == "stream2":
+        return "stream2" if n_rays % (2 * tile) == 0 else "stream"
+    if engine in ("queue", "mxu"):
         return engine
     if engine == "legacy":
         table_bytes = tree.num_nodes * 16 * 4
@@ -1325,24 +1517,50 @@ def _pixel_blocks(image_shape, tile: int):
     return None
 
 
+def packet_rays(orig, dir, image_shape=None, tile: int = TILE, active=None):
+    """The rays of a walk kernel: (orig_t, dir_t [3, N] f32 tile-major,
+    act [N] f32, layout), pixel-blocked when image_shape divides into
+    tile_shape blocks (layout ("blocks", h, w, th, tw)), else in wave
+    order (layout None); act is 1 where `active` is None."""
+    act = (torch.ones((orig.shape[0],), dtype=torch.float32,
+                      device=orig.device)
+           if active is None else active.to(torch.float32))
+    blocks = _pixel_blocks(image_shape, tile)
+    if blocks is not None:
+        orig, dir, act = (_blockify(x, *blocks) for x in (orig, dir, act))
+    return (orig.T.to(torch.float32).contiguous(),
+            dir.T.to(torch.float32).contiguous(), act.contiguous(),
+            None if blocks is None else ("blocks", *blocks))
+
+
 def v1_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
                    mode: str = "tri_stream"):
     """The host side of traverse_packet's legacy and wide branches for
     mode "vmem" (K6a), "tri_stream" (K6b) or "wide" (K9): (args, layout)
     with packet_legacy(*args, tile=tile, resident=mode == "vmem") or
     packet_wide(*args, tile=tile) the kernel call and layout as
-    stream_kernel_args'. The records: tree.tris as they are for K6a,
-    pad_records for K6b and K9; the rays pixel-blocked when image_shape
-    divides into tiles."""
-    blocks = _pixel_blocks(image_shape, tile)
-    if blocks is not None:
-        orig, dir = _blockify(orig, *blocks), _blockify(dir, *blocks)
+    packet_rays'. The records: tree.tris as they are for K6a, pad_records
+    for K6b and K9; the rays pixel-blocked when image_shape divides into
+    tiles."""
+    orig_t, dir_t, _, layout = packet_rays(orig, dir, image_shape, tile)
     table = (tree.wide_table if mode == "wide"
              else tree.node_table[:, :16].contiguous())
     recs = tree.tris if mode == "vmem" else pad_records(tree.tris)
-    args = (table, recs, orig.T.to(torch.float32).contiguous(),
-            dir.T.to(torch.float32).contiguous())
-    return args, None if blocks is None else ("blocks", *blocks)
+    return (table, recs, orig_t, dir_t), layout
+
+
+def stream2_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
+                        active=None):
+    """The host side of traverse_packet's stream2 branch (K7): (args,
+    layout) with packet_stream2(*args, tile=tile) the kernel call and
+    layout as packet_rays'. The MT records padded by pad_records,
+    stream2_nodes, the rays pixel-blocked when image_shape divides into
+    tiles, the active mask; no SO form, window cull, strips or frustum, as
+    in the JAX package's stream2 branch."""
+    orig_t, dir_t, act, layout = packet_rays(orig, dir, image_shape, tile,
+                                           active)
+    return (*stream2_nodes(tree), pad_records(tree.tris), orig_t, dir_t,
+            act), layout
 
 
 def stream_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
@@ -1429,7 +1647,11 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
     first). shared_origin, grid_dirs, strips, frustum, chunk_cull: see
     stream_kernel_args; the defaults are the JAX package's.
 
-    engine "auto" / "stream" runs K3; "queue" runs K5 with the SO form
+    engine "auto" / "stream" runs K3; "stream2" runs K7 on a wave of whole
+    pairs of tiles (else K3, as packet_mode picks) and "mxu" K8; both take
+    the MT records and the active mask and ignore precision (they compute
+    in f32), shared_origin, grid_dirs, strips, frustum and chunk_cull, as
+    in the JAX package. "queue" runs K5 with the SO form
     when shared_origin and the tree has SO tables, the AABB cull when it
     has window tables (and chunk_cull), never strips or the frustum.
     "legacy" runs K6a or K6b by the JAX package's byte rule (packet_mode)
@@ -1446,7 +1668,8 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
     Returns hit, t, tri, u, v ([N]) and tile_stats [n_tiles, 5] (node
     pops, windows streamed, active lanes, windows culled, dense
     executions; K4 and K5 write 0 in the last; K6a, K6b and K9 write node
-    (K9: supernode) pops, leaves (K6a) or windows streamed, then 0s)."""
+    (K9: supernode) pops, leaves (K6a) or windows streamed, then 0s; K7
+    and K8 node pops, chunks, active lanes, 0, 0)."""
     n = orig.shape[0]
     _check_precision(precision)
     mode = packet_mode(tree, n, tile, engine)
@@ -1454,9 +1677,19 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
         raise ValueError(f"traverse_packet: engine {engine!r} cannot run: "
                          f"{n} rays are not whole tiles of {tile}, there is "
                          "no tree, or the tree lacks the engine's tables")
-    if mode in _OTHER_ENGINES:
-        raise NotImplementedError(
-            f"engine={engine!r} runs {_OTHER_ENGINES[mode]}, not ported yet")
+    if mode in ("stream2", "mxu"):
+        if mode == "stream2":
+            args, layout = stream2_kernel_args(tree, orig, dir, image_shape,
+                                               tile, active)
+            _, best_slot, tile_stats = packet_stream2(*args, tile=tile)
+        else:
+            from clpathtracer_tpu_torch.ops.packet_mxu import (
+                mxu_kernel_args, packet_mxu)
+            args, layout = mxu_kernel_args(tree, orig, dir, image_shape,
+                                           tile, active)
+            _, best_slot, tile_stats = packet_mxu(*args, tile=tile)
+        return _resolve_stream_winners(
+            tree, _to_wave_order(best_slot, layout), orig, dir, tile_stats)
     if mode in ("vmem", "tri_stream", "wide"):
         args, layout = v1_kernel_args(tree, orig, dir, image_shape, tile,
                                       mode)

@@ -29,9 +29,9 @@ Two routes, in the JAX package's order (render/integrator.py:197-309):
   opts.precision="bf16" runs both kinds of wave through the bf16 preview
   (kernel K4: MT tiles with the AABB cull); the windows route ignores it,
   as the JAX package's window engines do. The packet engine's other
-  ported forms (queue K5, legacy K6a/K6b, wide K9) are traverse_packet
-  calls that no frame takes: the port's "auto" stays on the stream
-  engine.
+  forms (queue K5, legacy K6a/K6b, wide K9, stream2 K7, mxu K8) are
+  traverse_packet calls that no frame takes, in the JAX package or here:
+  the port's "auto" stays on the stream engine.
 
 Random numbers come from the caller or from a torch.Generator (torch
 cannot reproduce jax.random's streams). Anything else raises

@@ -1,6 +1,7 @@
 """The port stands alone: it imports and renders (windows and kd-tree
-routes; the legacy and wide engines and accel/wide.py) with jax and flax
-blocked, no file of it or of chip_smoke.py
+routes; the legacy, wide, stream2 and mxu engines, accel/wide.py and
+ops/packet_mxu.py) with jax and flax blocked, no file of it or of
+chip_smoke.py
 imports either or the JAX package, and its kernel loader fails clearly
 where there is no CUDA toolkit."""
 
@@ -62,11 +63,12 @@ assert wtree.wide_table is not None
 assert torch.equal(wtree.wide_table, torch.as_tensor(
     wide.build_wide_table(wtree)))
 o, d = generate_rays(cam_matrix(cam, 32), 32, 32)
+from clpathtracer_tpu_torch.ops import packet_mxu
 hits = [packet.traverse_packet(wtree, o, d, (32, 32), 256,
                                engine=e)["hit"].reshape(32, 32)
-        for e in ("auto", "legacy", "wide")]
-assert torch.equal(hits[0], hit) and torch.equal(hits[1], hit)
-assert torch.equal(hits[2], hit)
+        for e in ("auto", "legacy", "wide", "stream2", "mxu")]
+assert all(torch.equal(h, hit) for h in hits)
+assert packet_mxu.mxu_rows_from_quads(wtree.tris).shape[1] == 512
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
                                    "clpathtracer_tpu")
                for m in sys.modules if sys.modules[m] is not None)

@@ -303,38 +303,37 @@ def test_resolve_tri_hits_matches_jax(baked):
                                   "wide", "bf16", "frame", "no_tree"])
 def test_outside_the_route_raises(terrain, case):
     """What the route does not carry raises; the queue engine, the bf16
-    preview and the legacy and wide engines, once outside it, now run
-    (their parity is in test_torch_queue.py, test_torch_bf16.py and
-    test_torch_legacy.py)."""
+    preview, the legacy and wide engines and the stream2 and mxu engines,
+    once outside it, now run (their parity is in test_torch_queue.py,
+    test_torch_bf16.py, test_torch_legacy.py, test_torch_stream2.py and
+    test_torch_mxu.py)."""
     tree = terrain["tree"]
     o = torch.zeros((4096, 3))
     d = torch.ones((4096, 3))
-    if case in ("queue", "bf16", "legacy", "wide"):   # ported: the run
-        kw = ({"precision": "bf16"} if case == "bf16"  # agrees with K3's
-              else {"engine": case})
+    if case in ("queue", "bf16", "legacy", "wide", "stream2", "mxu"):
+        kw = ({"precision": "bf16"} if case == "bf16"  # ported: the run
+              else {"engine": case})                  # agrees with K3's
         rec = tpk.traverse_packet(tree, o, d, **kw)
         ref = tpk.traverse_packet(tree, o, d)
         assert rec["tile_stats"].shape == ref["tile_stats"].shape == (4, 5)
-        if case in ("queue", "bf16"):
+        if case in ("queue", "bf16", "stream2", "mxu"):
             assert torch.equal(rec["tile_stats"][:, 2],
                                ref["tile_stats"][:, 2])
         else:       # the v1 kernels write 0 where K3 counts active lanes
             assert (rec["tile_stats"][:, 2:] == 0).all()
             assert (rec["tile_stats"][:, :2] > 0).all()
-        if case != "bf16":
+        if case == "mxu":   # another summation order: the JAX budget
+            assert (rec["hit"] == ref["hit"]).float().mean() >= 0.995
+        elif case != "bf16":
             assert torch.equal(rec["hit"], ref["hit"])
     elif case == "frame":      # not whole packet tiles: traverse_fast
         cam = Camera.create(POS, FWD, device=CPU)
         with pytest.raises(NotImplementedError, match="item 12"):
             render_image(terrain["scene"], cam,
                          RenderOptions(width=48, height=48), tree=tree)
-    elif case == "no_tree":
+    else:
         with pytest.raises(ValueError):
             tpk.traverse_packet(None, o, d)
-    else:
-        with pytest.raises(NotImplementedError,
-                           match=tpk._OTHER_ENGINES[case].split()[0]):
-            tpk.traverse_packet(tree, o, d, engine=case)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contig", "tile", "rows",
