@@ -155,15 +155,46 @@ walk K8 (ops/csrc/packet_mxu.cu):
    beside K8, one torch.matmul (TF32 off) of the rays' features against
    one chunk ("planes only", a yardstick, not the function).
 
+The windows route's other stream schedules (ops/csrc/plist_super.cu:
+K2 plist_window, K10 plist_gathered; ops/csrc/plist_subgate.cu: K11
+plist_subgate), on the 1M terrain and soup at 512x512, their windows
+rebuilt:
+
+29. K2 (one sorted entry per window) on all 512 gates, SO form on both
+   scenes and MT form (the raw records, no SO tables) on the terrain,
+   against its plain version on every 8th gate (exact in t, slot and all
+   five stats lanes) and against K1 (K1' for the MT form) on all gates
+   (exact in t and slot);
+30. K10 (gathered per-gate tables): the most windows any gate needs, the
+   default kmax's and the full table's bytes; traverse_plist(gathered=
+   True) at the default kmax (counted: K10, or K1 on overflow), at a kmax
+   that holds every gate (K10, counted) and at kmax 8 (K1 once, K10
+   never), each record equal to K1's; the kernel call at the full kmax
+   against its plain version on every 8th gate and against K1 on all
+   gates, exactly;
+31. K11 (four 128-ray sub-gates) in its SO and MT forms on both scenes
+   against its plain version on every 8th gate, exactly; SO against MT
+   (hit mismatch < 2e-3); a sky camera: no hit and no window for K2, K10
+   and K11;
+32. oracles: 4096 terrain pixels of K2, K10 (the full kmax) and K11
+   against the brute force, at phase 5's limits;
+33. render_image normal frames with plist_schedule "super", "window" and
+   "gathered" (2 warm-up, 20 timed; launches 22 of K1, K2, and K10 or K1
+   on overflow, every other kernel 0; the three images equal);
+   traverse_plist4 timed over 20 calls (20 launches of K11); K1, K2, K10
+   (full kmax) and K11 timed in turns on each scene, with windows per gate
+   (K11: per sub-gate), mean and max, and each kernel's bound.
+
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
 kernel's launches are those of the frames of the path that gives its ms
 (K1 the normal frame, K1' the mirror frame, K3 the kd route's normal
 terrain frame, K4 the bf16 normal terrain frame, K5 the three queue
 calls, K6b and K9 the six v1 traverse_packet calls, K6a its three
-op-level calls, K7 and K8 their three traverse_packet calls each), with
-every path's own count beside them. The last line is
-{"ok": true, "device": {...}}.
+op-level calls, K7 and K8 their three traverse_packet calls each, K2 the
+"window" frames, K10 the traverse_plist(gathered=True) call at the
+terrain's full kmax, K11 the traverse_plist4 calls), with every path's
+own count beside them. The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -182,7 +213,8 @@ from clpathtracer_tpu_torch.ops._cuda import load_kernels
 from clpathtracer_tpu_torch.ops.packet import (BIG, _blockify, _unblockify,
                                                so_combine)
 from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
-from clpathtracer_tpu_torch.render.integrator import (RenderOptions,
+from clpathtracer_tpu_torch.render.integrator import (PLIST_SCHEDULES,
+                                                      RenderOptions,
                                                       _surface,
                                                       intersect_scene,
                                                       mirror_wave,
@@ -263,6 +295,9 @@ def timed(fn):
 def reset_counts():
     plist.plist_super.launches = 0
     plist.plist_super_mt.launches = 0
+    plist.plist_window.launches = 0
+    plist.plist_gathered.launches = 0
+    plist.plist_subgate.launches = 0
     packet.packet_stream.launches = 0
     packet.packet_stream.bf16_launches = 0
     packet.packet_queue.launches = 0
@@ -276,6 +311,9 @@ def reset_counts():
 def counts():
     return {"plist_super": plist.plist_super.launches,
             "plist_super_mt": plist.plist_super_mt.launches,
+            "plist_window": plist.plist_window.launches,
+            "plist_gathered": plist.plist_gathered.launches,
+            "plist_subgate": plist.plist_subgate.launches,
             "packet_stream": packet.packet_stream.launches,
             "packet_stream_bf16": packet.packet_stream.bf16_launches,
             "packet_queue": packet.packet_queue.launches,
@@ -326,21 +364,29 @@ def build_windows(scene, win_rows, device):
     return plist.attach_resolve(plist.attach_so(mwin), scene.shade_rows)
 
 
-def compare_with_plain(name, kernel_out, plain_fn, args, n_units, win_rows,
-                       device, every=EVERY, **plain_kw):
-    """Run the plain version on every `every`-th gate (or bundle) of
-    `args` (key, sid, bits, rows, *[3, N] ray arrays, t0) and hold the
-    kernel's outputs to it exactly. Returns (the max |dt| over the plain
-    hits, the plain run's ms)."""
+def compare_plain(name, kernel_out, plain, args, kw, n_units, every=EVERY):
+    """Run `plain` on every `every`-th gate (or bundle) of the call
+    (args, kw) and hold the kernel's outputs to it exactly. A tensor
+    argument with n_units rows (lists, tables) is cut to those gates, one
+    of [3, N] or [N] to their lanes; others (records, tallies) pass whole.
+    Returns (the max |dt| over the plain hits, the plain run's ms)."""
     best_t, best_slot, stats = kernel_out
-    key, sid, bits, rows, *rays, t0 = args
+    device = best_t.device
+    n = n_units * plist.GATE
     sel = torch.arange(0, n_units, every, device=device)
     lanes = (sel[:, None] * plist.GATE
              + torch.arange(plist.GATE, device=device)).reshape(-1)
-    (ref_t, ref_slot, ref_stats), plain_ms = timed(lambda: plain_fn(
-        key[sel].contiguous(), sid[sel].contiguous(), bits[sel].contiguous(),
-        rows, *(r[:, lanes].contiguous() for r in rays), t0[lanes],
-        win_rows=win_rows, **plain_kw))
+
+    def cut(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if a.shape[0] == n_units:
+            return a[sel].contiguous()
+        if tuple(a.shape) in ((3, n), (n,)):
+            return a[..., lanes].contiguous()
+        return a
+    (ref_t, ref_slot, ref_stats), plain_ms = timed(lambda: plain(
+        *map(cut, args), **{k: cut(v) for k, v in kw.items()}))
     bad_t = int((best_t[lanes] != ref_t).sum())
     bad_slot = int((best_slot[lanes] != ref_slot).sum())
     bad_stats = int((stats[sel] != ref_stats).sum())
@@ -473,7 +519,8 @@ def run_frames(render, warmup, frames):
 
 
 def check_counts(phase, got, want):
-    want = {"plist_super": 0, "plist_super_mt": 0, "packet_stream": 0,
+    want = {"plist_super": 0, "plist_super_mt": 0, "plist_window": 0,
+            "plist_gathered": 0, "plist_subgate": 0, "packet_stream": 0,
             "packet_stream_bf16": 0, "packet_queue": 0, "packet_legacy": 0,
             "packet_legacy_resident": 0, "packet_wide": 0,
             "packet_stream2": 0, "packet_mxu": 0, **want}
@@ -526,7 +573,7 @@ def main():
 
 
 def smoke(device):
-    """Phases 3-28 on `device`; returns the kernels line's entries."""
+    """Phases 3-33 on `device`; returns the kernels line's entries."""
     # 3. scene at full size
     t = time.perf_counter()
     scene = terrain_mesh(N_TRIS, seed=0, extent=10.0,
@@ -557,9 +604,9 @@ def smoke(device):
     k_args = (key, sid, bits, rows, dir_t, t0)
     best_t, best_slot, stats = plist.plist_super(*k_args, win_rows=WIN_ROWS)
     torch.cuda.synchronize()
-    k1_err, _ = compare_with_plain("kernel", (best_t, best_slot, stats),
-                                   plist.plist_super_reference, k_args,
-                                   n_gates, WIN_ROWS, device)
+    k1_err, _ = compare_plain("kernel", (best_t, best_slot, stats),
+                              plist.plist_super_reference, k_args,
+                              dict(win_rows=WIN_ROWS), n_gates)
 
     # 5. independent oracle
     rec = plist.traverse_plist(mwin, orig, dirs, (SIZE, SIZE))
@@ -629,9 +676,9 @@ def smoke(device):
               so_combine(swin.so_base, s_orig[0]), s_dir_b.T.contiguous(), t0)
     s_out = plist.plist_super(*s_args, win_rows=SOUP_WIN_ROWS)
     torch.cuda.synchronize()
-    k1_err = max(k1_err, compare_with_plain(
-        "soup", s_out, plist.plist_super_reference, s_args, n_gates,
-        SOUP_WIN_ROWS, device)[0])
+    k1_err = max(k1_err, compare_plain(
+        "soup", s_out, plist.plist_super_reference, s_args,
+        dict(win_rows=SOUP_WIN_ROWS), n_gates)[0])
     s_ms, _, got, s_img = run_frames(
         lambda: render_image(soup, scam, opts, swin), 2, 10)
     check_counts("soup", got, {"plist_super": 12})
@@ -662,9 +709,8 @@ def smoke(device):
     r_args = plist.bundle_kernel_args(mwin, ro, rd, active=ra)
     r_out = plist.plist_super_mt(*r_args, win_rows=WIN_ROWS)
     torch.cuda.synchronize()
-    mt_err, _ = compare_with_plain("K1'", r_out,
-                                   plist.plist_super_mt_reference, r_args,
-                                   n_gates, WIN_ROWS, device)
+    mt_err, _ = compare_plain("K1'", r_out, plist.plist_super_mt_reference,
+                              r_args, dict(win_rows=WIN_ROWS), n_gates)
     r_stats = r_out[2]
     live_b = ra.reshape(-1, plist.GATE).any(dim=1)
     say("K1'", f"windows per bundle: live bundles "
@@ -705,9 +751,9 @@ def smoke(device):
     b_out = plist.plist_super_mt(*b_args, win_rows=WIN_ROWS)
     torch.cuda.synchronize()
     tally = torch.zeros(3, dtype=torch.int64, device=device)
-    err, mt_plain_ms = compare_with_plain(
-        "mirror K1'", b_out, plist.plist_super_mt_reference, b_args, n_gates,
-        WIN_ROWS, device, every=1, tally=tally)
+    err, mt_plain_ms = compare_plain(
+        "mirror K1'", b_out, plist.plist_super_mt_reference, b_args,
+        dict(win_rows=WIN_ROWS, tally=tally), n_gates, every=1)
     mt_err = max(mt_err, err)
 
     def resolve_shade():
@@ -780,6 +826,7 @@ def smoke(device):
     k5 = queue_engine(ctx, launches)
     v1 = v1_engines(ctx, launches)
     k7_k8 = stream2_mxu_engines(ctx, launches)
+    sched = plist_schedules(device, scene, soup, cam, scam, launches)
     return [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -799,7 +846,7 @@ def smoke(device):
          "max_abs_err": mt_err,
          "ms": mt_ms, "plain_ms": mt_plain_ms,
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
-        k3, k4, k5, *v1, *k7_k8,
+        k3, k4, k5, *v1, *k7_k8, *sched,
     ]
 
 
@@ -1804,6 +1851,275 @@ def planes_only(r, out):
         f"{int(st[:, 1].max())}), the terrain primaries")
     return ms
 
+
+def schedule_inputs(device, scene, soup, cam, scam):
+    """The terrain's and the soup's windows (rebuilt: phase 11 let them
+    go), rays and SO rows, in gate order and in sub-gate strip order."""
+    inputs = {}
+    for name, sc, cm, wr in (("terrain", scene, cam, WIN_ROWS),
+                             ("soup", soup, scam, SOUP_WIN_ROWS)):
+        mwin = build_windows(sc, wr, device)
+        orig, dirs = generate_rays(cam_matrix(cm, SIZE), SIZE, SIZE)
+
+        def strips(x):
+            return packet._blockify_strips(x, SIZE, SIZE, plist.GH,
+                                           plist.GW, plist.SBH, plist.SBW)
+        dir_b = _blockify(dirs, SIZE, SIZE, plist.GH, plist.GW)
+        inputs[name] = SimpleNamespace(
+            scene=sc, mwin=mwin, wr=wr, orig=orig, dirs=dirs, o=orig[0],
+            dir_b=dir_b, dir_t=dir_b.T.contiguous(),
+            orig_t=_blockify(orig, SIZE, SIZE, plist.GH,
+                             plist.GW).T.contiguous(),
+            rows=so_combine(mwin.so_base, orig[0]),
+            dir_bs=strips(dirs), dir_s=strips(dirs).T.contiguous(),
+            orig_s=strips(orig).T.contiguous())
+    return inputs
+
+
+def same_as_k1(name, out, k1_out, k1="K1"):
+    """Hold a kernel's best t and slot on every gate to K1's (or K1''s, on
+    the same records), exactly."""
+    bad_t = int((out[0] != k1_out[0]).sum())
+    bad_slot = int((out[1] != k1_out[1]).sum())
+    say(name, f"all {out[0].numel()} rays against {k1} (tolerance: exact): "
+        f"t mismatches {bad_t}, slot mismatches {bad_slot}")
+    if bad_t or bad_slot:
+        raise AssertionError(f"{name}: the schedule's hits differ from {k1}'s")
+
+
+def same_record(name, rec, base):
+    for k in ("hit", "t", "tri"):
+        if not torch.equal(rec[k], base[k]):
+            raise AssertionError(f"{name}: the record's {k} differs from K1's")
+
+
+def plist_schedules(device, scene, soup, cam, scam, launches):
+    """Phases 29-33: the windows route's other stream schedules, K2
+    (plist_window), K10 (plist_gathered) and K11 (plist_subgate), beside
+    K1. Returns their kernels entries."""
+    n = SIZE * SIZE
+    n_gates = n // plist.GATE
+    t0 = torch.full((n,), BIG, device=device)
+    inputs = schedule_inputs(device, scene, soup, cam, scam)
+    err = {"K2": 0.0, "K10": 0.0, "K11": 0.0}
+    res = {}   # (scene, kernel) -> args, kw, kernel, out, plain ms
+
+    def run(name, kernel, fn, plain, args, kw):
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        e, plain_ms = compare_plain(name, out, plain, args, kw, n_gates)
+        err[kernel] = max(err[kernel], e)
+        return SimpleNamespace(args=args, kw=kw, fn=fn, out=out,
+                               plain_ms=plain_ms)
+
+    # 29. K2, SO and MT, against its plain version and K1
+    for name, x in inputs.items():
+        kw = dict(win_rows=x.wr)
+        x.k1 = plist.plist_super(*plist.gate_lists_super(
+            x.mwin.win_bnd, x.dir_b, x.o), x.rows, x.dir_t, t0, **kw)
+        x.key, x.wid = plist.gate_lists(x.mwin.win_bnd, x.dir_b, x.o)
+        res[name, "K2"] = run(f"K2 {name}", "K2", plist.plist_window,
+                              plist.plist_window_reference,
+                              (x.key, x.wid, x.rows, x.dir_t, t0), kw)
+        same_as_k1(f"K2 {name}", res[name, "K2"].out, x.k1)
+        if name == "terrain":   # the MT form: the raw records, no SO tables
+            res[name, "K2 MT"] = run(
+                f"K2 MT {name}", "K2", plist.plist_window,
+                plist.plist_window_reference,
+                (x.key, x.wid, x.mwin.tris, x.dir_t, t0),
+                dict(win_rows=x.wr, orig_t=x.orig_t))
+            k1_mt = plist.plist_super_mt(
+                *plist.gate_lists_super(x.mwin.win_bnd, x.dir_b, x.o),
+                x.mwin.tris, x.orig_t, x.dir_t, t0, win_rows=x.wr)
+            same_as_k1(f"K2 MT {name}", res[name, "K2 MT"].out, k1_mt,
+                       "K1'")
+
+    # 30. K10: the default kmax, a kmax that holds every gate, kmax 8
+    for name, x in inputs.items():
+        need = torch.isfinite(x.key).sum(dim=1)
+        most = int(need.max())
+        kmax, cwin = plist.gathered_sizes(x.wr)
+        x.kfull, _ = plist.gathered_sizes(x.wr, kmax=most)
+        if x.kfull < most:
+            raise AssertionError(f"K10 {name}: a gate needs {most} windows, "
+                                 f"more than a table holds "
+                                 f"({plist.KMAX_CAP})")
+        gate_bytes = x.wr * 8 * 16 * 4 * n_gates
+        say(f"K10 {name}", f"windows a gate needs: mean "
+            f"{float(need.float().mean()):.3f}, max {most}; cwin {cwin}; "
+            f"default kmax {kmax} (table {kmax * gate_bytes} bytes), kmax "
+            f"{x.kfull} holds every gate (table {x.kfull * gate_bytes} "
+            f"bytes)")
+        base = plist.traverse_plist(x.mwin, x.orig, x.dirs, (SIZE, SIZE))
+        x.overflow = most > kmax
+        for label, k, want in (
+                ("default kmax", None,
+                 "plist_super" if x.overflow else "plist_gathered"),
+                (f"kmax {x.kfull}", x.kfull, "plist_gathered"),
+                ("kmax 8", 8, "plist_super")):
+            reset_counts()
+            rec = plist.traverse_plist(x.mwin, x.orig, x.dirs, (SIZE, SIZE),
+                                       gathered=True, kmax=k)
+            torch.cuda.synchronize()
+            got = counts()
+            check_counts(f"K10 {name} {label}", got, {want: 1})
+            if k == x.kfull:
+                launches[f"gathered {name}"] = got
+                x.k10_rec = rec
+            same_record(f"K10 {name} {label}", rec, base)
+            say(f"K10 {name}", f"traverse_plist(gathered=True) at {label}: "
+                f"{'K10' if want == 'plist_gathered' else 'K1'} ran "
+                f"(counted), the record equals K1's")
+        table, ids, ten, _ = plist.gate_lists_gathered(
+            x.mwin.win_bnd, x.dir_b, x.o, x.rows, x.wr, x.kfull)
+        res[name, "K10"] = run(f"K10 {name}", "K10", plist.plist_gathered,
+                               plist.plist_gathered_reference,
+                               (ten, ids, table, x.dir_t, t0),
+                               dict(win_rows=x.wr, cwin=cwin))
+        same_as_k1(f"K10 {name}", res[name, "K10"].out, x.k1)
+        del table, ids, ten
+
+    # 31. K11, SO and MT, against its plain version; SO against MT; sky
+    for name, x in inputs.items():
+        x.key4, x.pay4 = plist.gate_lists4(x.mwin.win_bnd, x.dir_bs, x.o)
+        r_so = res[name, "K11"] = run(
+            f"K11 {name}", "K11", plist.plist_subgate,
+            plist.plist_subgate_reference,
+            (x.key4, x.pay4, x.rows, x.dir_s), dict(win_rows=x.wr))
+        r_mt = res[name, "K11 MT"] = run(
+            f"K11 MT {name}", "K11", plist.plist_subgate,
+            plist.plist_subgate_reference,
+            (x.key4, x.pay4, x.mwin.tris, x.dir_s),
+            dict(win_rows=x.wr, orig_t=x.orig_s))
+        h_so, h_mt = r_so.out[1] >= 0, r_mt.out[1] >= 0
+        mismatch = float((h_so != h_mt).float().mean())
+        say(f"K11 {name}", f"SO against MT: hit mismatch {mismatch} (< "
+            f"2e-3), {int(h_so.sum())} SO hits, {int(h_mt.sum())} MT hits")
+        if mismatch >= 2e-3:
+            raise AssertionError(f"K11 {name}: SO and MT hits disagree")
+    x = inputs["terrain"]
+    sky = Camera.create(POS, [0.0, 1.0, 0.01], device=device)
+    s_orig, s_dirs = generate_rays(cam_matrix(sky, SIZE), SIZE, SIZE)
+    for label, fn in (("K2", lambda: plist.traverse_plist(
+            x.mwin, s_orig, s_dirs, (SIZE, SIZE), supers=False)),
+                      ("K10", lambda: plist.traverse_plist(
+            x.mwin, s_orig, s_dirs, (SIZE, SIZE), gathered=True)),
+                      ("K11", lambda: plist.traverse_plist4(
+            x.mwin, s_orig, s_dirs, (SIZE, SIZE)))):
+        rec = fn()
+        windows = int(rec["tile_stats"][:, 1].sum())
+        say("sky", f"{label}: {int(rec['hit'].sum())} hits, {windows} "
+            "windows tested")
+        if bool(rec["hit"].any()) or windows:
+            raise AssertionError(f"sky {label}: hits or windows")
+
+    # 32. oracles
+    pix = torch.as_tensor(np.random.default_rng(0).choice(
+        n, ORACLE_PIXELS, replace=False), device=device)
+    for label, rec in (
+            ("K2", plist.traverse_plist(x.mwin, x.orig, x.dirs,
+                                        (SIZE, SIZE), supers=False)),
+            ("K10", x.k10_rec),
+            ("K11", plist.traverse_plist4(x.mwin, x.orig, x.dirs,
+                                          (SIZE, SIZE)))):
+        check_oracle(f"{label} oracle", x.scene, rec, x.orig, x.dirs, pix,
+                     2e-3, 1e-4, 1e-5)
+
+    # 33. frames by schedule, traverse_plist4, the kernels in turns
+    imgs = {}
+    for sched in PLIST_SCHEDULES:
+        opts = RenderOptions(width=SIZE, height=SIZE, plist_schedule=sched)
+        ms, wall, got, img = run_frames(
+            lambda: render_image(x.scene, cam, opts, x.mwin), WARMUP, FRAMES)
+        want = {"super": "plist_super", "window": "plist_window",
+                "gathered": ("plist_super" if x.overflow
+                             else "plist_gathered")}[sched]
+        check_counts(f"{sched} frame", got, {want: WARMUP + FRAMES})
+        launches[f"{sched} frame"] = got
+        imgs[sched] = img
+        if not bool(torch.isfinite(img).all()) \
+                or not torch.equal(img, imgs["super"]):
+            raise AssertionError(f"{sched} frame: the image is not the "
+                                 "super frame's")
+        med = float(np.median(ms))
+        say(f"{sched} frame", f"{SIZE}x{SIZE} normal, plist_schedule "
+            f"{sched!r}: median {med:.4f} ms over {FRAMES} frames (min "
+            f"{min(ms):.4f}, max {max(ms):.4f}; host wall {wall:.4f} "
+            f"ms/frame), {n / med * 1e3:.6g} rays/s, the super frame's "
+            f"image; launches {got}")
+    reset_counts()
+    t4 = cuda_times_ms(lambda: plist.traverse_plist4(
+        x.mwin, x.orig, x.dirs, (SIZE, SIZE)), FRAMES)
+    got = counts()
+    check_counts("traverse_plist4", got, {"plist_subgate": FRAMES})
+    launches["traverse_plist4"] = got
+    say("traverse_plist4", f"{SIZE}x{SIZE}: median "
+        f"{float(np.median(t4)):.4f} ms over {FRAMES} calls (min "
+        f"{min(t4):.4f}, max {max(t4):.4f}); launches {got}")
+    rows = {}
+    for name, x in inputs.items():
+        k1_args = (*plist.gate_lists_super(x.mwin.win_bnd, x.dir_b, x.o),
+                   x.rows, x.dir_t, t0)
+        calls = {"K1": SimpleNamespace(fn=plist.plist_super, args=k1_args,
+                                       kw=dict(win_rows=x.wr), out=x.k1),
+                 **{k: res[name, k] for k in ("K2", "K10", "K11")}}
+        ms = turns_ms([lambda c=c: c.fn(*c.args, **c.kw)
+                       for c in calls.values()], 20)
+        win_tris = x.wr * 8
+        # K11's sub-gates, each with its own windows (the stats give the
+        # most of a gate's four, times four): its plain stream on all gates
+        lanes = plist.GATE // plist.SUB
+        sub_key, sub_wid = plist._subgate_lists(x.key4, x.pay4)
+        _, _, sub_ns = plist._window_stream(
+            sub_key, sub_wid, plist._records(x.rows, win_tris),
+            plist._group_test(None, x.dir_s, lanes),
+            torch.full((n_gates * plist.SUB, lanes), BIG, device=device),
+            win_tris)
+        for (kernel, c), kms in zip(calls.items(), ms):
+            st = c.out[2].to(torch.float64)
+            if kernel == "K11":
+                tests = int(sub_ns.sum()) * win_tris * lanes
+                sub_mean = float(sub_ns.float().mean())
+                wins = (f"windows per sub-gate {sub_mean:.3f} (max "
+                        f"{int(sub_ns.max())}), per gate in lockstep "
+                        f"{float(st[:, 1].mean()):.3f} (max "
+                        f"{int(st[:, 1].max())})")
+            else:
+                tests = n_tests(c.out[2], x.wr)
+                wins = (f"windows per gate {float(st[:, 1].mean()):.3f} "
+                        f"(max {int(st[:, 1].max())})")
+            bnd, by = bound([*c.args, *c.out], tests * K1_OPS)
+            rows[name, kernel] = dict(ms=kms, bound=bnd, by=by)
+            plain = ("" if kernel == "K1" else
+                     f", plain {res[name, kernel].plain_ms:.1f} ms on every "
+                     f"{EVERY}th gate")
+            ratio = kms / ms[0]
+            say(f"schedules {name}", f"{kernel} {kms:.4f} ms ({ratio:.3f} x "
+                f"K1){plain}, bound {bnd:.4f} ms ({by}; {tests} SO tests x "
+                f"{K1_OPS}); {wins}")
+    entries = []
+    for kernel, cname, src, line, path in (
+            ("K2", "plist_window", "plist_super", 404, "window frame"),
+            ("K10", "plist_gathered", "plist_super", 1270,
+             "gathered terrain"),
+            ("K11", "plist_subgate", "plist_subgate", 1462,
+             "traverse_plist4")):
+        t, s_ = rows["terrain", kernel], rows["soup", kernel]
+        entries.append({
+            "name": cname, "route": "cuda",
+            "source": f"clpathtracer_tpu_torch/ops/csrc/{src}.cu",
+            "replaces": f"clpathtracer_tpu/ops/plist.py:{line}",
+            "launches": launches[path][cname],
+            "launches_by_path": {p: c.get(cname, 0)
+                                 for p, c in launches.items()},
+            "max_abs_err": err[kernel], "ms": t["ms"],
+            "plain_ms": res["terrain", kernel].plain_ms,
+            "plain_gates": f"every {EVERY}th", "bound_ms": t["bound"],
+            "bound_by": t["by"], "library_ms": None,
+            "k1_ms": rows["terrain", "K1"]["ms"], "soup_ms": s_["ms"],
+            "soup_k1_ms": rows["soup", "K1"]["ms"],
+            "soup_bound_ms": s_["bound"]})
+    return entries
 
 if __name__ == "__main__":
     main()

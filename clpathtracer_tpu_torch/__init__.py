@@ -10,7 +10,11 @@ It covers normal, mirror and path (no NEE) rendering on two routes. The
 window engine: pinhole or jittered primary rays through the gate prepass
 and the super-list kernel's shared-origin form, Morton-sorted bounce
 bundles through the bundle prepass and its general Moller-Trumbore form
-(ops/csrc/plist_super.cu), fused winner resolution. The kd-tree stream
+(ops/csrc/plist_super.cu), fused winner resolution; the primary gates'
+other stream schedules, one sorted entry per window and gathered per-gate
+tables (the same source; RenderOptions.plist_schedule), and four 128-ray
+sub-gates per gate (ops/csrc/plist_subgate.cu, ops/plist.py::
+traverse_plist4). The kd-tree stream
 engine: the native SAH builder (accel/native, accel/sah.py), packet tiles
 through the strip prepass or window AABB culls and the stream kernel
 (ops/csrc/packet_stream.cu), resolve_tri_hits. ops/packet.py::

@@ -43,6 +43,23 @@ SIGNATURES = {
         # key, sid, bits, rows, orig_t, dir_t, t0, best_t, best_slot, stats,
         # n_gates, list_len, win_rows, stream
         "plist_super_mt_launch": [_P] * 10 + [_I] * 3 + [_P],
+        # key, wid, rows, dir_t, t0, best_t, best_slot, stats, n_gates,
+        # list_len, win_rows, stream
+        "plist_window_launch": [_P] * 8 + [_I] * 3 + [_P],
+        # key, wid, rows, orig_t, dir_t, t0, best_t, best_slot, stats,
+        # n_gates, list_len, win_rows, stream
+        "plist_window_mt_launch": [_P] * 9 + [_I] * 3 + [_P],
+        # ten, ids, table, dir_t, t0, best_t, best_slot, stats, n_gates,
+        # kmax, cwin, win_rows, stream
+        "plist_gathered_launch": [_P] * 8 + [_I] * 4 + [_P],
+    },
+    "plist_subgate": {
+        # key, pay, rows, dir_t, best_t, best_slot, stats, n_gates,
+        # list_len, win_rows, stream
+        "plist_subgate_launch": [_P] * 7 + [_I] * 3 + [_P],
+        # key, pay, rows, orig_t, dir_t, best_t, best_slot, stats, n_gates,
+        # list_len, win_rows, stream
+        "plist_subgate_mt_launch": [_P] * 8 + [_I] * 3 + [_P],
     },
     "packet_stream": {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, frustum, masks,

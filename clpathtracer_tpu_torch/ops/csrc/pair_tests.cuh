@@ -1,5 +1,6 @@
-// Ray-triangle pair tests shared by the port's kernels: K1 and K1'
-// (plist_super.cu), K3 and K4 (packet_stream.cu) and K5 (packet_queue.cu).
+// Ray-triangle pair tests shared by the port's kernels: K1, K1', K2, K10
+// (plist_super.cu), K11 (plist_subgate.cu), K3 and K4 (packet_stream.cu)
+// and K5 (packet_queue.cu).
 // One copy, so every kernel rounds a pair as the others and as the plain
 // torch versions do.
 //
@@ -140,6 +141,53 @@ __device__ __forceinline__ bool mt_hit_bf16(const Ray& ray, float4 a,
   if (!(tt > 0.f && c.y >= 0.f && tt < 3.0e38f)) return false;
   *t = tt;
   return true;
+}
+
+// A thread's ray from [3, n_rays] arrays: its direction from dir_t, its
+// origin from orig_t in the MT form, 0 in the SO form (where the origin is
+// folded into the SO records). Shared by the list kernels (plist_super.cu,
+// plist_subgate.cu).
+template <bool kMT>
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ orig_t,
+                                        const float* __restrict__ dir_t,
+                                        int n_rays, int i) {
+  Ray ray;
+  ray.dx = dir_t[i];
+  ray.dy = dir_t[n_rays + i];
+  ray.dz = dir_t[2 * n_rays + i];
+  if (kMT) {
+    ray.ox = orig_t[i];
+    ray.oy = orig_t[n_rays + i];
+    ray.oz = orig_t[2 * n_rays + i];
+  } else {
+    ray.ox = ray.oy = ray.oz = 0.f;
+  }
+  return ray;
+}
+
+// The list kernels' dense test: the ray against n_recs records staged in
+// shared memory as three float4s each (cols 0-11 of a 16-float record),
+// whose slots are slot0, slot0 + 1, ...; keeps the (min t, then min slot)
+// winner in bt/bs, which no order of the tests changes.
+template <bool kMT>
+__device__ __forceinline__ void nearest_in_window(const Ray& ray,
+                                                  const float4* win,
+                                                  int n_recs,
+                                                  long long slot0, float& bt,
+                                                  int& bs) {
+  for (int r = 0; r < n_recs; ++r) {
+    const float4 p = win[r * 3];
+    const float4 q = win[r * 3 + 1];
+    const float4 w = win[r * 3 + 2];
+    float tt;
+    if (kMT ? mt_hit(ray, p, q, w, &tt) : so_hit(ray, p, q, w, &tt)) {
+      const int slot = (int)(slot0 + r);
+      if (tt < bt || (tt == bt && slot < bs)) {
+        bt = tt;
+        bs = slot;
+      }
+    }
+  }
 }
 
 }  // namespace clpt

@@ -1,5 +1,5 @@
-"""Prepass-list engine (port of clpathtracer_tpu/ops/plist.py, super-list
-route): shared-origin primary gates and sorted bounce bundles.
+"""Prepass-list engine (port of clpathtracer_tpu/ops/plist.py): shared-
+origin primary gates in four stream schedules, and sorted bounce bundles.
 
 Pipeline:
 
@@ -8,36 +8,48 @@ Pipeline:
     windows of win_rows*8 records, padded to whole supers of SUPER
     windows; per-window AABBs; shared-origin tables (so_affine_tables) and
     fused resolve rows on the device.
-  * prepass (plain torch, per wave), one sorted super list per 512 rays:
+  * prepass (plain torch, per wave): per-(gate, window) keys, the
+    conservative entry distance (+inf where culled):
     - primary gates (traverse_plist), each a 16x32 pixel block with one
       origin: the slab interval of the gate's direction range plus the
       corner-frustum planes (_win_keys), dilated for jittered samples;
     - bounce bundles (traverse_plist_bundle), 512 consecutive rays of a
       Morton-sorted wave (ops/sort.py): interval-arithmetic slabs over the
       bundle's origin and inverse-direction ranges (_bundle_keys).
-    Keys reduce to supers (min key, one need bit per window) and each
-    list sorts by key.
-  * kernels: per gate or bundle, stream the sorted supers, test the needed
-    windows densely, stop when the next key exceeds t_upper.
-    - K1 (plist_super): the shared-origin signed-volume test;
-    - K1' (plist_super_mt): general Moller-Trumbore with per-lane origins
-      and t0 seeds.
-    CUDA on the GPU (ops/csrc/plist_super.cu); their plain torch versions
-    (plist_super_reference, plist_super_mt_reference) on the CPU.
+    Each schedule sorts its own list by key per gate: supers of SUPER
+    windows with need bits (gate_lists_super), single windows
+    (gate_lists), the first kmax windows gathered into a private table
+    (gate_lists_gathered), or windows with the need bits of four 8x16
+    sub-gates (gate_lists4).
+  * kernels: per gate, bundle or sub-gate, stream the sorted list, test
+    the windows it names densely, stop when the next key exceeds t_upper.
+    - K1 (plist_super): supers, the shared-origin signed-volume test;
+    - K1' (plist_super_mt): supers, general Moller-Trumbore with per-lane
+      origins and t0 seeds;
+    - K2 (plist_window): single windows, SO or MT;
+    - K10 (plist_gathered): the private tables in chunks of cwin windows,
+      SO;
+    - K11 (plist_subgate): four 128-ray sub-gates per gate, each with its
+      own cursor and t_upper, SO or MT.
+    CUDA on the GPU (ops/csrc/plist_super.cu: K1, K1', K2, K10;
+    ops/csrc/plist_subgate.cu: K11); their plain torch versions
+    (plist_*_reference) on the CPU.
   * resolve: one row gather of the winner's fused record, an exact
     Moller-Trumbore re-resolve of t/u/v, and the shade attributes.
 
-Lists are flat [G, Ls] tensors (key f32, sid i32, bits i32) and slots are
-int32 rows of the [S, 16] record array. The JAX package's environment
-knobs are constants here, at its defaults (gate 16x32 pixels, t_upper
-refreshed after every super); the routes it keeps behind them (gathered
-lists, the two-phase straggler engine, d0cull, the plain per-window list)
-are not ported yet.
+Lists are flat [G, L] tensors (key f32, ids, bits and payloads i32) and
+slots are int32 rows of the [S, 16] record array. The JAX package's
+environment switches of the schedule (CLPT_PLIST_SUPER, CLPT_PLIST_GATHER)
+are traverse_plist's arguments here; its other knobs are constants at its
+defaults (gate 16x32 pixels, t_upper refreshed after every entry). Its
+two-phase straggler engine (the kcap form of K1) and d0cull are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -46,8 +58,8 @@ from clpathtracer_tpu_torch.accel.sah import pack_quads_host
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.struct import TensorStruct
 from clpathtracer_tpu_torch.ops.packet import (
-    BIG, INV_BIG, _blockify, _frustum_rows, _unblockify, mt_pairs,
-    so_affine_tables, so_combine, so_pairs)
+    BIG, INV_BIG, _blockify, _blockify_strips, _frustum_rows, _unblockify,
+    _unblockify_strips, mt_pairs, so_affine_tables, so_combine, so_pairs)
 from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
 
 GATE = 512        # rays per gate: a GH x GW pixel block
@@ -55,6 +67,12 @@ GH = 16
 GW = GATE // GH
 SUPER = 16        # windows per super-list entry
 WIN_ROWS = 16     # window size in units of 8 records (128 triangles)
+SUB = 4           # K11: sub-gates per gate, each an SBH x SBW pixel block
+SBH, SBW = 8, 16
+KMAX_CAP = 1024   # K10: most entries of a gate's gathered table
+# K10: most records staged per chunk (cwin * win_rows * 8): 192 KB of
+# shared memory at 48 B a record
+CHUNK_RECS = 4096
 _INT_MAX = torch.iinfo(torch.int32).max
 # pairs (ray x triangle) per step of the plain kernel version: bounds its
 # temporaries to a few hundred MB at any gate count
@@ -324,68 +342,202 @@ def _super_pack(key_w: torch.Tensor):
     return key, order.to(torch.int32), bits.gather(1, order)
 
 
-# ---------------------------------------------------------------------------
-# kernels K1 (shared-origin form) and K1' (general Moller-Trumbore form)
-# ---------------------------------------------------------------------------
+def gate_lists(win_bnd, dir_g, origin, dilate_px: float = 0.0):
+    """Per-gate sorted window lists, K2's input. dir_g: [G*GATE, 3]
+    gate-major directions (_blockify); origin: [3]; dilate_px: the jitter
+    bound of _win_keys. Returns (key [G, W] f32, wid [G, W] i32), each
+    gate's windows in ascending key order, equal keys in window order,
+    culled windows (+inf) at the tail. The JAX package packs the same
+    lists into [G, C, 8, 128] chunks of f32-exact row ids; here they stay
+    flat, with int32 window ids."""
+    n_gates = dir_g.shape[0] // GATE
+    d = dir_g.reshape(n_gates, GATE, 3).to(torch.float32)
+    return _sort_windows(_win_keys(win_bnd, d, origin, GH, GW, dilate_px))
 
 
-def _check_plist_super_args(name, key, sid, bits, rows, dir_t, t0, win_rows,
-                            orig_t=None):
-    tensors = dict(key=key, sid=sid, bits=bits, rows=rows, dir_t=dir_t,
-                   t0=t0)
-    if orig_t is not None:
-        tensors["orig_t"] = orig_t
+def _sort_windows(key_w: torch.Tensor):
+    """One key+payload sort of per-window keys [G, W] (the gate_lists
+    contract)."""
+    key, order = torch.sort(key_w, dim=1, stable=True)
+    return key, order.to(torch.int32)
+
+
+def gathered_sizes(win_rows: int, kmax: int = None, cwin: int = None):
+    """K10's (kmax, cwin) as the JAX package resolves them (plist.py:
+    635-640): kmax defaults to max(1024 // win_rows, 8) entries, cwin to
+    max(32 // win_rows, 1) windows a chunk; kmax rounds up to a multiple
+    of lcm(8, cwin) (the JAX package's SMEM packing; a chunk count that
+    truncated would drop windows), at most KMAX_CAP."""
+    for arg, v in (("kmax", kmax), ("cwin", cwin)):
+        if v is not None and v < 1:
+            raise ValueError(f"{arg} {v} is not a positive count")
+    cwin = int(cwin) if cwin else max(32 // win_rows, 1)
+    kmax = int(kmax) if kmax else max(1024 // win_rows, 8)
+    q = math.lcm(8, cwin)
+    return min(-(-kmax // q) * q, KMAX_CAP // q * q), cwin
+
+
+def gate_lists_gathered(win_bnd, dir_g, origin, rows, win_rows: int,
+                        kmax: int, dilate_px: float = 0.0):
+    """Prepass of K10: each gate's first kmax windows by key, gathered
+    into a private table. dir_g, origin, dilate_px: as gate_lists; rows:
+    [S, 16] SO records (so_combine). Returns (table [G, kmax*win_rows*8,
+    16] f32, ids [G, kmax] i32, ten [G, kmax] f32, overflow): entry k of
+    gate g is window ids[g, k] at key ten[g, k], its records at rows
+    [k*win_rows*8, (k+1)*win_rows*8) of table[g]; overflow is a 0-d bool
+    tensor, True when some gate needs more than kmax windows. Entries past
+    a gate's need (pads) carry key +inf and window 0, whose rows the table
+    holds for them. The table is one index_select of whole windows.
+
+    A divergence from the JAX package (ADVICE r5 #1): its ids keep the
+    raw sorted window ids of the pads (clpathtracer_tpu/ops/plist.py:1262)
+    while its table holds window 0's rows there, so a pad tested inside a
+    taken chunk reports slots of a window it did not test. Here a pad's id
+    is window 0, the window it holds: slots agree with what was tested.
+    Hits and t are the same: window 0 is either needed by the gate (the
+    same records at the same slots again) or culled for it, and the cull
+    is conservative, so no ray of the gate hits it."""
+    n_gates = dir_g.shape[0] // GATE
+    d = dir_g.reshape(n_gates, GATE, 3).to(torch.float32)
+    key, wid = _sort_windows(_win_keys(win_bnd, d, origin, GH, GW,
+                                       dilate_px))
+    return (*_gather_table(key, wid, rows, win_rows, kmax),
+            _overflows(key, kmax))
+
+
+def _overflows(key: torch.Tensor, kmax: int) -> torch.Tensor:
+    """Whether some gate of sorted lists [G, W] needs more than kmax
+    windows (a finite key past entry kmax), as a 0-d bool tensor."""
+    return torch.isfinite(key[:, kmax:]).any()
+
+
+def _gather_table(key, wid, rows, win_rows: int, kmax: int):
+    """(table, ids, ten) of gate_lists_gathered from sorted lists."""
+    n_gates, w = key.shape
+    if w < kmax:        # fewer windows than entries: pads to the end
+        key = torch.cat([key, torch.full((n_gates, kmax - w), float("inf"),
+                                         device=key.device)], dim=1)
+        wid = torch.cat([wid, torch.zeros((n_gates, kmax - w),
+                                          dtype=wid.dtype,
+                                          device=wid.device)], dim=1)
+    ten = key[:, :kmax].contiguous()
+    ids = torch.where(torch.isfinite(ten), wid[:, :kmax], 0).contiguous()
+    win_tris = win_rows * 8
+    table = rows.reshape(-1, win_tris, 16).index_select(
+        0, ids.reshape(-1).long()).reshape(n_gates, kmax * win_tris, 16)
+    return table, ids, ten
+
+
+def gate_lists4(win_bnd, dir_g, origin):
+    """Per-gate sorted lists of K11 with the need bits of four sub-gates.
+    dir_g: [G*GATE, 3] in _blockify_strips order (each consecutive 128
+    lanes one SBH x SBW sub-gate, each 512 one gate); origin: [3]. Returns
+    (key [G, W] f32, pay [G, W] i32) in ascending key order, equal keys in
+    window order: key = the least entry key over the sub-gates that need
+    the window (+inf when none does: the sorted tail), pay = window id << 4
+    | need bits (bit s: sub-gate s). The JAX package's payload is an
+    f32-exact wid*16 + bits; here an int32."""
+    lanes = GATE // SUB
+    d = dir_g.reshape(-1, lanes, 3).to(torch.float32)
+    key_s = _win_keys(win_bnd, d, origin, SBH, SBW)           # [G*SUB, W]
+    key_s = key_s.reshape(-1, SUB, key_s.shape[1])
+    shifts = torch.arange(SUB, dtype=torch.int32,
+                          device=key_s.device)[:, None]
+    bits = (torch.isfinite(key_s).to(torch.int32) << shifts).sum(
+        dim=1, dtype=torch.int32)
+    key, order = torch.sort(key_s.amin(dim=1), dim=1, stable=True)
+    return key, (order.to(torch.int32) << 4) | bits.gather(1, order)
+
+
+# ---------------------------------------------------------------------------
+# kernels: K1 and K1' (super lists), K2 (window lists), K10 (gathered
+# tables), K11 (sub-gates)
+# ---------------------------------------------------------------------------
+
+_INT_ARGS = ("sid", "bits", "wid", "ids", "pay")
+
+
+def _check_tensors(name, **tensors):
+    """One device; each tensor contiguous, int32 (ids, bits, payloads) or
+    f32. None entries (an absent orig_t) are skipped."""
+    tensors = {k: t for k, t in tensors.items() if t is not None}
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
     for arg, t in tensors.items():
-        want = torch.int32 if arg in ("sid", "bits") else torch.float32
+        want = torch.int32 if arg in _INT_ARGS else torch.float32
         if t.dtype != want or not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be a contiguous "
                              f"{want} tensor, got {t.dtype} {tuple(t.shape)}")
-    if key.dim() != 2 or key.shape[0] == 0 or sid.shape != key.shape \
-            or bits.shape != key.shape:
-        raise ValueError(f"{name}: key/sid/bits must share one "
-                         f"[G>0, Ls] shape, got {tuple(key.shape)} "
-                         f"{tuple(sid.shape)} {tuple(bits.shape)}")
+
+
+def _check_lists(name, **lists):
+    """The gate lists share one [G > 0, L] shape."""
+    shapes = {k: tuple(t.shape) for k, t in lists.items()}
+    first = next(iter(lists.values()))
+    if first.dim() != 2 or first.shape[0] == 0 \
+            or len(set(shapes.values())) != 1:
+        raise ValueError(f"{name}: {'/'.join(lists)} must share one "
+                         f"[G>0, L] shape, got {shapes}")
+
+
+def _check_sizes(name, win_rows, rows, recs, n, dir_t, t0=None,
+                 orig_t=None):
+    """win_rows in [1, 64]; rows [S, 16] with S a multiple of `recs`; the
+    ray arrays of n rays."""
     if not 1 <= win_rows <= 64:
         raise ValueError(f"{name}: win_rows {win_rows} not in [1, 64]")
-    n = key.shape[0] * GATE
-    if rows.dim() != 2 or rows.shape[1] != 16 \
-            or rows.shape[0] % (win_rows * 8 * SUPER):
-        raise ValueError(f"{name}: rows {tuple(rows.shape)} is not "
-                         "[S, 16] with S a multiple of "
-                         f"{win_rows * 8 * SUPER}")
-    if dir_t.shape != (3, n) or t0.shape != (n,) \
+    if rows.dim() != 2 or rows.shape[1] != 16 or rows.shape[0] % recs:
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} is not [S, 16] "
+                         f"with S a multiple of {recs}")
+    if dir_t.shape != (3, n) or (t0 is not None and t0.shape != (n,)) \
             or (orig_t is not None and orig_t.shape != (3, n)):
-        raise ValueError(
-            f"{name}: dir_t {tuple(dir_t.shape)} / t0 {tuple(t0.shape)}"
-            + ("" if orig_t is None else f" / orig_t {tuple(orig_t.shape)}")
-            + f" do not match {n} rays")
+        shapes = {k: tuple(t.shape) for k, t in
+                  (("dir_t", dir_t), ("t0", t0), ("orig_t", orig_t))
+                  if t is not None}
+        raise ValueError(f"{name}: ray arrays {shapes} do not match {n} "
+                         "rays")
 
 
-def _launch(entry, name, key, sid, bits, rows, ray_t, t0, win_rows):
-    """Launch a C entry of ops/csrc/plist_super.cu on the current stream.
-    ray_t: the [3, N] ray arrays the entry takes after `rows`."""
+def _on_cpu(name, device) -> bool:
+    """True: run the plain version (the caller chose the CPU); False:
+    launch the kernel (CUDA); anything else raises."""
+    if device.type == "cpu":
+        return True
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+    return False
+
+
+def _launch(entry, name, n_gates, inputs, ints):
+    """Launch the C entry `entry` of ops/csrc/ on the current stream: the
+    input tensors, then best_t [N] f32, best_slot [N] i32 and stats [G, 5]
+    i32, which it allocates, then n_gates and `ints`."""
     from clpathtracer_tpu_torch.ops._cuda import load_kernels
     fn = load_kernels().fns[entry]
-    device = key.device
-    n_gates, list_len = key.shape
+    device = inputs[0].device
     n = n_gates * GATE
     best_t = torch.empty((n,), dtype=torch.float32, device=device)
     best_slot = torch.empty((n,), dtype=torch.int32, device=device)
     stats = torch.empty((n_gates, 5), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(
-            key.data_ptr(), sid.data_ptr(), bits.data_ptr(), rows.data_ptr(),
-            *(t.data_ptr() for t in ray_t), t0.data_ptr(), best_t.data_ptr(),
-            best_slot.data_ptr(), stats.data_ptr(), n_gates, list_len,
-            win_rows, stream)
+        err = fn(*(t.data_ptr() for t in inputs), best_t.data_ptr(),
+                 best_slot.data_ptr(), stats.data_ptr(), n_gates, *ints,
+                 stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err} "
-                           f"(G={n_gates}, Ls={list_len}, win_rows={win_rows})")
+                           f"(G={n_gates}, {ints})")
     return best_t, best_slot, stats
+
+
+def _check_super(name, key, sid, bits, rows, dir_t, t0, win_rows,
+                 orig_t=None):
+    _check_tensors(name, key=key, sid=sid, bits=bits, rows=rows, dir_t=dir_t,
+                   t0=t0, orig_t=orig_t)
+    _check_lists(name, key=key, sid=sid, bits=bits)
+    _check_sizes(name, win_rows, rows, win_rows * 8 * SUPER,
+                 key.shape[0] * GATE, dir_t, t0, orig_t)
 
 
 def plist_super(key, sid, bits, rows, dir_t, t0, *, win_rows: int):
@@ -404,16 +556,12 @@ def plist_super(key, sid, bits, rows, dir_t, t0, *, win_rows: int):
     A CPU tensor runs the plain version (plist_super_reference); a CUDA
     tensor launches ops/csrc/plist_super.cu on the current stream or
     raises. `plist_super.launches` counts kernel launches."""
-    _check_plist_super_args("plist_super", key, sid, bits, rows, dir_t, t0,
-                            win_rows)
-    device = key.device
-    if device.type == "cpu":
+    _check_super("plist_super", key, sid, bits, rows, dir_t, t0, win_rows)
+    if _on_cpu("plist_super", key.device):
         return plist_super_reference(key, sid, bits, rows, dir_t, t0,
                                      win_rows=win_rows)
-    if device.type != "cuda":
-        raise ValueError(f"plist_super: no kernel for device {device}")
-    out = _launch("plist_super_launch", "plist_super", key, sid, bits, rows,
-                  (dir_t,), t0, win_rows)
+    out = _launch("plist_super_launch", "plist_super", key.shape[0],
+                  (key, sid, bits, rows, dir_t, t0), (key.shape[1], win_rows))
     plist_super.launches += 1
     return out
 
@@ -439,16 +587,14 @@ def plist_super_mt(key, sid, bits, rows, orig_t, dir_t, t0, *,
     (plist_super_mt_reference); a CUDA tensor launches
     ops/csrc/plist_super.cu on the current stream or raises.
     `plist_super_mt.launches` counts kernel launches."""
-    _check_plist_super_args("plist_super_mt", key, sid, bits, rows, dir_t,
-                            t0, win_rows, orig_t)
-    device = key.device
-    if device.type == "cpu":
+    _check_super("plist_super_mt", key, sid, bits, rows, dir_t, t0,
+                 win_rows, orig_t)
+    if _on_cpu("plist_super_mt", key.device):
         return plist_super_mt_reference(key, sid, bits, rows, orig_t, dir_t,
                                         t0, win_rows=win_rows)
-    if device.type != "cuda":
-        raise ValueError(f"plist_super_mt: no kernel for device {device}")
-    out = _launch("plist_super_mt_launch", "plist_super_mt", key, sid, bits,
-                  rows, (orig_t, dir_t), t0, win_rows)
+    out = _launch("plist_super_mt_launch", "plist_super_mt", key.shape[0],
+                  (key, sid, bits, rows, orig_t, dir_t, t0),
+                  (key.shape[1], win_rows))
     plist_super_mt.launches += 1
     return out
 
@@ -456,31 +602,213 @@ def plist_super_mt(key, sid, bits, rows, orig_t, dir_t, t0, *,
 plist_super_mt.launches = 0
 
 
-def _so_test(recs, d):
-    """Plain SO test of K1: t per (gate ray, record), BIG where rejected."""
-    def test(g, win):
-        r = recs[win][:, None]                             # [A, 1, win, 10]
-        return so_pairs(r, *(d[ax, g][:, :, None] for ax in range(3)))
-    return test
+def plist_window(key, wid, rows, dir_t, t0, *, win_rows: int, orig_t=None):
+    """Nearest hit of every ray over its gate's sorted window list (K2;
+    replaces clpathtracer_tpu/ops/plist.py::_kernel_plist, both forms).
+
+    key/wid: [G, L] from gate_lists; rows: [S, 16] with S a multiple of
+    win_rows*8 (any window count, whole supers or not): SO records
+    (so_combine) when orig_t is None, else the raw triangle records with
+    orig_t [3, G*512] per-lane origins (the MT form, K1''s test); dir_t:
+    [3, G*512] gate-major directions; t0: [G*512] seeds as K1's. wid
+    entries must be valid window ids of `rows` (gate_lists guarantees it).
+
+    Windows are tested in list order; window j+1 is taken if its key <=
+    the t_upper from before window j was tested (the TPU kernel's
+    prefetch decision). Returns (best_t, best_slot, stats [G, 5] = (0,
+    windows, 512, 0, windows)); ties in t go to the lowest slot.
+
+    A CPU tensor runs the plain version (plist_window_reference); a CUDA
+    tensor launches ops/csrc/plist_super.cu on the current stream or
+    raises. `plist_window.launches` counts kernel launches of both
+    forms."""
+    _check_tensors("plist_window", key=key, wid=wid, rows=rows, dir_t=dir_t,
+                   t0=t0, orig_t=orig_t)
+    _check_lists("plist_window", key=key, wid=wid)
+    _check_sizes("plist_window", win_rows, rows, win_rows * 8,
+                 key.shape[0] * GATE, dir_t, t0, orig_t)
+    if _on_cpu("plist_window", key.device):
+        return plist_window_reference(key, wid, rows, dir_t, t0,
+                                      win_rows=win_rows, orig_t=orig_t)
+    if orig_t is None:
+        out = _launch("plist_window_launch", "plist_window", key.shape[0],
+                      (key, wid, rows, dir_t, t0), (key.shape[1], win_rows))
+    else:
+        out = _launch("plist_window_mt_launch", "plist_window", key.shape[0],
+                      (key, wid, rows, orig_t, dir_t, t0),
+                      (key.shape[1], win_rows))
+    plist_window.launches += 1
+    return out
 
 
-def _mt_test(recs, o, d, tally=None):
-    """Plain MT test of K1': t per (bundle ray, record), BIG where
-    rejected. tally: see plist_super_mt_reference."""
-    def test(g, win):
-        r = recs[win][:, None]                             # [A, 1, win, 10]
-        return mt_pairs(r, *(o[ax, g][:, :, None] for ax in range(3)),
+plist_window.launches = 0
+
+
+def plist_gathered(ten, ids, table, dir_t, t0, *, win_rows: int, cwin: int):
+    """Nearest shared-origin hit of every ray over its gate's private
+    window table (K10; replaces clpathtracer_tpu/ops/plist.py::
+    _kernel_plist_gath, which has the SO form only).
+
+    ten/ids/table: from gate_lists_gathered ([G, kmax], [G, kmax],
+    [G, kmax*win_rows*8, 16] SO records); cwin: windows a chunk, dividing
+    kmax, at most CHUNK_RECS records a chunk; dir_t, t0: as plist_super.
+    Chunk c (entries c*cwin .. c*cwin + cwin - 1) is taken while c <
+    kmax/cwin and the key of its first entry <= the t_upper after chunk
+    c-1; all its windows are tested, record r of entry k at slot
+    ids[g, k]*win_rows*8 + r. Returns (best_t, best_slot, stats [G, 5] =
+    (0, chunks*cwin, 512, 0, chunks*cwin)); ties in t go to the lowest
+    slot.
+
+    A CPU tensor runs the plain version (plist_gathered_reference); a
+    CUDA tensor launches ops/csrc/plist_super.cu on the current stream or
+    raises. `plist_gathered.launches` counts kernel launches."""
+    _check_tensors("plist_gathered", ten=ten, ids=ids, table=table,
+                   dir_t=dir_t, t0=t0)
+    _check_lists("plist_gathered", ten=ten, ids=ids)
+    n_gates, kmax = ten.shape
+    if table.shape != (n_gates, kmax * win_rows * 8, 16) or cwin < 1 \
+            or kmax % cwin or cwin * win_rows * 8 > CHUNK_RECS:
+        raise ValueError(
+            f"plist_gathered: table {tuple(table.shape)} is not [G, kmax*"
+            f"{win_rows * 8}, 16] for {n_gates} gates of kmax {kmax}, or "
+            f"cwin {cwin} does not divide kmax or stages more than "
+            f"{CHUNK_RECS} records")
+    _check_sizes("plist_gathered", win_rows, table.reshape(-1, 16),
+                 win_rows * 8, n_gates * GATE, dir_t, t0)
+    if _on_cpu("plist_gathered", ten.device):
+        return plist_gathered_reference(ten, ids, table, dir_t, t0,
+                                        win_rows=win_rows, cwin=cwin)
+    out = _launch("plist_gathered_launch", "plist_gathered", n_gates,
+                  (ten, ids, table, dir_t, t0), (kmax, cwin, win_rows))
+    plist_gathered.launches += 1
+    return out
+
+
+plist_gathered.launches = 0
+
+
+def plist_subgate(key, pay, rows, dir_t, *, win_rows: int, orig_t=None):
+    """Nearest hit of every ray over its gate's shared list with four
+    128-ray sub-gates (K11; replaces clpathtracer_tpu/ops/plist.py::
+    _kernel_plist4, both forms).
+
+    key/pay: [G, L] from gate_lists4; rows: [S, 16] with S a multiple of
+    win_rows*8, SO records when orig_t is None, else raw triangle records
+    with orig_t [3, G*512] per-lane origins; dir_t: [3, G*512] in
+    _blockify_strips order (lanes 128s .. 128s + 127 of a gate are
+    sub-gate s).
+
+    Each sub-gate walks the list with its own cursor and t_upper: it takes
+    the next entry with its need bit, against the t_upper from before its
+    current window was tested (the TPU kernel's prefetch decision), and
+    stops at the first entry whose key is above that t_upper. Returns
+    (best_t, best_slot, stats [G, 5] = (0, 4*ns, 512, 0, 4*ns)), ns the
+    most windows any sub-gate of the gate tested; ties in t go to the
+    lowest slot.
+
+    A CPU tensor runs the plain version (plist_subgate_reference); a CUDA
+    tensor launches ops/csrc/plist_subgate.cu on the current stream or
+    raises. `plist_subgate.launches` counts kernel launches of both
+    forms."""
+    _check_tensors("plist_subgate", key=key, pay=pay, rows=rows, dir_t=dir_t,
+                   orig_t=orig_t)
+    _check_lists("plist_subgate", key=key, pay=pay)
+    _check_sizes("plist_subgate", win_rows, rows, win_rows * 8,
+                 key.shape[0] * GATE, dir_t, None, orig_t)
+    if _on_cpu("plist_subgate", key.device):
+        return plist_subgate_reference(key, pay, rows, dir_t,
+                                       win_rows=win_rows, orig_t=orig_t)
+    if orig_t is None:
+        out = _launch("plist_subgate_launch", "plist_subgate", key.shape[0],
+                      (key, pay, rows, dir_t), (key.shape[1], win_rows))
+    else:
+        out = _launch("plist_subgate_mt_launch", "plist_subgate",
+                      key.shape[0], (key, pay, rows, orig_t, dir_t),
+                      (key.shape[1], win_rows))
+    plist_subgate.launches += 1
+    return out
+
+
+plist_subgate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions: the kernels' stream loops as torch ops, vectorised over
+# groups of rays (gates, bundles or sub-gates) in chunks that bound memory
+# ---------------------------------------------------------------------------
+
+
+def _group_test(orig_t, dir_t, lanes, tally=None):
+    """The plain pair test of groups of `lanes` rays: test(g, r) gives
+    (ok, t) [A, lanes, n] of the groups g [A] against records r
+    [A, n, >= 10], t = BIG where rejected: the SO test when orig_t is
+    None, else the MT test (tally: see plist_super_mt_reference)."""
+    d = dir_t.reshape(3, -1, lanes)
+    if orig_t is None:
+        def test(g, r):
+            return so_pairs(r[:, None], *(d[ax, g][:, :, None]
+                                          for ax in range(3)))
+        return test
+    o = orig_t.reshape(3, -1, lanes)
+
+    def test(g, r):
+        return mt_pairs(r[:, None], *(o[ax, g][:, :, None] for ax in range(3)),
                         *(d[ax, g][:, :, None] for ax in range(3)), tally)
     return test
+
+
+def _take_nearest(bt, bs, g, ok, t_m, slot):
+    """Merge the tested pairs ok/t_m [A, lanes, n] of groups g, whose
+    records have slots slot [A, n], into their winners bt/bs [M, lanes]:
+    (min t, then min slot)."""
+    s_m = torch.where(ok, slot[:, None, :], _INT_MAX)
+    t_min = t_m.amin(dim=2)
+    s_min = torch.where(t_m == t_min[..., None], s_m, _INT_MAX).amin(dim=2)
+    take = (t_min < bt[g]) | ((t_min == bt[g]) & (s_min < bs[g]))
+    bt[g] = torch.where(take, t_min, bt[g])
+    bs[g] = torch.where(take, s_min, bs[g])
+
+
+def _by_chunks(n_groups, lanes, win_tris, run):
+    """run(g0, g1) on chunks of groups small enough that a window's pairs
+    stay under _REF_PAIRS; each output concatenated over the chunks."""
+    chunk = max(1, _REF_PAIRS // (lanes * win_tris))
+    parts = [run(g0, min(g0 + chunk, n_groups))
+             for g0 in range(0, n_groups, chunk)]
+    return [torch.cat(p) for p in zip(*parts)]
+
+
+def _start(t0g, n_entries, first_key):
+    """Per-group start of a stream: (best t, best slot, count, t_upper,
+    alive), t_upper = min(BIG, max t0)."""
+    m, lanes = t0g.shape
+    dev = t0g.device
+    tup = torch.clamp(t0g.amax(dim=1), max=BIG)
+    alive = (first_key() <= tup if n_entries
+             else torch.zeros((m,), dtype=torch.bool, device=dev))
+    return (torch.full((m, lanes), BIG, device=dev),
+            torch.full((m, lanes), _INT_MAX, dtype=torch.int32, device=dev),
+            torch.zeros((m,), dtype=torch.int32, device=dev), tup, alive)
+
+
+def _outputs(bt, bs, a, b):
+    """(best_t [N], best_slot [N] with -1 on a miss, stats [G, 5] =
+    (0, a, 512, b, a))."""
+    best_slot = torch.where(bt < BIG, bs, -1)
+    stats = torch.stack([torch.zeros_like(a), a, torch.full_like(a, GATE), b,
+                         a], dim=1)
+    return bt.reshape(-1), best_slot.reshape(-1), stats
+
+
+def _records(rows, win_tris):
+    return rows.reshape(-1, win_tris, 16)[:, :, :10]    # [W, win_tris, 10]
 
 
 def plist_super_reference(key, sid, bits, rows, dir_t, t0, *, win_rows: int):
     """Plain torch version of plist_super: same signature, same outputs,
     stats included, on any device."""
-    win_tris = win_rows * 8
-    recs = rows.reshape(-1, win_tris, 16)[:, :, :10]     # [W, win_tris, 10]
-    d = dir_t.reshape(3, key.shape[0], GATE)
-    return _reference(key, sid, bits, _so_test(recs, d), t0, win_tris)
+    return _super_reference(key, sid, bits, rows,
+                            _group_test(None, dir_t, GATE), t0, win_rows)
 
 
 def plist_super_mt_reference(key, sid, bits, rows, orig_t, dir_t, t0, *,
@@ -492,121 +820,286 @@ def plist_super_mt_reference(key, sid, bits, rows, orig_t, dir_t, t0, *,
     tested (ray, record) pairs that pass det > 0, then also 0 <= u <= 1,
     then also v >= 0 and u + v <= 1: the kernel's early exits, which set
     the work these inputs need."""
+    return _super_reference(key, sid, bits, rows,
+                            _group_test(orig_t, dir_t, GATE, tally), t0,
+                            win_rows)
+
+
+def _super_reference(key, sid, bits, rows, test, t0, win_rows):
+    """K1's stream loop. All gates still alive at step j have consumed
+    exactly j entries, so a chunk of gates steps the sorted entries
+    together with a per-gate alive mask, which reproduces the kernel's
+    break and so its stats."""
     win_tris = win_rows * 8
-    recs = rows.reshape(-1, win_tris, 16)[:, :, :10]     # [W, win_tris, 10]
-    o = orig_t.reshape(3, key.shape[0], GATE)
-    d = dir_t.reshape(3, key.shape[0], GATE)
-    return _reference(key, sid, bits, _mt_test(recs, o, d, tally), t0,
-                      win_tris)
+    recs = _records(rows, win_tris)
+    t0g = t0.reshape(-1, GATE)
+    slot_in_win = torch.arange(win_tris, dtype=torch.int32, device=t0.device)
+
+    def run(g0, g1):
+        k, s_, b_ = key[g0:g1], sid[g0:g1], bits[g0:g1]
+        list_len = k.shape[1]
+        bt, bs, ns, tup, alive = _start(t0g[g0:g1], list_len,
+                                        lambda: k[:, 0])
+        nw = torch.zeros_like(ns)
+        j = 0
+        while bool(alive.any()):
+            a = alive.nonzero().squeeze(1)
+            s, b = s_[a, j], b_[a, j]
+            for w in range(SUPER):
+                need = ((b >> w) & 1).bool()
+                nw[a] += need.to(torch.int32)
+                if not bool(need.any()):
+                    continue
+                g = a[need]
+                win = s[need].long() * SUPER + w
+                ok, t_m = test(g + g0, recs[win])
+                _take_nearest(bt, bs, g, ok, t_m,
+                              win[:, None].to(torch.int32) * win_tris
+                              + slot_in_win)
+            ns[a] += 1
+            tup[a] = torch.minimum(bt[a], t0g[g0 + a]).amax(dim=1)
+            j += 1
+            if j == list_len:
+                break
+            alive[a] = k[a, j] <= tup[a]
+        return bt, bs, ns, nw
+    bt, bs, ns, nw = _by_chunks(key.shape[0], GATE, win_tris, run)
+    return _outputs(bt, bs, nw, ns)
 
 
-def _reference(key, sid, bits, test, t0, win_tris):
-    """The stream loop of both plain versions. test(g, win) gives the
-    accept mask and t [A, GATE, win_tris] of gates g [A] against windows
-    win [A].
+def _window_stream(key, wid, recs, test, t0g, win_tris):
+    """The stream loop of K2 and of K11's sub-gates over groups of rays:
+    per group, the windows of its sorted list (key/wid [M, L]) in order,
+    window j+1 taken if its key <= the t_upper from before window j was
+    tested. Returns (best t, best slot, windows tested) per group."""
+    slot_in_win = torch.arange(win_tris, dtype=torch.int32, device=key.device)
 
-    Vectorised over gates, in chunks of gates to bound memory. All gates
-    still alive at step j have consumed exactly j entries, so the chunk
-    steps the sorted entries together with a per-gate alive mask, which
-    reproduces the kernel's break and so its stats."""
+    def run(g0, g1):
+        k, w_ = key[g0:g1], wid[g0:g1]
+        list_len = k.shape[1]
+        bt, bs, ns, tup, alive = _start(t0g[g0:g1], list_len,
+                                        lambda: k[:, 0])
+        j = 0
+        while bool(alive.any()):
+            a = alive.nonzero().squeeze(1)
+            nxt = (k[a, j + 1] <= tup[a] if j + 1 < list_len
+                   else torch.zeros_like(a, dtype=torch.bool))
+            win = w_[a, j].long()
+            ok, t_m = test(a + g0, recs[win])
+            _take_nearest(bt, bs, a, ok, t_m,
+                          win[:, None].to(torch.int32) * win_tris
+                          + slot_in_win)
+            ns[a] += 1
+            tup[a] = torch.minimum(bt[a], t0g[g0 + a]).amax(dim=1)
+            alive[a] = nxt
+            j += 1
+        return bt, bs, ns
+    return _by_chunks(key.shape[0], t0g.shape[1], win_tris, run)
+
+
+def plist_window_reference(key, wid, rows, dir_t, t0, *, win_rows: int,
+                           orig_t=None):
+    """Plain torch version of plist_window: same signature, same outputs,
+    stats included, on any device."""
+    win_tris = win_rows * 8
+    bt, bs, ns = _window_stream(key, wid, _records(rows, win_tris),
+                                _group_test(orig_t, dir_t, GATE),
+                                t0.reshape(-1, GATE), win_tris)
+    return _outputs(bt, bs, ns, torch.zeros_like(ns))
+
+
+def _subgate_lists(key, pay):
+    """Each sub-gate's own list from K11's shared one: the entries with
+    its need bit, in list order, then +inf. Returns (key, wid) [G*SUB, L],
+    sub-gate s of gate g at row g*SUB + s. Its K2 stream is the sub-gate's
+    walk: the first entry past its cursor whose key is above its t_upper
+    ends the walk, and every later entry that it needs lies beyond that
+    key too."""
+    n_gates, list_len = key.shape
+    shifts = torch.arange(SUB, dtype=torch.int32,
+                          device=key.device)[None, :, None]
+    need = ((pay[:, None, :] >> shifts) & 1).bool()           # [G, SUB, L]
+    _, order = torch.sort((~need).to(torch.int32), dim=2, stable=True)
+    sub_key = torch.where(need.gather(2, order),
+                          key[:, None].expand(-1, SUB, -1).gather(2, order),
+                          float("inf"))
+    sub_wid = (pay >> 4)[:, None].expand(-1, SUB, -1).gather(2, order)
+    return (sub_key.reshape(n_gates * SUB, list_len),
+            sub_wid.reshape(n_gates * SUB, list_len))
+
+
+def plist_subgate_reference(key, pay, rows, dir_t, *, win_rows: int,
+                            orig_t=None):
+    """Plain torch version of plist_subgate: same signature, same
+    outputs, stats included, on any device."""
+    win_tris = win_rows * 8
+    lanes = GATE // SUB
     n_gates = key.shape[0]
-    t0g = t0.reshape(n_gates, GATE)
-    best_t = torch.empty((n_gates, GATE), dtype=torch.float32,
-                         device=key.device)
-    best_slot = torch.empty((n_gates, GATE), dtype=torch.int32,
-                            device=key.device)
-    stats = torch.zeros((n_gates, 5), dtype=torch.int32, device=key.device)
-    chunk = max(1, _REF_PAIRS // (GATE * win_tris))
-    for g0 in range(0, n_gates, chunk):
-        g1 = min(g0 + chunk, n_gates)
-        bt, bs, ns, nw = _reference_gates(
-            key, sid, bits, g0, g1, test, t0g[g0:g1], win_tris)
-        best_t[g0:g1] = bt
-        best_slot[g0:g1] = torch.where(bt < BIG, bs, -1)
-        stats[g0:g1, 1] = nw
-        stats[g0:g1, 2] = GATE
-        stats[g0:g1, 3] = ns
-        stats[g0:g1, 4] = nw
-    return best_t.reshape(-1), best_slot.reshape(-1), stats
+    sub_key, sub_wid = _subgate_lists(key, pay)
+    t0g = torch.full((n_gates * SUB, lanes), BIG, device=key.device)
+    bt, bs, ns = _window_stream(sub_key, sub_wid, _records(rows, win_tris),
+                                _group_test(orig_t, dir_t, lanes), t0g,
+                                win_tris)
+    most = ns.reshape(n_gates, SUB).amax(dim=1) * SUB
+    return _outputs(bt, bs, most, torch.zeros_like(most))
 
 
-def _reference_gates(key, sid, bits, g0, g1, test, t0g, win_tris):
-    key, sid, bits = key[g0:g1], sid[g0:g1], bits[g0:g1]
-    m, list_len = key.shape
-    dev = key.device
-    bt = torch.full((m, GATE), BIG, device=dev)
-    bs = torch.full((m, GATE), _INT_MAX, dtype=torch.int32, device=dev)
-    ns = torch.zeros((m,), dtype=torch.int32, device=dev)
-    nw = torch.zeros((m,), dtype=torch.int32, device=dev)
-    tup = torch.clamp(t0g.amax(dim=1), max=BIG)
-    alive = (key[:, 0] <= tup if list_len
-             else torch.zeros((m,), dtype=torch.bool, device=dev))
-    slot_in_win = torch.arange(win_tris, dtype=torch.int32, device=dev)
-    j = 0
-    while bool(alive.any()):
-        a = alive.nonzero().squeeze(1)
-        s = sid[a, j]
-        b = bits[a, j]
-        for k in range(SUPER):
-            need = ((b >> k) & 1).bool()
-            nw[a] += need.to(torch.int32)
-            if not bool(need.any()):
-                continue
-            g = a[need]
-            win = s[need].long() * SUPER + k
-            ok, t_m = test(g + g0, win)                      # [A, GATE, win]
-            slot = (win[:, None].to(torch.int32) * win_tris
-                    + slot_in_win)[:, None, :]
-            s_m = torch.where(ok, slot, _INT_MAX)
-            t_min = t_m.amin(dim=2)
-            s_min = torch.where(t_m == t_min[..., None], s_m,
-                                _INT_MAX).amin(dim=2)
-            take = (t_min < bt[g]) | ((t_min == bt[g]) & (s_min < bs[g]))
-            bt[g] = torch.where(take, t_min, bt[g])
-            bs[g] = torch.where(take, s_min, bs[g])
-        ns[a] += 1
-        tup[a] = torch.minimum(bt[a], t0g[a]).amax(dim=1)
-        j += 1
-        if j == list_len:
-            break
-        alive[a] = key[a, j] <= tup[a]
-    return bt, bs, ns, nw
+def plist_gathered_reference(ten, ids, table, dir_t, t0, *, win_rows: int,
+                             cwin: int):
+    """Plain torch version of plist_gathered: same signature, same
+    outputs, stats included, on any device."""
+    n_gates, kmax = ten.shape
+    win_tris = win_rows * 8
+    n_chunks = kmax // cwin
+    recs = table.reshape(n_gates, kmax, win_tris, 16)[..., :10]
+    test = _group_test(None, dir_t, GATE)
+    t0g = t0.reshape(-1, GATE)
+    slot_in_win = torch.arange(win_tris, dtype=torch.int32, device=t0.device)
+
+    def run(g0, g1):
+        bt, bs, nc, tup, alive = _start(t0g[g0:g1], n_chunks,
+                                        lambda: ten[g0:g1, 0])
+        c = 0
+        while bool(alive.any()):
+            a = alive.nonzero().squeeze(1)
+            for k in range(c * cwin, (c + 1) * cwin):
+                ok, t_m = test(a + g0, recs[g0 + a, k])
+                _take_nearest(bt, bs, a, ok, t_m,
+                              ids[g0 + a, k][:, None] * win_tris
+                              + slot_in_win)
+            nc[a] += 1
+            tup[a] = torch.minimum(bt[a], t0g[g0 + a]).amax(dim=1)
+            c += 1
+            if c == n_chunks:
+                break
+            alive[a] = ten[g0 + a, c * cwin] <= tup[a]
+        return bt, bs, nc
+    bt, bs, nc = _by_chunks(n_gates, GATE, win_tris, run)
+    return _outputs(bt, bs, nc * cwin, torch.zeros_like(nc))
 
 
 # ---------------------------------------------------------------------------
-# host entry and winner resolution
+# host entries and winner resolution
 # ---------------------------------------------------------------------------
 
 
 def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
-                   dilate_px: float = 0.0):
+                   dilate_px: float = 0.0, *, supers: bool = True,
+                   gathered: bool = False, kmax: int = None,
+                   cwin: int = None):
     """Trace shared-origin pixel-grid primary rays (generate_rays order)
-    through the super-list engine. orig/dir: [H*W, 3], every origin equal
-    to orig[0]; dilate_px: a bound on the rays' subpixel jitter plus slack
-    (0 for pixel-grid rays; see _win_keys). With shared-origin tables
-    attached the gates run K1, else K1' on the raw records. Returns the hit
-    record: hit, t, tri, u, v, snormal, salbedo, semission ([H*W] /
-    [H*W, 3]) and tile_stats [G, 5]."""
+    through the windows. orig/dir: [H*W, 3], every origin equal to
+    orig[0]; dilate_px: a bound on the rays' subpixel jitter plus slack
+    (0 for pixel-grid rays; see _win_keys).
+
+    The stream schedule (the JAX package's CLPT_PLIST_SUPER and
+    CLPT_PLIST_GATHER switches, as arguments):
+      * supers (the default): sorted super lists, K1 with shared-origin
+        tables attached, else K1' on the raw records; on windows that are
+        not whole supers K2 instead, as in the JAX package;
+      * supers=False: one sorted entry per window, K2 (SO, or MT without
+        SO tables);
+      * gathered=True: each gate's first kmax windows gathered into a
+        private table and streamed in chunks of cwin windows, K10. It has
+        an SO form only: without SO tables it raises ValueError (the JAX
+        package downgrades such a call quietly; ADVICE r5 #2). kmax and
+        cwin resolve as gathered_sizes says. When some gate needs more
+        than kmax windows (one host read of the prepass's overflow flag,
+        the counterpart of the JAX package's lax.cond), the whole frame
+        runs K1 instead, or K2 on windows that are not whole supers: the
+        launch counters show which kernel ran.
+
+    Returns the hit record: hit, t, tri, u, v, snormal, salbedo, semission
+    ([H*W] / [H*W, 3]) and tile_stats [G, 5]."""
     h, w = image_shape
     n = orig.shape[0]
     if n != h * w or h % GH or w % GW:
         raise NotImplementedError(
             f"traverse_plist needs an {h}x{w} frame of {n} rays that "
             f"divides into {GH}x{GW} gates; other frames are not ported")
+    so = mwin.so_base is not None
+    if gathered and not so:
+        raise ValueError("traverse_plist(gathered=True) needs shared-origin "
+                         "tables (attach_so): K10 has no Moller-Trumbore "
+                         "form")
     o = orig[0]
+    wr = mwin.win_rows
     dir_b = _blockify(dir, h, w, GH, GW).to(torch.float32)
-    key, sid, bits = gate_lists_super(mwin.win_bnd, dir_b, o, dilate_px)
+    dir_t = dir_b.T.contiguous()
     t0 = torch.full((n,), BIG, device=dir.device)
-    if mwin.so_base is not None:
-        _, best_slot, tile_stats = plist_super(
-            key, sid, bits, so_combine(mwin.so_base, o),
-            dir_b.T.contiguous(), t0, win_rows=mwin.win_rows)
+    rows = so_combine(mwin.so_base, o) if so else mwin.tris
+    orig_t = (None if so else
+              _blockify(orig, h, w, GH, GW).to(torch.float32).T.contiguous())
+    key_w = _win_keys(mwin.win_bnd, dir_b.reshape(-1, GATE, 3), o, GH, GW,
+                      dilate_px)
+    whole = mwin.num_windows % SUPER == 0
+    if gathered:
+        kmax, cwin = gathered_sizes(wr, kmax, cwin)
+        key, wid = _sort_windows(key_w)
+        if not bool(_overflows(key, kmax)):
+            table, ids, ten = _gather_table(key, wid, rows, wr, kmax)
+            out = plist_gathered(ten, ids, table, dir_t, t0, win_rows=wr,
+                                 cwin=cwin)
+        elif whole:
+            out = plist_super(*_super_pack(key_w), rows, dir_t, t0,
+                              win_rows=wr)
+        else:
+            out = plist_window(key, wid, rows, dir_t, t0, win_rows=wr)
+    elif supers and whole:
+        if so:
+            out = plist_super(*_super_pack(key_w), rows, dir_t, t0,
+                              win_rows=wr)
+        else:
+            out = plist_super_mt(*_super_pack(key_w), rows, orig_t, dir_t,
+                                 t0, win_rows=wr)
     else:
-        orig_b = _blockify(orig, h, w, GH, GW).to(torch.float32)
-        _, best_slot, tile_stats = plist_super_mt(
-            key, sid, bits, mwin.tris, orig_b.T.contiguous(),
-            dir_b.T.contiguous(), t0, win_rows=mwin.win_rows)
+        out = plist_window(*_sort_windows(key_w), rows, dir_t, t0,
+                           win_rows=wr, orig_t=orig_t)
+    _, best_slot, tile_stats = out
     best_slot = _unblockify(best_slot, h, w, GH, GW)
+    return _resolve_winners(mwin, best_slot, orig, dir, tile_stats)
+
+
+def plist4_supported(mwin: MortonWindows, n_rays: int, image_shape) -> bool:
+    """Whether traverse_plist4 takes a frame: the frame checks of the JAX
+    package's plist_supported (windows given, n_rays = h*w, whole 16x32
+    gates). Its other two checks (plist.py:1736-1740) are TPU layout
+    limits that the port does not have: the whole sorted list resident in
+    700 KB of SMEM (here it stays in global memory, read through L2) and
+    window ids exact in an f32 payload (here an int32)."""
+    if mwin is None or image_shape is None:
+        return False
+    h, w = image_shape
+    return n_rays == h * w and h % GH == 0 and w % GW == 0
+
+
+def traverse_plist4(mwin: MortonWindows, orig, dir, image_shape):
+    """Trace shared-origin pixel-grid primary rays through the sub-gate
+    schedule (K11): four 8x16-pixel sub-gates per 16x32 gate, each with
+    its own cursor into the gate's sorted list and its own t_upper. K11's
+    SO form with shared-origin tables attached, else its MT form on the
+    raw records. Same arguments (no jitter) and record contract as
+    traverse_plist. No render route of the JAX package takes it; this is
+    its entry point."""
+    h, w = image_shape
+    n = orig.shape[0]
+    if not plist4_supported(mwin, n, image_shape):
+        raise NotImplementedError(
+            f"traverse_plist4 needs windows and an {h}x{w} frame of {n} "
+            f"rays that divides into {GH}x{GW} gates")
+    o = orig[0]
+    dir_b = _blockify_strips(dir, h, w, GH, GW, SBH, SBW).to(torch.float32)
+    key, pay = gate_lists4(mwin.win_bnd, dir_b, o)
+    if mwin.so_base is not None:
+        out = plist_subgate(key, pay, so_combine(mwin.so_base, o),
+                            dir_b.T.contiguous(), win_rows=mwin.win_rows)
+    else:
+        orig_b = _blockify_strips(orig, h, w, GH, GW, SBH, SBW)
+        out = plist_subgate(key, pay, mwin.tris, dir_b.T.contiguous(),
+                            win_rows=mwin.win_rows,
+                            orig_t=orig_b.to(torch.float32).T.contiguous())
+    _, best_slot, tile_stats = out
+    best_slot = _unblockify_strips(best_slot, h, w, GH, GW, SBH, SBW)
     return _resolve_winners(mwin, best_slot, orig, dir, tile_stats)
 
 

@@ -20,7 +20,11 @@ Two routes, in the JAX package's order (render/integrator.py:197-309):
   attached), when given: primary waves are shared-origin pixel gates
   (traverse_plist, kernel K1), bounce waves Morton-sorted 512-ray bundles
   (traverse_plist_bundle, kernel K1'); unlike the JAX package this route
-  needs no kd-tree;
+  needs no kd-tree. opts.plist_schedule picks the primary gates' stream
+  schedule: "super" (K1), "window" (K2) or "gathered" (K10, K1 on a
+  frame where a gate needs more than its table holds), the explicit form
+  of the JAX package's CLPT_PLIST_SUPER=0 / CLPT_PLIST_GATHER=1; bounce
+  bundles stay on K1';
 * else a kd-tree (accel/sah.py::FlatKdTree with window and SO tables):
   the stream packet engine (ops/packet.py::traverse_packet, kernel K3),
   primary waves as shared-origin pixel tiles of opts.packet_tile rays
@@ -57,6 +61,7 @@ from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
                                                    resolve_tri_hits)
 
 MODES = ("normal", "mirror", "path")
+PLIST_SCHEDULES = ("super", "window", "gathered")
 # subpixel jitter bound of spp > 1 samples: jitter is < 1 px, the corner-
 # lane hull under-covers a gate by < 1 px per side, plus 1 px of slack
 JITTER_PX = 3.0
@@ -84,6 +89,8 @@ class RenderOptions:
     precision: str = "f32"     # kd-tree route: "bf16" = the preview-quality
     #   dense test (K4); bf16 cancellation in o - v0 costs and adds hits on
     #   triangles much smaller than the scene. The windows route ignores it.
+    plist_schedule: str = "super"  # windows route, primary gates: "super"
+    #   (K1), "window" (K2) or "gathered" (K10); see traverse_plist
 
 
 def _check_supported(scene, opts: RenderOptions, mwin, tree=None) -> None:
@@ -93,6 +100,9 @@ def _check_supported(scene, opts: RenderOptions, mwin, tree=None) -> None:
     if opts.precision not in PRECISIONS:
         raise ValueError(f"precision {opts.precision!r} is not one of "
                          f"{PRECISIONS}")
+    if opts.plist_schedule not in PLIST_SCHEDULES:
+        raise ValueError(f"plist_schedule {opts.plist_schedule!r} is not one "
+                         f"of {PLIST_SCHEDULES}")
     todo = None
     if opts.mode == "path" and opts.nee:
         todo = ("next-event estimation (shadow rays through the grid DDA or "
@@ -150,7 +160,9 @@ def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
         return {k: rec[k][inv] for k in keys}
     if coherent:
         rec = traverse_plist(mwin, orig, dir, (opts.height, opts.width),
-                             dilate_px=jitter_px)
+                             dilate_px=jitter_px,
+                             supers=opts.plist_schedule != "window",
+                             gathered=opts.plist_schedule == "gathered")
         return {k: rec[k] for k in _REC_KEYS}
     inv, orig, dir, active = sort_wave(orig, dir, active)
     rec = traverse_plist_bundle(mwin, orig, dir, active=active)

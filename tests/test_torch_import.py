@@ -1,6 +1,7 @@
 """The port stands alone: it imports and renders (windows and kd-tree
 routes; the legacy, wide, stream2 and mxu engines, accel/wide.py and
-ops/packet_mxu.py) with jax and flax blocked, no file of it or of
+ops/packet_mxu.py; the window, gathered and sub-gate schedules) with jax
+and flax blocked, no file of it or of
 chip_smoke.py
 imports either or the JAX package, and its kernel loader fails clearly
 where there is no CUDA toolkit."""
@@ -68,6 +69,11 @@ hits = [packet.traverse_packet(wtree, o, d, (32, 32), 256,
                                engine=e)["hit"].reshape(32, 32)
         for e in ("auto", "legacy", "wide", "stream2", "mxu")]
 assert all(torch.equal(h, hit) for h in hits)
+# the windows route's other schedules: K2, K10 and K11 (plain versions)
+recs = [plist.traverse_plist(mwin, o, d, (32, 32), supers=False),
+        plist.traverse_plist(mwin, o, d, (32, 32), gathered=True),
+        plist.traverse_plist4(mwin, o, d, (32, 32))]
+assert all(torch.equal(r["hit"].reshape(32, 32), hit) for r in recs)
 assert packet_mxu.mxu_rows_from_quads(wtree.tris).shape[1] == 512
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
                                    "clpathtracer_tpu")
