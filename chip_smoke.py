@@ -185,6 +185,44 @@ rebuilt:
    (full kmax) and K11 timed in turns on each scene, with windows per gate
    (K11: per sub-gate), mean and max, and each kernel's bound.
 
+NEE path tracing over the uniform grid (accel/grid.py; the grid DDA G1,
+ops/csrc/grid_dda.cu; K1's kcap form in ops/csrc/plist_super.cu), on the
+1M emissive soup (random_tri_soup(1M, seed 0, tri_size 0.01,
+emissive_frac 0.001), windows at win_rows 8, camera [0, 0, -25] looking
+[0, 0, 1]):
+
+34. grid: fog_likeness of the 1M terrain and the emissive soup; build_grid
+   on the soup (host seconds, stats: res (100, 100, 100), 5,991,719
+   entries, at most 22 a cell, 306,495 spill rows, 94.0% of the cells
+   occupied, 1000 emitters), its table on the card; NEE's light table
+   (light_cdf), once per scene;
+35. G1 on a bounce wave (the soup frame's primary hits, cosine-sampled
+   with a generator seeded 0) and a NEE shadow wave (nee_wave toward
+   sampled lights): nearest (bounce), nearest with t_max and any-hit with
+   t_max (shadow), each counted (one launch) and against its plain version
+   on every 8th lane (exact in hit, t, tri, u, v and steps); 4096 live
+   lanes against the brute force (bounce: hit mismatch < 1e-3, t rtol
+   1e-5; shadow: flags against "some hit below t_max", < 1e-3); a sky wave
+   (no hit, no step); G1 beside K1' on each wave sorted into bundles, in
+   turns; steps mean and max; G1's bound on each timed wave (the table
+   bytes its loads read and each lane's inputs and outputs, against its
+   MT operations);
+36. K1's kcap form at kcap 8, 16 and 32 on the soup primaries, counted
+   and against its plain version on every 8th gate (exact in t, slot and
+   all five stats lanes); the two-phase traverse_plist(kcap=, grid=)
+   against the single-phase call: hits equal, tri equal on more than 95%
+   of hits, t rtol 1e-5 but on lanes where the two-phase t is the brute
+   force's (the single phase's SO edge flips, fewer than 2e-3 of hits);
+   launches K1 1, G1 1 a call; single phase and each kcap timed in turns,
+   with the unsettled lanes and phase 2's DDA ms;
+37. bench.py's path leg on the port: render_image 512x512, bounces 2,
+   NEE (stride 1), background 0, the grid, generator seeded 0; 1 warm-up
+   and 5 timed frames; launches K1 1, G1 3 a frame, K1' 0; the image
+   finite with mean > 0; paths/s and the split into primary, light
+   sampling, shadow waves, bounce wave and the rest; then one frame with
+   bounce_grid off (launches K1 1, K1' 1, G1 2), its image within PR 2's
+   budgets of the grid bounce frame's.
+
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
 kernel's launches are those of the frames of the path that gives its ms
@@ -193,10 +231,12 @@ terrain frame, K4 the bf16 normal terrain frame, K5 the three queue
 calls, K6b and K9 the six v1 traverse_packet calls, K6a its three
 op-level calls, K7 and K8 their three traverse_packet calls each, K2 the
 "window" frames, K10 the traverse_plist(gathered=True) call at the
-terrain's full kmax, K11 the traverse_plist4 calls), with every path's
-own count beside them. The last line is {"ok": true, "device": {...}}.
+terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
+frames, K1's kcap form the two-phase calls), with every path's own
+count beside them. The last line is {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import subprocess
 import time
@@ -206,21 +246,30 @@ import numpy as np
 import torch
 
 from clpathtracer_tpu_torch.accel import sah, wide
+from clpathtracer_tpu_torch.accel.grid import build_grid, fog_likeness
+from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (Camera, cam_matrix,
                                                 generate_rays)
 from clpathtracer_tpu_torch.ops import packet, packet_mxu, plist
 from clpathtracer_tpu_torch.ops._cuda import load_kernels
+from clpathtracer_tpu_torch.ops.grid_walk import (traverse_grid,
+                                                  traverse_grid_reference)
 from clpathtracer_tpu_torch.ops.packet import (BIG, _blockify, _unblockify,
                                                so_combine)
+from clpathtracer_tpu_torch.ops.sort import sort_rays
 from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
-from clpathtracer_tpu_torch.render.integrator import (PLIST_SCHEDULES,
+from clpathtracer_tpu_torch.render.integrator import (BOUNCE_EPS,
+                                                      PLIST_SCHEDULES,
                                                       RenderOptions,
-                                                      _surface,
+                                                      _occluded, _surface,
                                                       intersect_scene,
-                                                      mirror_wave,
+                                                      light_cdf,
+                                                      mirror_wave, nee_wave,
+                                                      path_draws,
                                                       render_image,
                                                       sort_wave)
-from clpathtracer_tpu_torch.render.shading import normal_color
+from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
+                                                   normal_color)
 from clpathtracer_tpu_torch.scene.procedural import (random_tri_soup,
                                                      terrain_mesh)
 
@@ -294,7 +343,10 @@ def timed(fn):
 
 def reset_counts():
     plist.plist_super.launches = 0
+    plist.plist_super.kcap_launches = 0
     plist.plist_super_mt.launches = 0
+    plist.plist_super_mt.kcap_launches = 0
+    traverse_grid.launches = 0
     plist.plist_window.launches = 0
     plist.plist_gathered.launches = 0
     plist.plist_subgate.launches = 0
@@ -310,7 +362,10 @@ def reset_counts():
 
 def counts():
     return {"plist_super": plist.plist_super.launches,
+            "plist_super_kcap": plist.plist_super.kcap_launches,
             "plist_super_mt": plist.plist_super_mt.launches,
+            "plist_super_mt_kcap": plist.plist_super_mt.kcap_launches,
+            "traverse_grid": traverse_grid.launches,
             "plist_window": plist.plist_window.launches,
             "plist_gathered": plist.plist_gathered.launches,
             "plist_subgate": plist.plist_subgate.launches,
@@ -519,7 +574,8 @@ def run_frames(render, warmup, frames):
 
 
 def check_counts(phase, got, want):
-    want = {"plist_super": 0, "plist_super_mt": 0, "plist_window": 0,
+    want = {"plist_super": 0, "plist_super_kcap": 0, "plist_super_mt": 0,
+            "plist_super_mt_kcap": 0, "traverse_grid": 0, "plist_window": 0,
             "plist_gathered": 0, "plist_subgate": 0, "packet_stream": 0,
             "packet_stream_bf16": 0, "packet_queue": 0, "packet_legacy": 0,
             "packet_legacy_resident": 0, "packet_wide": 0,
@@ -573,7 +629,7 @@ def main():
 
 
 def smoke(device):
-    """Phases 3-33 on `device`; returns the kernels line's entries."""
+    """Phases 3-37 on `device`; returns the kernels line's entries."""
     # 3. scene at full size
     t = time.perf_counter()
     scene = terrain_mesh(N_TRIS, seed=0, extent=10.0,
@@ -827,6 +883,8 @@ def smoke(device):
     v1 = v1_engines(ctx, launches)
     k7_k8 = stream2_mxu_engines(ctx, launches)
     sched = plist_schedules(device, scene, soup, cam, scam, launches)
+    del soup
+    grid_entries = nee_grid(device, scene, launches)
     return [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -846,7 +904,7 @@ def smoke(device):
          "max_abs_err": mt_err,
          "ms": mt_ms, "plain_ms": mt_plain_ms,
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
-        k3, k4, k5, *v1, *k7_k8, *sched,
+        k3, k4, k5, *v1, *k7_k8, *sched, *grid_entries,
     ]
 
 
@@ -2120,6 +2178,393 @@ def plist_schedules(device, scene, soup, cam, scam, launches):
             "soup_k1_ms": rows["soup", "K1"]["ms"],
             "soup_bound_ms": s_["bound"]})
     return entries
+
+
+# bench.py's gated path leg: the 1M emissive soup, 2 bounces, NEE; the
+# stats of the JAX package's build_grid on it (its numpy host build), which
+# the port's build must give too
+EMISSIVE_FRAC = 0.001
+GRID_STATS_1M = {"res": (100, 100, 100), "entries": 5_991_719,
+                 "max_tris_per_cell": 22, "spill_rows": 306_495}
+KCAPS = (8, 16, 32)
+
+
+def face_forward(normal, d):
+    """The shading normal flipped to face the incoming direction, as
+    shade_path flips it."""
+    return torch.where((vm.dot(normal, d) > 0)[:, None], -normal, normal)
+
+
+def same_walk(name, rec, lanes, ref):
+    """Hold G1's record on `lanes` to its plain version's, exactly."""
+    bad = {k: int((rec[k][lanes] != ref[k]).sum())
+           for k in ("hit", "t", "tri", "u", "v", "steps")}
+    say(name, f"{lanes.numel()} lanes (every {EVERY}th) against the plain "
+        f"version (tolerance: exact): mismatches {bad}, "
+        f"{int(ref['hit'].sum())} hits")
+    if any(bad.values()):
+        raise AssertionError(f"{name}: G1 disagrees with its plain version")
+    hit = ref["hit"]
+    return (float((rec["t"][lanes] - ref["t"])[hit].abs().max())
+            if bool(hit.any()) else 0.0)
+
+
+def walk_stats(rec, live):
+    st = rec["steps"][live].to(torch.float64)
+    return (f"steps per live lane mean {float(st.mean()):.3f}, max "
+            f"{int(st.max())}; {int(rec['hit'].sum())} hits of "
+            f"{int(live.sum())} live lanes")
+
+
+def g1_bound(rec, tally, sample_steps, wave):
+    """G1's bound: the bytes it must move over the HBM rate against the MT
+    operations its tested pairs need, whichever is larger. Bytes: the
+    table bytes its loads read (16 B of meta a cell row, 48 B a record
+    held), counted by the plain run on a sample of lanes and scaled to all
+    lanes by their steps, plus each lane's inputs read once (orig, dir;
+    t_max, active where given) and its outputs (t, tri, u, v, steps)
+    written once. Operations: MT_EXIT_OPS weighted by the early exits the
+    same plain run counted, scaled the same way."""
+    steps = int(rec["steps"].sum())
+    scale = steps / max(sample_steps, 1)
+    ops = mt_ops(int(tally[0]), tally[1:4]) * scale
+    lane = 24 + 20 + (4 if wave.get("t_max") is not None else 0) \
+        + (1 if wave.get("active") is not None else 0)
+    nbytes = int(tally[4]) * scale + lane * rec["steps"].numel()
+    ops_ms = ops / PEAK_FP32_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", steps, nbytes,
+            ops)
+
+
+def nee_grid(device, scene, launches):
+    """Phases 34-37: the uniform grid, the grid DDA G1, K1's kcap form with
+    the two-phase engine, and bench.py's NEE path leg on the 1M emissive
+    soup. Returns G1's and the kcap form's kernels entries."""
+    n = SIZE * SIZE
+    n_gates = n // plist.GATE
+
+    # 34. the grid
+    t = time.perf_counter()
+    soup = random_tri_soup(N_TRIS, seed=0, extent=10.0, tri_size=0.01,
+                           emissive_frac=EMISSIVE_FRAC,
+                           device=device).bake_shading()
+    tv = soup.tri_corners()
+    emitters = int((soup.emission.amax(dim=1) > 0).sum())
+    say("grid", f"emissive soup: {soup.num_tris} triangles, {emitters} "
+        f"emitters, host build {time.perf_counter() - t:.2f} s; "
+        f"fog_likeness: terrain {fog_likeness(scene.tri_corners())}, "
+        f"emissive soup {fog_likeness(tv)}")
+    t = time.perf_counter()
+    grid = build_grid(tv, device=device)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t
+    st = grid.stats()
+    say("grid", f"build_grid (density 1, inline): {grid_s:.3f} s host, table "
+        f"{tuple(grid.table.shape)} f32 on the card; stats {st}")
+    # NEE's light table, once per scene beside the grid
+    lights, lights_ms = timed(lambda: light_cdf(soup))
+    say("grid", f"light_cdf (once per scene): {lights_ms:.4f} ms, any lit "
+        f"{lights['any']}")
+    if N_TRIS == 1_000_000:
+        got = {k: st[k] for k in GRID_STATS_1M}
+        if got != GRID_STATS_1M or round(st["occupied_frac"], 3) != 0.94 \
+                or emitters != 1000:
+            raise AssertionError(f"grid: stats {st}, emitters {emitters}; "
+                                 f"want {GRID_STATS_1M}, occupied 0.940, "
+                                 "1000 emitters")
+
+    # 35. G1 on a bounce wave and a NEE shadow wave of the soup frame
+    swin = build_windows(soup, SOUP_WIN_ROWS, device)
+    scam = Camera.create(SOUP_POS, SOUP_FWD, device=device)
+    orig, dirs = generate_rays(cam_matrix(scam, SIZE), SIZE, SIZE)
+    opts = RenderOptions(width=SIZE, height=SIZE, mode="path", bounces=2,
+                         nee=True, background=0.0)
+    prim = intersect_scene(soup, swin, orig, dirs, opts)
+    point, normal, _, _ = _surface(soup, prim, orig, dirs)
+    normal = face_forward(normal, dirs)
+    hit = prim["hit"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    u12 = torch.rand((n, 2), generator=gen, device=device)
+    b_orig = torch.where(hit[:, None], point + normal * BOUNCE_EPS, orig)
+    b_dirs = torch.where(hit[:, None],
+                         cosine_sample_hemisphere(normal, u12[:, 0],
+                                                  u12[:, 1]), dirs)
+    sw = nee_wave(soup, point, normal, hit,
+                  torch.rand((n, 3), generator=gen, device=device), 1,
+                  lights)
+    s_tmax = sw["dist"] - 1e-3
+    waves = {
+        "bounce": dict(orig=b_orig, dir=b_dirs, active=hit),
+        "shadow nearest": dict(orig=sw["orig"], dir=sw["dir"],
+                               active=sw["live"], t_max=s_tmax),
+        "shadow any-hit": dict(orig=sw["orig"], dir=sw["dir"],
+                               active=sw["live"], t_max=s_tmax,
+                               any_hit=True)}
+    lanes = torch.arange(0, n, EVERY, device=device)
+    g1 = {}
+    g1_err = 0.0
+    for name, w in waves.items():
+        reset_counts()
+        rec = traverse_grid(grid, **w)
+        torch.cuda.synchronize()
+        check_counts(f"G1 {name}", counts(), {"traverse_grid": 1})
+        tally = torch.zeros(5, dtype=torch.int64, device=device)
+        ref, plain_ms = timed(lambda: traverse_grid_reference(
+            grid, **{k: (v[lanes].contiguous()
+                         if isinstance(v, torch.Tensor) else v)
+                     for k, v in w.items()}, tally=tally))
+        g1_err = max(g1_err, same_walk(f"G1 {name}", rec, lanes, ref))
+        g1[name] = SimpleNamespace(rec=rec, plain_ms=plain_ms, tally=tally,
+                                   sample_steps=int(ref["steps"].sum()))
+        say(f"G1 {name}", f"{walk_stats(rec, w['active'])}; plain "
+            f"{plain_ms:.1f} ms on {lanes.numel()} lanes; sampled pairs "
+            f"{int(tally[0])}, det/u/v passes {tally[1:4].tolist()}, table "
+            f"bytes read {int(tally[4])}")
+    live = torch.nonzero(hit).squeeze(1)
+    pick = live[torch.as_tensor(np.random.default_rng(2).choice(
+        live.numel(), ORACLE_PIXELS, replace=False), device=device)]
+    check_oracle("G1 bounce oracle", soup, g1["bounce"].rec, b_orig, b_dirs,
+                 pick, 1e-3, 1e-5, 1e-6)
+    s_live = torch.nonzero(sw["live"]).squeeze(1)
+    s_pick = s_live[torch.as_tensor(np.random.default_rng(3).choice(
+        s_live.numel(), min(ORACLE_PIXELS, s_live.numel()), replace=False),
+        device=device)]
+    for name in ("shadow nearest", "shadow any-hit"):
+        bf_t = bruteforce_hits(soup, sw["orig"][s_pick], sw["dir"][s_pick])
+        want = bf_t < s_tmax[s_pick]
+        got = g1[name].rec["hit"][s_pick]
+        mismatch = float((got != want).float().mean())
+        say(f"G1 {name} oracle", f"{s_pick.numel()} live lanes: flags "
+            f"against 'some hit below t_max' over all {soup.num_tris} "
+            f"triangles: mismatch {mismatch} (< 1e-3), {int(want.sum())} "
+            "occluded")
+        if mismatch >= 1e-3:
+            raise AssertionError(f"G1 {name}: flags disagree with the brute "
+                                 "force")
+    sky = traverse_grid(grid, orig, -dirs)
+    if bool(sky["hit"].any()) or bool(sky["steps"].any()):
+        raise AssertionError("G1 sky: hits or steps")
+    say("G1 sky", f"{n} rays away from the grid: no hit, no step")
+    # each wave's G1 time beside K1' on the same wave sorted into bundles
+    g1_ms = {}
+    for name, w in waves.items():
+        if name == "shadow nearest":
+            continue
+        perm, _ = sort_rays(w["orig"], w["dir"], alive=w["active"])
+        tm = w.get("t_max")
+        b_args = plist.bundle_kernel_args(
+            swin, w["orig"][perm], w["dir"][perm], active=w["active"][perm],
+            t_max=None if tm is None else tm[perm])
+        ms = turns_ms([lambda w=w: traverse_grid(grid, **w),
+                       lambda: plist.plist_super_mt(
+                           *b_args, win_rows=SOUP_WIN_ROWS)], 5)
+        g1_ms[name] = ms[0]
+        say(f"G1 {name}", f"G1 {ms[0]:.4f} ms beside K1' {ms[1]:.4f} ms on "
+            f"the wave sorted into {n_gates} bundles ({ms[1] / ms[0]:.2f} x "
+            "G1; in turns)")
+        del b_args
+    g1_bounds = {}
+    for name in g1_ms:
+        b = g1[name]
+        g1_bounds[name] = bnd, by, steps, nbytes, ops = g1_bound(
+            b.rec, b.tally, b.sample_steps, waves[name])
+        say("G1 bound", f"{name} wave: {steps} rows read, {nbytes:.6g} B "
+            f"(table bytes scaled from every {EVERY}th lane by steps, and "
+            f"each lane's inputs and outputs; {steps * 512} B were all the "
+            f"rows whole), {ops:.6g} MT operations (scaled the same way): "
+            f"bound {bnd:.4f} ms ({by}) against {g1_ms[name]:.4f} ms "
+            f"({g1_ms[name] / bnd:.2f}x)")
+    g1_bound_ms, g1_by = g1_bounds["bounce"][:2]
+
+    # 36. K1's kcap form and the two-phase engine on the soup primaries
+    o = orig[0]
+    dir_b = _blockify(dirs, SIZE, SIZE, plist.GH, plist.GW)
+    lists = plist.gate_lists_super(swin.win_bnd, dir_b, o)
+    t0 = torch.full((n,), BIG, device=device)
+    k_args = (*lists, so_combine(swin.so_base, o), dir_b.T.contiguous(), t0)
+    kcap_err, kcap_plain = 0.0, {}
+    kcap_out = {}
+    for kcap in KCAPS:
+        reset_counts()
+        out = plist.plist_super(*k_args, win_rows=SOUP_WIN_ROWS, kcap=kcap)
+        torch.cuda.synchronize()
+        check_counts(f"K1 kcap {kcap}", counts(), {"plist_super_kcap": 1})
+        e, kcap_plain[kcap] = compare_plain(
+            f"K1 kcap {kcap}", out, plist.plist_super_reference, k_args,
+            dict(win_rows=SOUP_WIN_ROWS, kcap=kcap), n_gates)
+        kcap_err = max(kcap_err, e)
+        kcap_out[kcap] = out
+    base = plist.traverse_plist(swin, orig, dirs, (SIZE, SIZE))
+    two = {}
+    reset_counts()
+    for kcap in KCAPS:
+        two[kcap] = rec = plist.traverse_plist(swin, orig, dirs, (SIZE, SIZE),
+                                               kcap=kcap, grid=grid)
+        both = rec["hit"] & base["hit"]
+        rel_all = (rec["t"] - base["t"]).abs() / base["t"].abs()
+        off = torch.nonzero(both & (rel_all > 1e-5)).squeeze(1)
+        rel = float(rel_all[both & (rel_all <= 1e-5)].max())
+        tri_eq = float((rec["tri"] == base["tri"])[both].float().mean())
+        # lanes whose t differs: phase 2 tests with exact MT, the single
+        # phase with K1's SO rows, whose edge flips (phase 5's budget) are
+        # a documented freedom; such a lane must carry the brute force's
+        # nearest t
+        bf_t = bruteforce_hits(soup, orig[off], dirs[off])
+        off_ok = bool(torch.allclose(rec["t"][off], bf_t, rtol=1e-5,
+                                     atol=1e-6))
+        ok = (torch.equal(rec["hit"], base["hit"]) and rel <= 1e-5
+              and tri_eq > 0.95 and off_ok
+              and off.numel() < 2e-3 * int(both.sum()))
+        say(f"two-phase kcap {kcap}", f"against single phase: hits "
+            f"{'equal' if torch.equal(rec['hit'], base['hit']) else 'DIFFER'}"
+            f" ({int(base['hit'].sum())}), tri equal {tri_eq} (> 0.95); t "
+            f"differs by more than rtol 1e-5 on {off.numel()} lanes (< 2e-3 "
+            f"of hits), where the two-phase t is the brute force's "
+            f"({'yes' if off_ok else 'NO'}: two-phase "
+            f"{rec['t'][off].tolist()}, single phase "
+            f"{base['t'][off].tolist()}, brute force {bf_t.tolist()}); max "
+            f"rel dt elsewhere {rel} (rtol 1e-5): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"two-phase kcap {kcap}: record differs")
+    torch.cuda.synchronize()
+    got = counts()
+    check_counts("two-phase", got, {"plist_super_kcap": len(KCAPS),
+                                    "traverse_grid": len(KCAPS)})
+    launches["two-phase"] = got
+    fns = [lambda: plist.traverse_plist(swin, orig, dirs, (SIZE, SIZE))]
+    fns += [lambda k=k: plist.traverse_plist(swin, orig, dirs, (SIZE, SIZE),
+                                             kcap=k, grid=grid)
+            for k in KCAPS]
+    fns += [lambda: plist.plist_super(*k_args, win_rows=SOUP_WIN_ROWS)]
+    fns += [lambda k=k: plist.plist_super(*k_args, win_rows=SOUP_WIN_ROWS,
+                                          kcap=k) for k in KCAPS]
+    ms = turns_ms(fns, 10)
+    say("two-phase", f"traverse_plist in turns: single phase {ms[0]:.4f} ms; "
+        + ", ".join(f"kcap {k} {m:.4f} ms" for k, m in zip(KCAPS, ms[1:4]))
+        + f"; K1 alone {ms[4]:.4f} ms uncapped, "
+        + ", ".join(f"kcap {k} {m:.4f}" for k, m in zip(KCAPS, ms[5:])))
+    kcap_rows = {}
+    for i, kcap in enumerate(KCAPS):
+        out = kcap_out[kcap]
+        perm, wave = plist.two_phase_wave(lists[0], out[0], kcap, o, dir_b)
+        dda_ms = median_ms(lambda: traverse_grid(grid, *wave[:2],
+                                                 t_max=wave[2],
+                                                 active=wave[3]), 10)
+        tests = n_tests(out[2], SOUP_WIN_ROWS)
+        bnd, by = bound([*k_args, *out], tests * K1_OPS)
+        kcap_rows[kcap] = dict(ms=ms[5 + i], bound=bnd, by=by,
+                               unsettled=int(wave[3].sum()), dda_ms=dda_ms)
+        st = out[2].to(torch.float64)
+        say(f"two-phase kcap {kcap}", f"phase 1: supers per gate "
+            f"{float(st[:, 3].mean()):.3f} (max {int(st[:, 3].max())}), "
+            f"windows {float(st[:, 1].mean()):.3f}; unsettled lanes "
+            f"{int(wave[3].sum())} of {n}; phase 2 DDA {dda_ms:.4f} ms; K1 "
+            f"kcap {ms[5 + i]:.4f} ms, plain {kcap_plain[kcap]:.1f} ms on "
+            f"every {EVERY}th gate, bound {bnd:.4f} ms ({by}; {tests} SO "
+            f"tests x {K1_OPS})")
+    del k_args, kcap_out, two
+
+    # 37. bench.py's path leg on the port: NEE over the grid
+    def frame(o=opts):
+        return render_image(soup, scam, o, swin, grid=grid, lights=lights,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(0))
+    p_ms, p_wall, got, img = run_frames(frame, 1, 5)
+    check_counts("NEE path", got, {"plist_super": 6, "traverse_grid": 18})
+    launches["nee path"] = got
+    mean = float(img.mean())
+    if not bool(torch.isfinite(img).all()) or not mean > 0.0:
+        raise AssertionError(f"NEE path: image finite "
+                             f"{bool(torch.isfinite(img).all())}, mean {mean}")
+    med = float(np.median(p_ms))
+    say("NEE path", f"{SIZE}x{SIZE} spp 1 bounces 2 NEE (stride 1, "
+        f"background 0): median {med:.4f} ms over 5 frames (min "
+        f"{min(p_ms):.4f}, max {max(p_ms):.4f}; host wall {p_wall:.4f} "
+        f"ms/frame), {n / med * 1e3:.6g} paths/s, image mean {mean:.6f}, "
+        f"launches {got}")
+    # the split: one frame rebuilt with the frame's own functions, each
+    # part timed alone (CUDA events) on its own inputs
+    _, bounce, light = path_draws(
+        opts, torch.Generator(device=device).manual_seed(0), device)
+    split = {"primary": 0.0, "light sampling": 0.0, "shadow waves": 0.0,
+             "bounce wave": 0.0}
+    alive = torch.ones((n,), dtype=torch.bool, device=device)
+    o_, d_ = orig, dirs
+    for bi in range(opts.bounces):
+        part = "primary" if bi == 0 else "bounce wave"
+        rec, ms_ = timed(lambda: intersect_scene(
+            soup, swin, o_, d_, opts, coherent=bi == 0,
+            active=None if bi == 0 else alive, grid=grid))
+        split[part] += ms_
+        pt, nr, _, _ = _surface(soup, rec, o_, d_)
+        nr = face_forward(nr, d_)
+        h = rec["hit"] & alive
+        w, ms_ = timed(lambda: nee_wave(soup, pt, nr, h, light[0, bi], 1,
+                                        lights))
+        split["light sampling"] += ms_
+        _, ms_ = timed(lambda: _occluded(grid, w["orig"], w["dir"],
+                                         w["dist"], active=w["live"]))
+        split["shadow waves"] += ms_
+        alive = h
+        u = bounce[0, bi]
+        d_ = torch.where(h[:, None], cosine_sample_hemisphere(
+            nr, u[:, 0], u[:, 1]), d_)
+        o_ = torch.where(h[:, None], pt + nr * BOUNCE_EPS, o_)
+    split["shade and the rest"] = med - sum(split.values())
+    say("NEE path", "split (ms; the parts of one rebuilt frame, the rest "
+        "the median frame minus them): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()))
+    # bounce_grid off: the same frame with its bounce wave on K1' (sorted
+    # bundles), the shadow waves still on G1
+    off_ms, _, got, off = run_frames(
+        lambda: frame(dataclasses.replace(opts, bounce_grid=False)), 0, 1)
+    check_counts("NEE path, bounce_grid off", got,
+                 {"plist_super": 1, "plist_super_mt": 1, "traverse_grid": 2})
+    launches["nee path, bounce_grid off"] = got
+    differ = float(((off - img).abs().amax(dim=-1) > 1e-4).float().mean())
+    mad = float((off - img).abs().mean())
+    say("NEE path, bounce_grid off", f"one frame {off_ms[0]:.4f} ms, "
+        f"launches {got}; against the grid bounce frame: {differ} of pixels "
+        f"differ by more than 1e-4 (<= 2e-2), mean abs difference {mad:.3g} "
+        "(<= 2e-3)")
+    if not bool(torch.isfinite(off).all()) or differ > 2e-2 or mad > 2e-3:
+        raise AssertionError("NEE path, bounce_grid off: image differs from "
+                             "the grid bounce frame")
+
+    return [
+        {"name": "traverse_grid", "route": "cuda",
+         "source": "clpathtracer_tpu_torch/ops/csrc/grid_dda.cu",
+         "replaces": "clpathtracer_tpu/ops/grid_walk.py:37 (XLA, not a "
+                     "Pallas kernel)",
+         "launches": launches["nee path"]["traverse_grid"],
+         "launches_by_path": {p: c.get("traverse_grid", 0)
+                              for p, c in launches.items()},
+         "max_abs_err": g1_err, "ms": g1_ms["bounce"],
+         "plain_ms": g1["bounce"].plain_ms,
+         "plain_lanes": f"every {EVERY}th", "bound_ms": g1_bound_ms,
+         "bound_by": g1_by, "library_ms": None,
+         "shadow_any_hit_ms": g1_ms["shadow any-hit"],
+         "shadow_any_hit_bound_ms": g1_bounds["shadow any-hit"][0]},
+        {"name": "plist_super_kcap", "route": "cuda",
+         "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
+         "replaces": "clpathtracer_tpu/ops/plist.py:1015",
+         "launches": launches["two-phase"]["plist_super_kcap"],
+         "launches_by_path": {p: c.get("plist_super_kcap", 0)
+                              for p, c in launches.items()},
+         "max_abs_err": kcap_err, "ms": kcap_rows[KCAPS[0]]["ms"],
+         "plain_ms": kcap_plain[KCAPS[0]],
+         "plain_gates": f"every {EVERY}th",
+         "bound_ms": kcap_rows[KCAPS[0]]["bound"],
+         "bound_by": kcap_rows[KCAPS[0]]["by"], "library_ms": None,
+         "kcap": KCAPS[0],
+         "ms_by_kcap": {k: r["ms"] for k, r in kcap_rows.items()},
+         "unsettled_by_kcap": {k: r["unsettled"]
+                               for k, r in kcap_rows.items()},
+         "phase2_ms_by_kcap": {k: r["dda_ms"] for k, r in kcap_rows.items()}},
+    ]
+
 
 if __name__ == "__main__":
     main()

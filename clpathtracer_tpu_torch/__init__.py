@@ -6,7 +6,8 @@ It imports torch and numpy, never jax or flax. Every function takes its
 device from its tensor arguments or from an explicit `device` argument;
 nothing picks a device on its own.
 
-It covers normal, mirror and path (no NEE) rendering on two routes. The
+It covers normal, mirror and path rendering (next-event estimation with a
+uniform grid) on two routes. The
 window engine: pinhole or jittered primary rays through the gate prepass
 and the super-list kernel's shared-origin form, Morton-sorted bounce
 bundles through the bundle prepass and its general Moller-Trumbore form
@@ -21,7 +22,11 @@ through the strip prepass or window AABB culls and the stream kernel
 traverse_packet also runs the JAX package's other packet engines, which no
 frame takes: the bf16 preview, the queue, the v1 legacy and wide walks,
 the half-split stream2 walk (ops/csrc/packet_stream2.cu) and the
-plane-form mxu walk (ops/packet_mxu.py, ops/csrc/packet_mxu.cu). The
+plane-form mxu walk (ops/packet_mxu.py, ops/csrc/packet_mxu.cu). A
+uniform grid (accel/grid.py) passed to render_image carries NEE's shadow
+rays and the bounce waves through the per-ray grid DDA
+(ops/grid_walk.py, ops/csrc/grid_dda.cu), and with plist_kcap the
+primary gates' two-phase engine (K1's kcap form, then the DDA). The
 kernels run as CUDA on the GPU and as their plain torch versions on the
 CPU.
 """

@@ -38,11 +38,11 @@ _I = ctypes.c_int
 SIGNATURES = {
     "plist_super": {
         # key, sid, bits, rows, dir_t, t0, best_t, best_slot, stats,
-        # n_gates, list_len, win_rows, stream
-        "plist_super_launch": [_P] * 9 + [_I] * 3 + [_P],
+        # n_gates, list_len, win_rows, jcap, stream
+        "plist_super_launch": [_P] * 9 + [_I] * 4 + [_P],
         # key, sid, bits, rows, orig_t, dir_t, t0, best_t, best_slot, stats,
-        # n_gates, list_len, win_rows, stream
-        "plist_super_mt_launch": [_P] * 10 + [_I] * 3 + [_P],
+        # n_gates, list_len, win_rows, jcap, stream
+        "plist_super_mt_launch": [_P] * 10 + [_I] * 4 + [_P],
         # key, wid, rows, dir_t, t0, best_t, best_slot, stats, n_gates,
         # list_len, win_rows, stream
         "plist_window_launch": [_P] * 8 + [_I] * 3 + [_P],
@@ -81,6 +81,11 @@ SIGNATURES = {
         # nodes_i, nodes_f, chunks, orig_t, dir_t, act, best_t, best_slot,
         # stats, overflow, n_rays, tile, n_chunks, stream
         "packet_mxu_launch": [_P] * 10 + [_I] * 3 + [_P],
+    },
+    "grid_dda": {
+        # table, geom, orig, dir, t_max, active, out_t, out_tri, out_u,
+        # out_v, out_steps, n, rx, ry, rz, nrows, max_iters, any_hit, stream
+        "grid_dda_launch": [_P] * 11 + [_I] * 7 + [_P],
     },
     "packet_v1": {
         # table, recs, orig_t, dir_t, best_t, best_slot, stats, overflow,

@@ -1,6 +1,6 @@
 // Ray-triangle pair tests shared by the port's kernels: K1, K1', K2, K10
-// (plist_super.cu), K11 (plist_subgate.cu), K3 and K4 (packet_stream.cu)
-// and K5 (packet_queue.cu).
+// (plist_super.cu), K11 (plist_subgate.cu), K3 and K4 (packet_stream.cu),
+// K5 (packet_queue.cu) and G1 (grid_dda.cu, mt_hit_uv).
 // One copy, so every kernel rounds a pair as the others and as the plain
 // torch versions do.
 //
@@ -14,7 +14,8 @@
 //     v = d.q * invd, t = e2.q * invd; accept 0 <= u <= 1, v >= 0,
 //     u + v <= 1, t > 0, tri_id >= 0. 53 FP32 operations on the full path
 //     (27 mul, 18 add or sub, 7 compares, 1 reciprocal), 15, 27 or 45 on
-//     the pairs that the det, u or v branch rejects.
+//     the pairs that the det, u or v branch rejects. mt_hit_uv also
+//     returns u and v (ops/traverse_fast.py::_mt_pre).
 //   mt_hit_bf16: the bf16 preview of mt_hit (_mt_chunk_math with
 //     compute_dtype=bfloat16): the same expressions in the same order on
 //     bf16 values, each *, -, + and 1/x computed in f32 and rounded to bf16
@@ -69,9 +70,10 @@ __device__ __forceinline__ bool so_hit(const Ray& ray, float4 p, float4 q,
 }
 
 // MT record: a = (v0.x, v0.y, v0.z, e1.x), b = (e1.y, e1.z, e2.x, e2.y),
-// c = (e2.z, tri_id, 0, 0). Writes t and returns true on a hit.
-__device__ __forceinline__ bool mt_hit(const Ray& ray, float4 a, float4 b,
-                                       float4 c, float* t) {
+// c = (e2.z, tri_id, 0, 0). Writes t, u, v and returns true on a hit.
+__device__ __forceinline__ bool mt_hit_uv(const Ray& ray, float4 a, float4 b,
+                                          float4 c, float* t, float* u_out,
+                                          float* v_out) {
   const float e1x = a.w, e1y = b.x, e1z = b.y;
   const float e2x = b.z, e2y = b.w, e2z = c.x;
   const float px = crs(ray.dy, e2z, ray.dz, e2y);
@@ -93,7 +95,16 @@ __device__ __forceinline__ bool mt_hit(const Ray& ray, float4 a, float4 b,
   const float tt = __fmul_rn(dot3(e2x, e2y, e2z, qx, qy, qz), invd);
   if (!(tt > 0.f && c.y >= 0.f)) return false;
   *t = tt;
+  *u_out = u;
+  *v_out = v;
   return true;
+}
+
+// mt_hit_uv without u and v: writes t and returns true on a hit.
+__device__ __forceinline__ bool mt_hit(const Ray& ray, float4 a, float4 b,
+                                       float4 c, float* t) {
+  float u, v;
+  return mt_hit_uv(ray, a, b, c, t, &u, &v);
 }
 
 // x rounded to bf16 (nearest even) and back: the value a torch bf16 op

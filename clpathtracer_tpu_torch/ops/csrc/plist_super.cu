@@ -36,7 +36,11 @@
 //
 //   K1: entries are supers of kSuper windows with one need bit per window;
 //       the needed windows of a super are tested, then t_upper is refreshed,
-//       and the next super is taken if its key <= that t_upper.
+//       and the next super is taken if its key <= that t_upper. The kcap
+//       form (the first phase of the two-phase straggler engine,
+//       plist.py:1015-1032, ops/plist.py::_plist_two_phase) streams at most
+//       jcap entries: the stream stops before entry jcap whatever its key,
+//       and the stats count the entries consumed.
 //   K2: entries are single windows, read at rows + wid*win_rows*8. The
 //       decision to take window j+1 uses the t_upper from before window j
 //       was tested: the TPU kernel decides its prefetch of j+1 then
@@ -147,7 +151,7 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
                    const float* __restrict__ dir_t,
                    const float* __restrict__ t0, float* __restrict__ best_t,
                    int* __restrict__ best_slot, int* __restrict__ stats,
-                   int n_rays, int list_len, int win_rows) {
+                   int n_rays, int list_len, int win_rows, int jcap) {
   extern __shared__ float4 win[];  // [win_tris * kUsedF4]
   __shared__ float red[kGate / 32];
 
@@ -164,7 +168,7 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
   int bs = INT_MAX;
   int ns = 0, nw = 0;
   float tup = fminf(kBig, block_max(t0r, red));
-  bool alive = list_len > 0 && gkey[0] <= tup;
+  bool alive = jcap > 0 && gkey[0] <= tup;
   for (int j = 0; alive;) {
     const long long s = gsid[j];
     const unsigned b = (unsigned)gbits[j];
@@ -178,7 +182,7 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
     nw += __popc(b);
     tup = block_max(fminf(bt, t0r), red);
     ++j;
-    alive = j < list_len && gkey[j] <= tup;
+    alive = j < jcap && gkey[j] <= tup;
   }
   finish(best_t, best_slot, stats, ray_i, bt, bs, nw, ns);
 }
@@ -282,7 +286,8 @@ template <bool kMT>
 int launch_super(const void* key, const void* sid, const void* bits,
                  const void* rows, const void* orig_t, const void* dir_t,
                  const void* t0, void* best_t, void* best_slot, void* stats,
-                 int n_gates, int list_len, int win_rows, void* stream) {
+                 int n_gates, int list_len, int win_rows, int jcap,
+                 void* stream) {
   return launch(plist_super_kernel<kMT>, n_gates, win_rows * 8, stream,
                 static_cast<const float*>(key), static_cast<const int*>(sid),
                 static_cast<const int*>(bits),
@@ -291,7 +296,7 @@ int launch_super(const void* key, const void* sid, const void* bits,
                 static_cast<const float*>(dir_t),
                 static_cast<const float*>(t0), static_cast<float*>(best_t),
                 static_cast<int*>(best_slot), static_cast<int*>(stats),
-                n_gates * kGate, list_len, win_rows);
+                n_gates * kGate, list_len, win_rows, jcap);
 }
 
 template <bool kMT>
@@ -313,18 +318,20 @@ int launch_window(const void* key, const void* wid, const void* rows,
 
 // K1. key/sid/bits: [n_gates, list_len] f32/i32/i32, each gate's entries
 // sorted by key; rows: [S, 16] f32 SO records; dir_t: [3, n_gates*512] f32;
-// t0: [n_gates*512] f32. Outputs best_t [N] f32, best_slot [N] i32 (-1 on a
-// miss), stats [n_gates, 5] i32. Returns cudaGetLastError() after the
-// launch; a refused launch (resources, configuration) shows only there.
+// t0: [n_gates*512] f32; jcap in [0, list_len]: a gate streams at most its
+// first jcap entries (list_len: no cap; the kcap form below it). Outputs
+// best_t [N] f32, best_slot [N] i32 (-1 on a miss), stats [n_gates, 5] i32.
+// Returns cudaGetLastError() after the launch; a refused launch (resources,
+// configuration) shows only there.
 extern "C" int plist_super_launch(const void* key, const void* sid,
                                   const void* bits, const void* rows,
                                   const void* dir_t, const void* t0,
                                   void* best_t, void* best_slot, void* stats,
                                   int n_gates, int list_len, int win_rows,
-                                  void* stream) {
+                                  int jcap, void* stream) {
   return launch_super<false>(key, sid, bits, rows, nullptr, dir_t, t0,
                              best_t, best_slot, stats, n_gates, list_len,
-                             win_rows, stream);
+                             win_rows, jcap, stream);
 }
 
 // K1'. As plist_super_launch, with rows the raw [S, 16] triangle records
@@ -335,10 +342,10 @@ extern "C" int plist_super_mt_launch(const void* key, const void* sid,
                                      const void* t0, void* best_t,
                                      void* best_slot, void* stats,
                                      int n_gates, int list_len, int win_rows,
-                                     void* stream) {
+                                     int jcap, void* stream) {
   return launch_super<true>(key, sid, bits, rows, orig_t, dir_t, t0, best_t,
                             best_slot, stats, n_gates, list_len, win_rows,
-                            stream);
+                            jcap, stream);
 }
 
 // K2, SO form. key/wid: [n_gates, list_len] f32/i32, each gate's windows

@@ -23,7 +23,9 @@ Pipeline:
     sub-gates (gate_lists4).
   * kernels: per gate, bundle or sub-gate, stream the sorted list, test
     the windows it names densely, stop when the next key exceeds t_upper.
-    - K1 (plist_super): supers, the shared-origin signed-volume test;
+    - K1 (plist_super): supers, the shared-origin signed-volume test; its
+      kcap form streams at most kcap entries a gate (the two-phase
+      engine's first phase, _plist_two_phase);
     - K1' (plist_super_mt): supers, general Moller-Trumbore with per-lane
       origins and t0 seeds;
     - K2 (plist_window): single windows, SO or MT;
@@ -41,9 +43,10 @@ Lists are flat [G, L] tensors (key f32, ids, bits and payloads i32) and
 slots are int32 rows of the [S, 16] record array. The JAX package's
 environment switches of the schedule (CLPT_PLIST_SUPER, CLPT_PLIST_GATHER)
 are traverse_plist's arguments here; its other knobs are constants at its
-defaults (gate 16x32 pixels, t_upper refreshed after every entry). Its
-two-phase straggler engine (the kcap form of K1) and d0cull are not ported
-yet.
+defaults (gate 16x32 pixels, t_upper refreshed after every entry).
+CLPT_PLIST_KCAP, the two-phase straggler engine (K1's kcap form, then the
+grid DDA of ops/grid_walk.py), is traverse_plist(kcap=, grid=); d0cull, a
+measured negative, is not ported.
 """
 
 from __future__ import annotations
@@ -540,37 +543,46 @@ def _check_super(name, key, sid, bits, rows, dir_t, t0, win_rows,
                  key.shape[0] * GATE, dir_t, t0, orig_t)
 
 
-def plist_super(key, sid, bits, rows, dir_t, t0, *, win_rows: int):
+def plist_super(key, sid, bits, rows, dir_t, t0, *, win_rows: int,
+                kcap: int = 0):
     """Nearest shared-origin hit of every ray over its gate's sorted super
     list (K1; replaces clpathtracer_tpu/ops/plist.py::_kernel_plist_super).
 
     key/sid/bits: [G, Ls] from gate_lists_super; rows: [S, 16] SO records
     (so_combine); dir_t: [3, G*512] gate-major directions; t0: [G*512]
     per-ray t upper-bound seeds (BIG for primary rays). sid entries must be
-    valid super ids of `rows` (gate_lists_super guarantees it).
+    valid super ids of `rows` (gate_lists_super guarantees it). kcap > 0:
+    the kcap form, a gate streams at most its first kcap entries (the first
+    phase of _plist_two_phase; plist.py:1015-1032).
 
     Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss, stats
-    [G, 5] i32 = (0, windows, 512, supers, windows)). Ties in t go to the
-    lowest slot.
+    [G, 5] i32 = (0, windows, 512, supers, windows), counting what was
+    streamed). Ties in t go to the lowest slot.
 
     A CPU tensor runs the plain version (plist_super_reference); a CUDA
     tensor launches ops/csrc/plist_super.cu on the current stream or
-    raises. `plist_super.launches` counts kernel launches."""
+    raises. `plist_super.launches` counts kernel launches without a cap,
+    `plist_super.kcap_launches` those of the kcap form."""
     _check_super("plist_super", key, sid, bits, rows, dir_t, t0, win_rows)
     if _on_cpu("plist_super", key.device):
         return plist_super_reference(key, sid, bits, rows, dir_t, t0,
-                                     win_rows=win_rows)
+                                     win_rows=win_rows, kcap=kcap)
     out = _launch("plist_super_launch", "plist_super", key.shape[0],
-                  (key, sid, bits, rows, dir_t, t0), (key.shape[1], win_rows))
-    plist_super.launches += 1
+                  (key, sid, bits, rows, dir_t, t0),
+                  (key.shape[1], win_rows, _jcap(kcap, key.shape[1])))
+    if kcap > 0:
+        plist_super.kcap_launches += 1
+    else:
+        plist_super.launches += 1
     return out
 
 
 plist_super.launches = 0
+plist_super.kcap_launches = 0
 
 
 def plist_super_mt(key, sid, bits, rows, orig_t, dir_t, t0, *,
-                   win_rows: int):
+                   win_rows: int, kcap: int = 0):
     """Nearest Moller-Trumbore hit of every ray over its bundle's sorted
     super list (K1'; replaces clpathtracer_tpu/ops/plist.py::
     _kernel_plist_super with so=False).
@@ -580,26 +592,31 @@ def plist_super_mt(key, sid, bits, rows, orig_t, dir_t, t0, *,
     [3, G*512] per-lane origins and directions (dead lanes: direction 0);
     t0: [G*512] per-lane t upper-bound seeds (BIG for a live ray, 0 for a
     dead one). Hits need det > 0 (front faces), 0 <= u, v, u + v <= 1,
-    t > 0 and tri_id >= 0.
+    t > 0 and tri_id >= 0. kcap: as plist_super.
 
     Returns (best_t, best_slot, stats) as plist_super does; ties in t go to
     the lowest slot. A CPU tensor runs the plain version
     (plist_super_mt_reference); a CUDA tensor launches
     ops/csrc/plist_super.cu on the current stream or raises.
-    `plist_super_mt.launches` counts kernel launches."""
+    `plist_super_mt.launches` counts kernel launches without a cap,
+    `plist_super_mt.kcap_launches` those of the kcap form."""
     _check_super("plist_super_mt", key, sid, bits, rows, dir_t, t0,
                  win_rows, orig_t)
     if _on_cpu("plist_super_mt", key.device):
         return plist_super_mt_reference(key, sid, bits, rows, orig_t, dir_t,
-                                        t0, win_rows=win_rows)
+                                        t0, win_rows=win_rows, kcap=kcap)
     out = _launch("plist_super_mt_launch", "plist_super_mt", key.shape[0],
                   (key, sid, bits, rows, orig_t, dir_t, t0),
-                  (key.shape[1], win_rows))
-    plist_super_mt.launches += 1
+                  (key.shape[1], win_rows, _jcap(kcap, key.shape[1])))
+    if kcap > 0:
+        plist_super_mt.kcap_launches += 1
+    else:
+        plist_super_mt.launches += 1
     return out
 
 
 plist_super_mt.launches = 0
+plist_super_mt.kcap_launches = 0
 
 
 def plist_window(key, wid, rows, dir_t, t0, *, win_rows: int, orig_t=None):
@@ -804,15 +821,17 @@ def _records(rows, win_tris):
     return rows.reshape(-1, win_tris, 16)[:, :, :10]    # [W, win_tris, 10]
 
 
-def plist_super_reference(key, sid, bits, rows, dir_t, t0, *, win_rows: int):
+def plist_super_reference(key, sid, bits, rows, dir_t, t0, *, win_rows: int,
+                          kcap: int = 0):
     """Plain torch version of plist_super: same signature, same outputs,
     stats included, on any device."""
     return _super_reference(key, sid, bits, rows,
-                            _group_test(None, dir_t, GATE), t0, win_rows)
+                            _group_test(None, dir_t, GATE), t0, win_rows,
+                            kcap)
 
 
 def plist_super_mt_reference(key, sid, bits, rows, orig_t, dir_t, t0, *,
-                             win_rows: int, tally=None):
+                             win_rows: int, kcap: int = 0, tally=None):
     """Plain torch version of plist_super_mt: same signature, same
     outputs, stats included, on any device.
 
@@ -822,14 +841,20 @@ def plist_super_mt_reference(key, sid, bits, rows, orig_t, dir_t, t0, *,
     the work these inputs need."""
     return _super_reference(key, sid, bits, rows,
                             _group_test(orig_t, dir_t, GATE, tally), t0,
-                            win_rows)
+                            win_rows, kcap)
 
 
-def _super_reference(key, sid, bits, rows, test, t0, win_rows):
+def _jcap(kcap: int, list_len: int) -> int:
+    """The entries a gate may stream: all, or the first kcap (kcap > 0)."""
+    return list_len if kcap <= 0 else min(kcap, list_len)
+
+
+def _super_reference(key, sid, bits, rows, test, t0, win_rows, kcap=0):
     """K1's stream loop. All gates still alive at step j have consumed
     exactly j entries, so a chunk of gates steps the sorted entries
     together with a per-gate alive mask, which reproduces the kernel's
-    break and so its stats."""
+    break and so its stats. kcap > 0 stops every stream before entry
+    kcap."""
     win_tris = win_rows * 8
     recs = _records(rows, win_tris)
     t0g = t0.reshape(-1, GATE)
@@ -837,7 +862,7 @@ def _super_reference(key, sid, bits, rows, test, t0, win_rows):
 
     def run(g0, g1):
         k, s_, b_ = key[g0:g1], sid[g0:g1], bits[g0:g1]
-        list_len = k.shape[1]
+        list_len = _jcap(kcap, k.shape[1])
         bt, bs, ns, tup, alive = _start(t0g[g0:g1], list_len,
                                         lambda: k[:, 0])
         nw = torch.zeros_like(ns)
@@ -986,7 +1011,7 @@ def plist_gathered_reference(ten, ids, table, dir_t, t0, *, win_rows: int,
 def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
                    dilate_px: float = 0.0, *, supers: bool = True,
                    gathered: bool = False, kmax: int = None,
-                   cwin: int = None):
+                   cwin: int = None, kcap: int = 0, grid=None):
     """Trace shared-origin pixel-grid primary rays (generate_rays order)
     through the windows. orig/dir: [H*W, 3], every origin equal to
     orig[0]; dilate_px: a bound on the rays' subpixel jitter plus slack
@@ -1007,7 +1032,15 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
         than kmax windows (one host read of the prepass's overflow flag,
         the counterpart of the JAX package's lax.cond), the whole frame
         runs K1 instead, or K2 on windows that are not whole supers: the
-        launch counters show which kernel ran.
+        launch counters show which kernel ran;
+      * kcap > 0 with a grid (accel/grid.py::UniformGrid of the same
+        triangles): the two-phase straggler engine (_plist_two_phase), K1
+        (K1' without SO tables) streams at most kcap entries a gate and the
+        grid DDA (G1) finishes the unsettled rays; the explicit form of the
+        JAX package's CLPT_PLIST_KCAP. It needs the super schedule on
+        windows that are whole supers; otherwise, or without a grid, kcap
+        > 0 raises ValueError (the JAX package runs single-phase
+        quietly).
 
     Returns the hit record: hit, t, tri, u, v, snormal, salbedo, semission
     ([H*W] / [H*W, 3]) and tile_stats [G, 5]."""
@@ -1018,6 +1051,12 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
             f"traverse_plist needs an {h}x{w} frame of {n} rays that "
             f"divides into {GH}x{GW} gates; other frames are not ported")
     so = mwin.so_base is not None
+    whole = mwin.num_windows % SUPER == 0
+    if kcap > 0 and (grid is None or gathered or not supers or not whole):
+        raise ValueError(
+            f"traverse_plist(kcap={kcap}) needs a grid and the super "
+            "schedule on windows that are whole supers: the two-phase engine "
+            "finishes its unsettled rays on the grid DDA")
     if gathered and not so:
         raise ValueError("traverse_plist(gathered=True) needs shared-origin "
                          "tables (attach_so): K10 has no Moller-Trumbore "
@@ -1032,7 +1071,6 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
               _blockify(orig, h, w, GH, GW).to(torch.float32).T.contiguous())
     key_w = _win_keys(mwin.win_bnd, dir_b.reshape(-1, GATE, 3), o, GH, GW,
                       dilate_px)
-    whole = mwin.num_windows % SUPER == 0
     if gathered:
         kmax, cwin = gathered_sizes(wr, kmax, cwin)
         key, wid = _sort_windows(key_w)
@@ -1045,6 +1083,9 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
                               win_rows=wr)
         else:
             out = plist_window(key, wid, rows, dir_t, t0, win_rows=wr)
+    elif kcap > 0:
+        out = _plist_two_phase(mwin, grid, _super_pack(key_w), rows, o,
+                               dir_b, dir_t, orig_t, t0, kcap)
     elif supers and whole:
         if so:
             out = plist_super(*_super_pack(key_w), rows, dir_t, t0,
@@ -1058,6 +1099,63 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
     _, best_slot, tile_stats = out
     best_slot = _unblockify(best_slot, h, w, GH, GW)
     return _resolve_winners(mwin, best_slot, orig, dir, tile_stats)
+
+
+def _plist_two_phase(mwin: MortonWindows, grid, lists, rows, o, dir_b,
+                     dir_t, orig_t, t0, kcap: int):
+    """The two-phase straggler engine (clpathtracer_tpu/ops/plist.py::
+    _plist_two_phase): per-gate break, then a per-ray finish.
+
+    K1 breaks per gate, so one deep lane drags a gate's 512 rays through
+    its whole list. Phase 1 streams at most kcap entries a gate (K1's kcap
+    form; K1' without SO tables, orig_t given). A ray is settled when its
+    best t, with 1e-4 relative slack for the SO arithmetic, is at or
+    inside the key of the gate's first unstreamed entry (keys lower-bound
+    every later entry; +inf past the list). Phase 2 sorts the unsettled
+    rays to the front (stable: pixel order) and finishes them on the grid
+    DDA with t_max = their phase-1 best (with the slack); a grid winner
+    (a triangle id, mwin.slot_of_tri gives its slot) replaces the phase-1
+    one when its t is strictly less. Returns (best_t, best_slot, stats) in
+    gate order; stats count phase 1 only."""
+    from clpathtracer_tpu_torch.ops.grid_walk import traverse_grid
+    key, sid, bits = lists
+    wr = mwin.win_rows
+    if orig_t is None:
+        bt1, bs1, ts1 = plist_super(key, sid, bits, rows, dir_t, t0,
+                                    win_rows=wr, kcap=kcap)
+    else:
+        bt1, bs1, ts1 = plist_super_mt(key, sid, bits, rows, orig_t, dir_t,
+                                       t0, win_rows=wr, kcap=kcap)
+    perm, wave = two_phase_wave(key, bt1, kcap, o, dir_b)
+    rec2 = traverse_grid(grid, *wave[:2], t_max=wave[2], active=wave[3])
+    n_tris = mwin.slot_of_tri.shape[0]
+    slot2 = torch.where(rec2["hit"],
+                        mwin.slot_of_tri[rec2["tri"].clamp(0, n_tris - 1)
+                                         .long()], -1)
+    t2 = torch.empty_like(bt1)
+    s2 = torch.empty_like(bs1)
+    t2[perm] = rec2["t"]
+    s2[perm] = slot2
+    take2 = (s2 >= 0) & (t2 < bt1)
+    return torch.where(take2, t2, bt1), torch.where(take2, s2, bs1), ts1
+
+
+def two_phase_wave(key, bt1, kcap: int, o, dir_b):
+    """Phase 2's wave of the two-phase engine: (perm, (orig, dir, t_max,
+    active)). key: the gates' sorted keys [G, Ls]; bt1: phase 1's best t
+    in gate order; o: the shared origin; dir_b: the gate-major directions.
+    A ray is settled when bt1 * (1 + 1e-4) <= the key of its gate's entry
+    kcap (+inf past the list); perm sorts the unsettled rays first,
+    stably, and the wave is in that order with t_max = bt1 * (1 + 1e-4)
+    and active = unsettled."""
+    n_gates, list_len = key.shape
+    key_k = (key[:, kcap] if kcap < list_len
+             else torch.full((n_gates,), float("inf"), device=key.device))
+    t_bound = bt1 * (1.0 + 1e-4)
+    settled = t_bound <= key_k.repeat_interleave(GATE)
+    _, perm = torch.sort(settled.to(torch.uint8), stable=True)
+    return perm, (o.to(torch.float32).expand(perm.shape[0], 3),
+                  dir_b[perm].contiguous(), t_bound[perm], ~settled[perm])
 
 
 def plist4_supported(mwin: MortonWindows, n_rays: int, image_shape) -> bool:

@@ -10,9 +10,12 @@ the scene's windows:
   blend col = (1 - str) col + str normal_color, str *= 0.2, reflect with a
   BOUNCE_EPS origin offset; a miss or the last bounce blends toward the
   background.
-* "path": Lambertian path tracing without next-event estimation:
-  emission of front faces and the background on a miss, weighted by the
-  throughput; cosine-sampled bounces; spp > 1 averages jittered samples.
+* "path": Lambertian path tracing: emission of front faces and the
+  background on a miss, weighted by the throughput; cosine-sampled
+  bounces; spp > 1 averages jittered samples. With next-event estimation
+  (opts.nee) each vertex also samples an emitter (_sample_light) and casts
+  a shadow ray through the grid (_occluded); emitters then count on the
+  primary hit only.
 
 Two routes, in the JAX package's order (render/integrator.py:197-309):
 
@@ -37,6 +40,14 @@ Two routes, in the JAX package's order (render/integrator.py:197-309):
   traverse_packet calls that no frame takes, in the JAX package or here:
   the port's "auto" stays on the stream engine.
 
+A uniform grid (accel/grid.py::build_grid), passed as `grid`, is the
+port's counterpart of the JAX package's accel/sah.py::attach_grid (the
+windows route has no kd-tree to hang it on). On either route it carries
+NEE's shadow rays (any-hit DDA, kernel G1) and, with opts.bounce_grid,
+the bounce waves (nearest-hit DDA, unsorted, with the active mask); with
+opts.plist_kcap > 0 the primary gates run the two-phase engine (K1's kcap
+form, then G1).
+
 Random numbers come from the caller or from a torch.Generator (torch
 cannot reproduce jax.random's streams). Anything else raises
 NotImplementedError naming the ROADMAP queue-1 item that ports it;
@@ -46,12 +57,14 @@ nothing quietly takes another route.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (cam_matrix, generate_rays,
                                                 generate_rays_jittered)
+from clpathtracer_tpu_torch.ops.grid_walk import traverse_grid
 from clpathtracer_tpu_torch.ops.packet import PRECISIONS, traverse_packet
 from clpathtracer_tpu_torch.ops.plist import (GH, GW, traverse_plist,
                                               traverse_plist_bundle)
@@ -91,9 +104,17 @@ class RenderOptions:
     #   triangles much smaller than the scene. The windows route ignores it.
     plist_schedule: str = "super"  # windows route, primary gates: "super"
     #   (K1), "window" (K2) or "gathered" (K10); see traverse_plist
+    bounce_grid: bool = True   # with a grid: bounce waves through the grid
+    #   DDA (G1), unsorted (the JAX package's CLPT_BOUNCE_GRID default)
+    nee_light_stride: int = 1  # NEE: one light sample shared by each run of
+    #   this many consecutive rays (correlated but unbiased)
+    plist_kcap: int = 0        # windows route with a grid, "super" schedule:
+    #   > 0 runs the primary gates' two-phase engine, K1 capped at kcap
+    #   entries a gate, then G1 (the JAX package's CLPT_PLIST_KCAP)
 
 
-def _check_supported(scene, opts: RenderOptions, mwin, tree=None) -> None:
+def _check_supported(scene, opts: RenderOptions, mwin, tree=None,
+                     grid=None) -> None:
     """Raise NotImplementedError for what this slice does not carry."""
     if opts.mode not in MODES:
         raise ValueError(f"unknown mode {opts.mode!r}")
@@ -103,10 +124,16 @@ def _check_supported(scene, opts: RenderOptions, mwin, tree=None) -> None:
     if opts.plist_schedule not in PLIST_SCHEDULES:
         raise ValueError(f"plist_schedule {opts.plist_schedule!r} is not one "
                          f"of {PLIST_SCHEDULES}")
+    if opts.nee_light_stride < 1:
+        raise ValueError(f"nee_light_stride {opts.nee_light_stride} < 1")
+    if opts.plist_kcap > 0 and (mwin is None or grid is None
+                                or opts.plist_schedule != "super"):
+        raise ValueError(f"plist_kcap {opts.plist_kcap} needs windows, a grid "
+                         "and plist_schedule 'super' (the two-phase engine)")
     todo = None
-    if opts.mode == "path" and opts.nee:
-        todo = ("next-event estimation (shadow rays through the grid DDA or "
-                "the kd rope walk) is queue 1 item 10")
+    if opts.mode == "path" and opts.nee and grid is None:
+        todo = ("next-event estimation without a grid (shadow rays through "
+                "the kd shadow tree and rope walk) is queue 1 item 3")
     elif opts.differentiable or opts.edge_aware:
         todo = "differentiable / edge-aware rendering is queue 1 item 14"
     elif scene.num_spheres:
@@ -132,10 +159,10 @@ _REC_KEYS = ("hit", "t", "tri", "u", "v", "snormal", "salbedo", "semission")
 
 def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
                     coherent: bool = True, active=None,
-                    jitter_px: float = 0.0, tree=None):
+                    jitter_px: float = 0.0, tree=None, grid=None):
     """Nearest hit. Returns hit [N], t [N], tri [N], u/v [N] and, on the
-    windows route, the fused shade attributes snormal/salbedo/semission
-    [N, 3].
+    windows route's kernels, the fused shade attributes
+    snormal/salbedo/semission [N, 3].
 
     coherent: the wave is the frame's shared-origin pixel-grid primaries
     (jittered by up to jitter_px pixels): gates on the windows route,
@@ -143,7 +170,13 @@ def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
     frustum culls only when unjittered). Otherwise the wave is scattered:
     it is Morton-sorted (dead lanes, active False, to the tail), traced in
     512-ray bundles or packet tiles and put back in wave order. Windows,
-    when given, win over the tree."""
+    when given, win over the tree. A scattered wave with a grid given and
+    opts.bounce_grid takes the grid DDA instead, unsorted, with the active
+    mask (JAX render/integrator.py:247-260). grid with opts.plist_kcap > 0:
+    the primary gates' two-phase engine (traverse_plist)."""
+    if not coherent and grid is not None and opts.bounce_grid:
+        rec = traverse_grid(grid, orig, dir, active=active)
+        return {k: rec[k] for k in _REC_KEYS[:5]}
     if mwin is None:
         keys = _REC_KEYS[:5]
         if coherent:
@@ -162,7 +195,8 @@ def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
         rec = traverse_plist(mwin, orig, dir, (opts.height, opts.width),
                              dilate_px=jitter_px,
                              supers=opts.plist_schedule != "window",
-                             gathered=opts.plist_schedule == "gathered")
+                             gathered=opts.plist_schedule == "gathered",
+                             kcap=opts.plist_kcap, grid=grid)
         return {k: rec[k] for k in _REC_KEYS}
     inv, orig, dir, active = sort_wave(orig, dir, active)
     rec = traverse_plist_bundle(mwin, orig, dir, active=active)
@@ -189,9 +223,10 @@ def _surface(scene, rec, orig, dir):
     return point, at["normal"], at["albedo"], at["emission"]
 
 
-def shade_normal(scene, mwin, orig, dir, opts: RenderOptions, tree=None):
+def shade_normal(scene, mwin, orig, dir, opts: RenderOptions, tree=None,
+                 grid=None):
     """Reference parity: hit -> (normal + 1) / 2, miss -> background."""
-    rec = intersect_scene(scene, mwin, orig, dir, opts, tree=tree)
+    rec = intersect_scene(scene, mwin, orig, dir, opts, tree=tree, grid=grid)
     _, normal, _, _ = _surface(scene, rec, orig, dir)
     return torch.where(rec["hit"][:, None], normal_color(normal),
                        opts.background)
@@ -210,7 +245,8 @@ def mirror_wave(scene, rec, orig, dir, alive):
             torch.where(hit[:, None], newdir, dir), normal)
 
 
-def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions, tree=None):
+def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions, tree=None,
+                 grid=None):
     """The reference's intended mirror-bounce shading. Per bounce
     (src/kernel.cl:399-417): col = (1-str) col + str normal_color;
     str *= 0.2; reflect about the normal (mirror_wave). On a miss or after
@@ -222,7 +258,8 @@ def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions, tree=None):
     o, d = orig, dir
     for b in range(opts.bounces):
         rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
-                              active=None if b == 0 else alive, tree=tree)
+                              active=None if b == 0 else alive, tree=tree,
+                              grid=grid)
         hit, o, d, normal = mirror_wave(scene, rec, o, d, alive)
         st = strength[:, None]
         col = torch.where(hit[:, None], (1.0 - st) * col
@@ -239,37 +276,118 @@ def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions, tree=None):
                        (1.0 - st) * col + st * opts.background, col)
 
 
+def light_cdf(scene):
+    """The emitters' sampling table, once per scene (it depends on the
+    scene only; build it beside the grid and pass it to render_image as
+    `lights`): a dict of the triangles' cross products [F, 3] (twice the
+    area-weighted normals), areas [F], probabilities [F] (luminance x area
+    over the total) and their running sum cdf [F], and `any`, whether any
+    light is lit: a host bool, one read of the total (the JAX package
+    decides it on the device with lax.cond; the port skips NEE's whole
+    shadow wave on the host)."""
+    v0, v1, v2 = scene.tri_verts()
+    cross = vm.cross(v1 - v0, v2 - v0)
+    area = 0.5 * vm.length(cross)
+    w = scene.emission.amax(dim=-1) * area
+    total = w.sum()
+    probs = w / torch.clamp(total, min=1e-30)
+    return {"cross": cross, "area": area, "probs": probs,
+            "cdf": torch.cumsum(probs, dim=0), "any": bool(total > 0.0)}
+
+
+def _sample_light(scene, light_u, n: int, stride: int = 1, lights=None):
+    """Area-sample the emitters (JAX render/integrator.py::_sample_light):
+    a face by the inverse CDF over luminance x area, a point uniform in
+    its barycentric square-root map. light_u: [ceil(n / stride), 3]
+    uniforms in [0, 1), the face uniform and the two barycentric ones;
+    stride > 1 shares each sample among a run of `stride` consecutive
+    lanes. lights: light_cdf(scene), computed when not given.
+
+    Returns (point [n, 3], normal [n, 3], emission [n, 3], pdf per unit
+    area [n]). Meaningless where no light is lit (lights["any"])."""
+    if lights is None:
+        lights = light_cdf(scene)
+    m = -(-n // stride)
+    if tuple(light_u.shape) != (m, 3):
+        raise ValueError(f"light uniforms {tuple(light_u.shape)}, want "
+                         f"{(m, 3)}")
+    cdf = lights["cdf"]
+    f = torch.searchsorted(cdf, (light_u[:, 0] * cdf[-1]).contiguous())
+    f = f.clamp(0, cdf.shape[0] - 1)
+    su = torch.sqrt(light_u[:, 1])
+    bu = 1.0 - su
+    bv = light_u[:, 2] * su
+    v0, v1, v2 = (c[f] for c in scene.tri_verts())
+    p = bu[:, None] * v0 + bv[:, None] * v1 + (1.0 - bu - bv)[:, None] * v2
+    nrm = vm.normalize(lights["cross"][f], eps=1e-30)
+    pdf_area = lights["probs"][f] / torch.clamp(lights["area"][f], min=1e-30)
+    out = (p, nrm, scene.emission[f], pdf_area)
+    if stride > 1:
+        out = tuple(x.repeat_interleave(stride, dim=0)[:n] for x in out)
+    return out
+
+
+def _occluded(grid, orig, dir, dist, active=None):
+    """Shadow query: is anything closer than dist - 1e-3 along dir? The
+    grid's any-hit DDA (kernel G1) with that bound and the active mask,
+    the JAX package's grid route (render/integrator.py:520-531). Its other
+    routes are not ported: without a grid (the kd shadow tree and rope
+    walk) raises NotImplementedError; the sorted-bundle route behind
+    CLPT_SHADOW_BUNDLE is a measured negative."""
+    if grid is None:
+        raise NotImplementedError(
+            "not ported yet: shadow rays without a grid (the kd shadow tree "
+            "and rope walk) are queue 1 item 3")
+    return traverse_grid(grid, orig, dir, t_max=dist - 1e-3, active=active,
+                         any_hit=True)["hit"]
+
+
 def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
-               jitter_px: float = 0.0, tree=None):
-    """Lambertian path tracing with emissive surfaces, without NEE:
-    radiance += throughput * emission at each front-face hit and
-    throughput * background on a miss; throughput *= albedo; the next
-    direction is cosine-sampled about the shading normal, flipped to face
-    the incoming ray. bounce_u: [bounces, N, 2] uniforms in [0, 1), one
-    pair per lane and bounce."""
+               jitter_px: float = 0.0, tree=None, grid=None, light_u=None,
+               lights=None):
+    """Lambertian path tracing with emissive surfaces: radiance +=
+    throughput * emission at each front-face hit and throughput *
+    background on a miss; throughput *= albedo; the next direction is
+    cosine-sampled about the shading normal, flipped to face the incoming
+    ray. bounce_u: [bounces, N, 2] uniforms in [0, 1), one pair per lane
+    and bounce.
+
+    opts.nee: at each vertex, with the pre-bounce throughput, an emitter
+    point (_sample_light from light_u [bounces, ceil(N / stride), 3];
+    lights: light_cdf(scene)) lights the hit through a shadow ray
+    (_occluded, needs grid) when both cosines are positive; emission then
+    counts on the primary hit only. Without a lit emitter the shadow wave
+    is not traced."""
     n = orig.shape[0]
     dev = orig.device
     radiance = torch.zeros((n, 3), device=dev)
     throughput = torch.ones((n, 3), device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    if opts.nee and lights is None:
+        lights = light_cdf(scene)
     o, d = orig, dir
     for b in range(opts.bounces):
         rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
                               active=None if b == 0 else alive,
                               jitter_px=jitter_px if b == 0 else 0.0,
-                              tree=tree)
+                              tree=tree, grid=grid)
         point, normal, albedo, emission = _surface(scene, rec, o, d)
         # one-sided emitters: front faces only
         cos_in = vm.dot(normal, d)
         front = cos_in < 0.0
         normal = torch.where(cos_in[:, None] > 0, -normal, normal)
         hit = rec["hit"] & alive
-        radiance = radiance + torch.where((hit & front)[:, None],
-                                          throughput * emission, 0.0)
+        if not opts.nee or b == 0:
+            radiance = radiance + torch.where((hit & front)[:, None],
+                                              throughput * emission, 0.0)
         missed = alive & ~rec["hit"]
         radiance = radiance + torch.where(
             missed[:, None], throughput * opts.background, 0.0)
         alive = hit
+        if opts.nee and lights["any"]:
+            radiance = radiance + _direct_light(
+                scene, grid, point, normal, albedo, throughput, hit,
+                light_u[b], opts.nee_light_stride, lights)
         throughput = torch.where(hit[:, None], throughput * albedo,
                                  throughput)
         u12 = bounce_u[b]
@@ -279,80 +397,149 @@ def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
     return radiance
 
 
+def nee_wave(scene, point, normal, hit, light_u, stride, lights):
+    """NEE's shadow wave at one vertex (JAX render/integrator.py:656-683):
+    one emitter sample per lane (_sample_light), the shadow ray from the
+    hit point offset by BOUNCE_EPS along the (face-forward) normal toward
+    it. Shadow directions that are not finite (a degenerate sample) become
+    (0, 1, 0). Returns a dict: orig, dir [N, 3], dist [N] (to the light
+    point), live [N] (the hit sees the light's front side at a positive
+    cosine: the lanes the wave traces), and for the contribution cos_s,
+    cos_l, dist2, emission, pdf."""
+    n = point.shape[0]
+    lp, ln, lemit, pdf_a = _sample_light(scene, light_u, n, stride, lights)
+    to_l = lp - point
+    dist2 = torch.clamp(vm.length_squared(to_l), min=1e-12)
+    dist = torch.sqrt(dist2)
+    wi = to_l / dist[:, None]
+    wi_ok = torch.isfinite(wi).all(dim=-1)
+    safe = torch.zeros_like(wi)
+    safe[:, 1] = 1.0
+    wi = torch.where(wi_ok[:, None], wi, safe)
+    cos_s = vm.dot(normal, wi)
+    cos_l = vm.dot(ln, -wi)
+    return {"orig": point + normal * BOUNCE_EPS, "dir": wi, "dist": dist,
+            "live": hit & (cos_s > 0.0) & (cos_l > 0.0) & wi_ok,
+            "cos_s": cos_s, "cos_l": cos_l, "dist2": dist2,
+            "emission": lemit, "pdf": pdf_a}
+
+
+def _direct_light(scene, grid, point, normal, albedo, throughput, hit,
+                  light_u, stride, lights):
+    """NEE's contribution at one vertex (JAX render/integrator.py:656-691):
+    throughput * albedo / pi * emission * cos_s * cos_l / dist^2 / pdf
+    where the hit sees the sampled light point unoccluded (nee_wave,
+    _occluded)."""
+    w = nee_wave(scene, point, normal, hit, light_u, stride, lights)
+    occ = _occluded(grid, w["orig"], w["dir"], w["dist"], active=w["live"])
+    g = w["cos_s"] * w["cos_l"] / w["dist2"]
+    contrib = (throughput * (albedo / math.pi) * w["emission"]
+               * (g / torch.clamp(w["pdf"], min=1e-30))[:, None])
+    return torch.where((w["live"] & ~occ)[:, None], contrib, 0.0)
+
+
 def render_rays(scene, mwin, orig, dir, opts: RenderOptions, bounce_u=None,
-                jitter_px: float = 0.0, tree=None):
+                jitter_px: float = 0.0, tree=None, grid=None, light_u=None,
+                lights=None):
     """Shade a wave of the frame's primary rays. bounce_u: path mode's
-    [bounces, N, 2] uniforms; jitter_px: the primaries' jitter bound;
-    tree: the kd-tree route when mwin is None."""
-    _check_supported(scene, opts, mwin, tree)
+    [bounces, N, 2] uniforms; light_u: with NEE, its [bounces,
+    ceil(N / stride), 3] light uniforms; lights: light_cdf(scene), computed
+    when not given; jitter_px: the primaries' jitter bound; tree: the
+    kd-tree route when mwin is None; grid: the uniform grid (NEE's shadow
+    rays, the bounce waves, the two-phase primaries)."""
+    _check_supported(scene, opts, mwin, tree, grid)
     if opts.mode == "normal":
-        return shade_normal(scene, mwin, orig, dir, opts, tree=tree)
+        return shade_normal(scene, mwin, orig, dir, opts, tree=tree,
+                            grid=grid)
     if opts.mode == "mirror":
-        return shade_mirror(scene, mwin, orig, dir, opts, tree=tree)
-    if bounce_u is None:
-        raise ValueError("path mode needs its bounce uniforms (bounce_u)")
+        return shade_mirror(scene, mwin, orig, dir, opts, tree=tree,
+                            grid=grid)
+    if bounce_u is None or (opts.nee and light_u is None):
+        raise ValueError("path mode needs its bounce uniforms (bounce_u) "
+                         "and, with NEE, its light uniforms (light_u)")
     return shade_path(scene, mwin, orig, dir, opts, bounce_u,
-                      jitter_px=jitter_px, tree=tree)
+                      jitter_px=jitter_px, tree=tree, grid=grid,
+                      light_u=light_u, lights=lights)
 
 
 def path_draws(opts: RenderOptions, generator: torch.Generator, device):
-    """The random numbers of a path-mode frame: (jitter [S, N, 2] or None,
-    bounce [S, bounces, N, 2]), uniforms in [0, 1), with S = spp when
-    spp > 1 (jittered samples) and 1 otherwise (pixel-grid rays)."""
+    """The random numbers of a path-mode frame, uniforms in [0, 1): (jitter
+    [S, N, 2] or None, bounce [S, bounces, N, 2], light [S, bounces,
+    ceil(N / nee_light_stride), 3] or None), with S = spp when spp > 1
+    (jittered samples) and 1 otherwise (pixel-grid rays); light, the face
+    uniform and the two barycentric ones of each light sample, with
+    opts.nee only."""
     n = opts.width * opts.height
     s = opts.spp if opts.spp > 1 else 1
     jitter = (torch.rand((s, n, 2), generator=generator, device=device)
               if opts.spp > 1 else None)
     bounce = torch.rand((s, opts.bounces, n, 2), generator=generator,
                         device=device)
-    return jitter, bounce
+    m = -(-n // opts.nee_light_stride)
+    light = (torch.rand((s, opts.bounces, m, 3), generator=generator,
+                        device=device) if opts.nee else None)
+    return jitter, bounce, light
 
 
 def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
-                 tree=None, generator: torch.Generator = None, jitter=None,
-                 bounce=None):
+                 tree=None, grid=None, lights=None,
+                 generator: torch.Generator = None, jitter=None, bounce=None,
+                 light=None):
     """Render an [H, W, 3] image. mwin: the scene's MortonWindows with
     shared-origin tables and fused resolve rows attached
     (ops/plist.py::build_morton_windows, attach_so, attach_resolve); tree,
     used when mwin is None: its kd-tree with window and SO tables
-    (accel/sah.py::build_kd_tree, attach_so_tables).
+    (accel/sah.py::build_kd_tree, attach_so_tables); grid: a uniform grid
+    of the same triangles (accel/grid.py::build_grid), the counterpart of
+    the JAX package's accel/sah.py::attach_grid, for NEE, the bounce waves
+    (opts.bounce_grid) and the two-phase primaries (opts.plist_kcap);
+    lights: NEE's light_cdf(scene), built once per scene (computed each
+    call when not given).
 
     Path mode draws its random numbers from `generator` (default: a
     generator on the camera's device seeded 0), or takes them as given:
-    jitter [spp, H*W, 2] (spp > 1 only) and bounce [S, bounces, H*W, 2]
+    jitter [spp, H*W, 2] (spp > 1 only), bounce [S, bounces, H*W, 2] and,
+    with NEE, light [S, bounces, ceil(H*W / nee_light_stride), 3]
     (path_draws). spp > 1 averages that many jittered samples; other modes
     render one pixel-grid sample whatever spp is."""
-    _check_supported(scene, opts, mwin, tree)
+    _check_supported(scene, opts, mwin, tree, grid)
     device = camera.position.device
     cam_inv = cam_matrix(camera, opts.height)
     shape = (opts.height, opts.width, 3)
     if opts.mode != "path":
         orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        return render_rays(scene, mwin, orig, dir, opts,
-                           tree=tree).reshape(shape)
+        return render_rays(scene, mwin, orig, dir, opts, tree=tree,
+                           grid=grid).reshape(shape)
     if bounce is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        jitter, bounce = path_draws(opts, generator, device)
+        jitter, bounce, light = path_draws(opts, generator, device)
     n = opts.width * opts.height
     s = opts.spp if opts.spp > 1 else 1
+    m = -(-n // opts.nee_light_stride)
     if tuple(bounce.shape) != (s, opts.bounces, n, 2) or (
-            s > 1 and (jitter is None or tuple(jitter.shape) != (s, n, 2))):
+            s > 1 and (jitter is None or tuple(jitter.shape) != (s, n, 2))
+    ) or (opts.nee and (light is None
+                        or tuple(light.shape) != (s, opts.bounces, m, 3))):
         raise ValueError(
             f"path draws: bounce {tuple(bounce.shape)}, jitter "
-            f"{None if jitter is None else tuple(jitter.shape)}; want "
-            f"{(s, opts.bounces, n, 2)} and, for spp > 1, {(s, n, 2)}")
-    if s == 1:
-        orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        img = render_rays(scene, mwin, orig, dir, opts, bounce[0],
-                          tree=tree)
-    else:
-        samples = []
-        for i in range(s):
+            f"{None if jitter is None else tuple(jitter.shape)}, light "
+            f"{None if light is None else tuple(light.shape)}; want "
+            f"{(s, opts.bounces, n, 2)}, for spp > 1 {(s, n, 2)} and with "
+            f"NEE {(s, opts.bounces, m, 3)}")
+    if opts.nee and lights is None:
+        lights = light_cdf(scene)
+    samples = []
+    for i in range(s):
+        if s == 1:
+            o, d = generate_rays(cam_inv, opts.width, opts.height)
+        else:
             o, d = generate_rays_jittered(cam_inv, opts.width, opts.height,
                                           jitter[i:i + 1])
-            samples.append(render_rays(scene, mwin, o[0], d[0], opts,
-                                       bounce[i], jitter_px=JITTER_PX,
-                                       tree=tree))
-        img = torch.stack(samples).mean(dim=0)
+            o, d = o[0], d[0]
+        samples.append(render_rays(
+            scene, mwin, o, d, opts, bounce[i],
+            jitter_px=JITTER_PX if s > 1 else 0.0, tree=tree, grid=grid,
+            light_u=None if light is None else light[i], lights=lights))
+    img = samples[0] if s == 1 else torch.stack(samples).mean(dim=0)
     return img.reshape(shape)

@@ -12,6 +12,56 @@ import numpy as np
 from clpathtracer_tpu_torch.scene.scene import Scene
 
 
+def _quad(a, b, c, d):
+    """Two CCW triangles for quad a-b-c-d."""
+    return [[a, b, c], [a, c, d]]
+
+
+def cornell_box(light: bool = True, wall_albedo: float = 0.75, *,
+                device) -> Scene:
+    """The classic 5-wall Cornell box, 10 triangles (12 with the light),
+    camera looks +z. The box spans [-1, 1]^2 in x/y and [0, 2] in z, open
+    toward the camera at z < 0; windings make every geometric normal face
+    the box's inside (the intersector culls back faces). light=True adds
+    a ceiling light quad of emission 15 (albedo 0)."""
+    v = np.array([
+        # z=2 back wall
+        [-1, -1, 2], [1, -1, 2], [1, 1, 2], [-1, 1, 2],      # 0-3
+        # z=0 front (camera side) corners
+        [-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0],      # 4-7
+        # light quad (slightly below ceiling)
+        [-0.3, 0.999, 0.7], [0.3, 0.999, 0.7],
+        [0.3, 0.999, 1.3], [-0.3, 0.999, 1.3],               # 8-11
+    ], np.float32)
+    faces = []
+    faces += _quad(0, 3, 2, 1)   # back wall
+    faces += _quad(4, 5, 1, 0)   # floor (y = -1)
+    faces += _quad(7, 3, 2, 6)   # ceiling (y = +1)
+    faces += _quad(4, 0, 3, 7)   # left wall (x = -1)
+    faces += _quad(5, 6, 2, 1)   # right wall (x = +1)
+    if light:
+        faces += _quad(8, 9, 10, 11)
+    tris = np.array(faces, np.int32)
+    # windings: normals point toward the box's center
+    center = np.array([0.0, 0.0, 1.0], np.float32)
+    for i, (a, b, c) in enumerate(tris):
+        n = np.cross(v[b] - v[a], v[c] - v[a])
+        face_center = (v[a] + v[b] + v[c]) / 3.0
+        if np.dot(n, center - face_center) < 0:
+            tris[i] = [a, c, b]
+    f = np.full((len(tris), 3, 3), -1, np.int32)
+    f[:, :, 0] = tris
+    albedo = np.full((len(tris), 3), wall_albedo, np.float32)
+    albedo[6:8] = [wall_albedo, 0.15, 0.15]   # left wall red
+    albedo[8:10] = [0.15, wall_albedo, 0.15]  # right wall green
+    emission = np.zeros((len(tris), 3), np.float32)
+    if light:
+        albedo[10:12] = 0.0
+        emission[10:12] = [15.0, 15.0, 15.0]
+    return Scene.create(v, f, albedo=albedo, emission=emission,
+                        device=device)
+
+
 def random_tri_soup(num_tris: int, seed: int = 0, extent: float = 10.0,
                     tri_size: float = 0.05, emissive_frac: float = 0.0, *,
                     device) -> Scene:

@@ -1,6 +1,7 @@
 """The port stands alone: it imports and renders (windows and kd-tree
 routes; the legacy, wide, stream2 and mxu engines, accel/wide.py and
-ops/packet_mxu.py; the window, gathered and sub-gate schedules) with jax
+ops/packet_mxu.py; the window, gathered and sub-gate schedules; path
+tracing with NEE over the uniform grid, the two-phase primaries) with jax
 and flax blocked, no file of it or of
 chip_smoke.py
 imports either or the JAX package, and its kernel loader fails clearly
@@ -74,6 +75,21 @@ recs = [plist.traverse_plist(mwin, o, d, (32, 32), supers=False),
         plist.traverse_plist(mwin, o, d, (32, 32), gathered=True),
         plist.traverse_plist4(mwin, o, d, (32, 32))]
 assert all(torch.equal(r["hit"].reshape(32, 32), hit) for r in recs)
+# path tracing with NEE over the uniform grid (G1's plain version) on the
+# Cornell box, and the two-phase primaries (K1's kcap form, then G1)
+from clpathtracer_tpu_torch.accel.grid import build_grid
+from clpathtracer_tpu_torch.scene.procedural import cornell_box
+box = cornell_box(device=cpu).bake_shading()
+bwin = plist.attach_resolve(plist.attach_so(plist.build_morton_windows(
+    box.tri_corners(), device=cpu)), box.shade_rows)
+grid = build_grid(box.tri_corners(), device=cpu)
+nee = render_image(box, cam, RenderOptions(width=32, height=32, mode="path",
+                                           nee=True, background=0.0),
+                   bwin, grid=grid)
+assert bool(torch.isfinite(nee).all()) and float(nee.mean()) > 0.0
+two = plist.traverse_plist(bwin, o, d, (32, 32), kcap=1, grid=grid)
+assert torch.equal(two["hit"], plist.traverse_plist(bwin, o, d,
+                                                    (32, 32))["hit"])
 assert packet_mxu.mxu_rows_from_quads(wtree.tris).shape[1] == 512
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
                                    "clpathtracer_tpu")

@@ -207,9 +207,10 @@ def test_path_draws_from_generator(scenes):
     seeded 0) with path_draws; explicit draws give the same image."""
     opts = tint.RenderOptions(32, 16, mode="path", spp=2, bounces=2)
     a = tint.render_image(scenes["ts"], scenes["tcam"], opts, scenes["mwin"])
-    jitter, bounce = tint.path_draws(
+    jitter, bounce, light = tint.path_draws(
         opts, torch.Generator(device=CPU).manual_seed(0), CPU)
     assert jitter.shape == (2, 512, 2) and bounce.shape == (2, 2, 512, 2)
+    assert light is None
     b = tint.render_image(scenes["ts"], scenes["tcam"], opts, scenes["mwin"],
                           jitter=jitter, bounce=bounce)
     assert torch.equal(a, b)
