@@ -10,6 +10,9 @@ not 0):
    turn TF32 off;
 2. build: compile clpathtracer_tpu_torch/ops/csrc/*.cu with nvcc (sm_90a),
    one nvcc per source, all started together, and load the libraries;
+   print the cluster launch shape of K1, K1', K1's kcap form, K3 and K4
+   (blocks per cluster, threads, registers, shared memory, the clusters
+   resident at once: cudaOccupancyMaxActiveClusters);
 3. scene: the procedural 1M-triangle terrain (seed 0), windows at
    win_rows 16 with shared-origin tables and resolve rows on the card;
    camera [0, 14, 0] looking down [0, -1, 0.01]; a 512x512 frame
@@ -40,7 +43,9 @@ not 0):
    bundle_kernel_args) and K1' against its plain version on all of its
    bundles (exact; that run is also the plain version's time), which also
    counts the tested pairs that leave the test at each early exit for
-   K1''s bound; the split into primary / sort / bundle prepass / K1' /
+   K1''s bound, and the operations that warps issue (each warp runs a
+   record to its deepest lane's exit; printed beside the bound, which stays
+   the lane average); the split into primary / sort / bundle prepass / K1' /
    resolve+shade, and the bounce wave's live lanes, windows per bundle and
    tests per live ray;
 11. path frame: 512x512, spp 4, bounces 2, no NEE, background 1.0,
@@ -62,7 +67,7 @@ The kd-tree route (no windows: the stream engine, kernel K3):
    (soup, tile 512, a kernel call only) and general Moller-Trumbore +
    active mask + AABB cull (terrain, tile 2048, the mirror bounce wave,
    rebuilt with intersect_scene, mirror_wave and sort_wave; the plain run
-   also counts the early exits of its tested pairs);
+   also counts the early exits of its tested pairs and what warps issue);
 14. oracles: 4096 primary pixels of the kd route and 4096 live lanes of its
    mirror bounce wave against the brute force, at phases 5 and 9's limits;
 15. kd frames: normal terrain (tile 2048, strips; 2 warm-up, 20 timed),
@@ -223,6 +228,16 @@ emissive_frac 0.001), windows at win_rows 8, camera [0, 0, -25] looking
    bounce_grid off (launches K1 1, K1' 1, G1 2), its image within PR 2's
    budgets of the grid bounce frame's.
 
+The tail of the two cluster walks:
+
+38. the heaviest unit of each mirror wave alone: K1''s heaviest bundle of
+   phase 10 and K3's (MT form) heaviest tile of phase 13, each cut out as a
+   one-unit call; its result equal to the full launch's lanes and stats
+   row and to its plain version's (exact); its time beside the full
+   launch's and beside its own FP32 bound (its pairs weighted by their
+   exits, counted by the plain run) on one SM and on the SMs of its
+   cluster, and what its warps issue.
+
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
 kernel's launches are those of the frames of the path that gives its ms
@@ -233,7 +248,9 @@ op-level calls, K7 and K8 their three traverse_packet calls each, K2 the
 "window" frames, K10 the traverse_plist(gathered=True) call at the
 terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
 frames, K1's kcap form the two-phase calls), with every path's own
-count beside them. The last line is {"ok": true, "device": {...}}.
+count beside them; the cluster walks (K1, K1', K1's kcap form, K3, K4)
+also give their blocks per cluster ("cluster"). The last line is
+{"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -251,11 +268,12 @@ from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (Camera, cam_matrix,
                                                 generate_rays)
 from clpathtracer_tpu_torch.ops import packet, packet_mxu, plist
-from clpathtracer_tpu_torch.ops._cuda import load_kernels
+from clpathtracer_tpu_torch.ops._cuda import cluster_shape, load_kernels
 from clpathtracer_tpu_torch.ops.grid_walk import (traverse_grid,
                                                   traverse_grid_reference)
-from clpathtracer_tpu_torch.ops.packet import (BIG, _blockify, _unblockify,
-                                               so_combine)
+from clpathtracer_tpu_torch.ops.packet import (BIG, MT_EXIT_OPS,
+                                               _blockify, _unblockify,
+                                               mt_ops, so_combine, warp_ops)
 from clpathtracer_tpu_torch.ops.sort import sort_rays
 from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
 from clpathtracer_tpu_torch.render.integrator import (BOUNCE_EPS,
@@ -290,12 +308,7 @@ EVERY = 8            # plain versions run on every 8th gate, bundle or tile
 # (ops/csrc/pair_tests.cuh). so_hit runs all of its test for every pair:
 # 9 mul, 8 add, 2 max, 3 compares.
 K1_OPS = 22
-# mt_hit leaves its test early. A pair rejected at det > 0 costs 15
-# (p = d x e2: 6 mul, 3 sub; det: 3 mul, 2 add; 1 compare); at the u test
-# 27 (1 reciprocal, 3 sub, 4 mul, 2 add, 2 compares more); at the v test
-# 45 (q: 6 mul, 3 sub; v: 4 mul, 2 add; u + v; 2 compares more); past it
-# 53 (t: 4 mul, 2 add; 2 compares more).
-MT_EXIT_OPS = (15, 27, 45, 53)
+# mt_hit leaves its test early: packet.MT_EXIT_OPS (15, 27, 45 or 53).
 # K8's plane test (ops/csrc/packet_mxu.cu) leaves early too: a pair rejected
 # at det > 0 costs 6 (det: 3 mul, 2 add; 1 compare); at the u test 19 (u*det:
 # 6 mul, 5 add; 2 compares); at the v test 33 (v*det: 6 mul, 5 add; u + v;
@@ -510,14 +523,6 @@ def k3_tests(stats, tile, n_strips=0):
     return int((st[:, 1] * st[:, 2]).sum()) * 128
 
 
-def mt_ops(tests, tally, exit_ops=MT_EXIT_OPS):
-    """MT FP32 operations of `tests` pairs: each tested pair weighted by
-    the early exit it takes (tally: the pairs that pass det, u, v)."""
-    passed = [tests, *(int(x) for x in tally)]
-    left = [passed[i] - passed[i + 1] for i in range(3)] + [passed[3]]
-    return sum(c * w for c, w in zip(left, exit_ops))
-
-
 def mt_bound(args, kw, out, ref_stats, tally):
     """The bound of an MT call of K3, K4 or K5: its tested pairs (k3_tests)
     weighted by the early exits that the plain run counted on its tiles
@@ -584,6 +589,95 @@ def check_counts(phase, got, want):
         raise AssertionError(f"{phase}: kernel launches {got}, want {want}")
 
 
+def say_warp_issued(phase, kernel, tally, lane_ops, scale):
+    """Print the FP32 lane operations that warps issue for the pairs a
+    plain run counted (7-lane tally, packet.warp_ops), scaled to the call
+    by `scale`, beside the lane average `lane_ops` that the bound counts (a
+    diagnostic: the bound stays the lane average)."""
+    ops = int(warp_ops(tally) * scale)
+    say(phase, f"{kernel} warp-issued: {int(tally[3])} (warp, record) "
+        f"groups of 32 lanes on the plain run, {int(tally[4])} with a lane "
+        f"past det, {int(tally[5])} past u, {int(tally[6])} past v; "
+        f"{ops} FP32 lane operations issued, {ops / max(lane_ops, 1):.3f}x "
+        f"the lane average ({lane_ops}); {ops / PEAK_FP32_OPS * 1e3:.4f} ms "
+        "at the card's FP32 rate (the bound stays the lane average)")
+
+
+def k1_tail(args, out, full_ms):
+    """Phase 38's K1' unit: the heaviest bundle (most windows) of the call
+    (args, out), cut out as a one-bundle call, with the full launch's
+    outputs for its lanes and its stats row."""
+    g = int(torch.argmax(out[2][:, 1]))
+    lanes = slice(g * plist.GATE, (g + 1) * plist.GATE)
+    one = (*(a[g:g + 1].contiguous() for a in args[:3]), args[3],
+           *(a[..., lanes].contiguous() for a in args[4:]))
+    return SimpleNamespace(
+        unit=f"bundle {g}", n_units=out[2].shape[0], full_ms=full_ms,
+        full=(out[0][lanes].clone(), out[1][lanes].clone(),
+              out[2][g:g + 1].clone()),
+        call=lambda: plist.plist_super_mt(*one, win_rows=WIN_ROWS),
+        plain=lambda tally: plist.plist_super_mt_reference(
+            *one, win_rows=WIN_ROWS, tally=tally),
+        tests=lambda st: n_tests(st, WIN_ROWS),
+        shape=("plist_super_shape", 1, WIN_ROWS))
+
+
+def k3_tail(args, kw, out, full_ms):
+    """Phase 38's K3 unit: the heaviest tile (most windows streamed) of the
+    call (args, kw, out), cut out as a one-tile call, with the full
+    launch's outputs for its lanes and its stats row."""
+    tile = kw["tile"]
+    ti = int(torch.argmax(out[2][:, 1]))
+    lanes = slice(ti * tile, (ti + 1) * tile)
+    one = (*args[:3], *(a[..., lanes].contiguous() for a in args[3:]))
+    okw = {k: (v[ti:ti + 1].contiguous()
+               if k in ("frustum", "masks", "ten") else v)
+           for k, v in kw.items()}
+    return SimpleNamespace(
+        unit=f"tile {ti}", n_units=out[2].shape[0], full_ms=full_ms,
+        full=(out[0][lanes].clone(), out[1][lanes].clone(),
+              out[2][ti:ti + 1].clone()),
+        call=lambda: packet.packet_stream(*one, **okw),
+        plain=lambda tally: packet.packet_stream_reference(
+            *one, tally=tally, **okw),
+        tests=lambda st: k3_tests(st, tile),
+        shape=("packet_stream_shape", tile, int(kw["so"]), 0))
+
+
+def tail_phase(tails):
+    """Phase 38: the heaviest unit of each mirror wave alone (K1' bundle,
+    K3 MT tile), held exactly against the full launch's lanes and against
+    its plain version, timed beside the full launch and its own FP32
+    bound on one SM and on the SMs of its cluster."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_rate = PEAK_FP32_OPS / n_sm
+    for name, t in tails.items():
+        out = t.call()
+        torch.cuda.synchronize()
+        tally = torch.zeros(7, dtype=torch.int64, device=out[0].device)
+        ref = t.plain(tally)
+        bad = [int((x != y).sum()) for x, y in zip(out, t.full)]
+        bad_plain = [int((x != y).sum()) for x, y in zip(ref, t.full)]
+        say("tail", f"{name}, {t.unit} alone ({int(t.full[2][0, 1])} "
+            "windows) against the full launch's lanes and stats row "
+            f"(tolerance: exact): t/slot/stats mismatches {bad}; the plain "
+            f"version's against the same {bad_plain}")
+        if any(bad) or any(bad_plain):
+            raise AssertionError(f"tail: {name} alone differs from the "
+                                 "full launch")
+        ms = median_ms(t.call, 5)
+        tests = t.tests(out[2])
+        ops, wops = mt_ops(tests, tally), warp_ops(tally)
+        c = cluster_shape(*t.shape)["cluster"]
+        one_sm = ops / sm_rate * 1e3
+        say("tail", f"{name}, {t.unit}: alone {ms:.4f} ms, the full launch "
+            f"of {t.n_units} units {t.full_ms:.4f} ms; its FP32 bound "
+            f"({tests} pairs, {ops} operations, lane average) {one_sm:.4f} "
+            f"ms on one SM ({n_sm} on the card), {one_sm / c:.4f} ms on the "
+            f"{c} SMs of its cluster; warp-issued {wops} ({wops / ops:.3f}x):"
+            f" {wops / sm_rate * 1e3:.4f} ms on one SM")
+
+
 def tile_stats_line(stats, tile):
     st = stats.to(torch.float64)
     return (f"per tile: nodes visited {float(st[:, 0].mean()):.2f} (max "
@@ -620,7 +714,18 @@ def main():
         if "ptxas info" in line and ("Used" in line or "Compiling" in line):
             say("build", line.strip())
 
+    shapes = cluster_shapes()
+    for name, sh in shapes.items():
+        say("build", f"{name}: clusters of {sh['cluster']} blocks of "
+            f"{sh['threads']} threads, {sh['registers']} registers a thread, "
+            f"{sh['static_smem']} + {sh['dynamic_smem']} bytes of shared "
+            f"memory a block, at most {sh['max_active_clusters']} clusters "
+            "resident")
+
     kernels = smoke(device)
+    for k in kernels:
+        if k["name"] in shapes:
+            k["cluster"] = shapes[k["name"]]["cluster"]
     print(card, flush=True)   # again, where the end of a long log shows it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -628,8 +733,22 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def cluster_shapes():
+    """The cluster launch shapes of the redesigned walks, by kernels-line
+    name, at the shapes the main paths give them."""
+    tile = TERRAIN_KD["tile"]
+    return {"plist_super": cluster_shape("plist_super_shape", 0, WIN_ROWS),
+            "plist_super_mt": cluster_shape("plist_super_shape", 1,
+                                            WIN_ROWS),
+            "plist_super_kcap": cluster_shape("plist_super_shape", 0,
+                                              SOUP_WIN_ROWS),
+            "packet_stream": cluster_shape("packet_stream_shape", tile, 1, 0),
+            "packet_stream_bf16": cluster_shape("packet_stream_shape", tile,
+                                                0, 1)}
+
+
 def smoke(device):
-    """Phases 3-37 on `device`; returns the kernels line's entries."""
+    """Phases 3-38 on `device`; returns the kernels line's entries."""
     # 3. scene at full size
     t = time.perf_counter()
     scene = terrain_mesh(N_TRIS, seed=0, extent=10.0,
@@ -806,7 +925,7 @@ def smoke(device):
     b_args = plist.bundle_kernel_args(mwin, bo, bd, active=ba)
     b_out = plist.plist_super_mt(*b_args, win_rows=WIN_ROWS)
     torch.cuda.synchronize()
-    tally = torch.zeros(3, dtype=torch.int64, device=device)
+    tally = torch.zeros(7, dtype=torch.int64, device=device)
     err, mt_plain_ms = compare_plain(
         "mirror K1'", b_out, plist.plist_super_mt_reference, b_args,
         dict(win_rows=WIN_ROWS, tally=tally), n_gates, every=1)
@@ -849,6 +968,8 @@ def smoke(device):
     say("mirror", f"K1' at {n_gates} bundles: kernel {mt_ms:.4f} ms, "
         f"plain torch version {mt_plain_ms:.4f} ms (the exactness run), "
         f"bound {mt_bound:.4f} ms ({mt_by}; {b_tests} tests)")
+    say_warp_issued("mirror", "K1'", tally, b_ops, 1.0)
+    tails = {"K1'": k1_tail(b_args, b_out, mt_ms)}
     del b_args, b_out, prim
 
     # 11. the path frame
@@ -885,6 +1006,8 @@ def smoke(device):
     sched = plist_schedules(device, scene, soup, cam, scam, launches)
     del soup
     grid_entries = nee_grid(device, scene, launches)
+    tails["K3 MT"] = ctx["tail"]
+    tail_phase(tails)
     return [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -981,7 +1104,7 @@ def kd_route(device, scene, soup, cam, scam, launches):
     inv, bo, bd, ba = sort_wave(b_orig, b_dirs, b_alive)
     b_args, b_kw, _, b_out = k3_call("mt", tree, bo, bd, None, t_tile,
                                      active=ba)
-    tally = torch.zeros(3, dtype=torch.int64, device=device)
+    tally = torch.zeros(7, dtype=torch.int64, device=device)
     err, b_plain_ms, b_ref_stats = compare_k3("K3 MT active", b_out, b_args,
                                               b_kw, tally=tally)
     k3_err = max(k3_err, err)
@@ -1118,6 +1241,8 @@ def kd_route(device, scene, soup, cam, scam, launches):
         f"plain torch version {b_plain_ms:.4f} ms on "
         f"{len(range(0, n // t_tile, EVERY))} tiles, bound {mk3_bound:.4f} "
         f"ms ({mk3_by})")
+    say_warp_issued("kd mirror", "K3 MT", tally, b_ops,
+                    b_tests / max(sample_tests, 1))
     entry = {"name": "packet_stream", "route": "cuda",
              "source": "clpathtracer_tpu_torch/ops/csrc/packet_stream.cu",
              "replaces": "clpathtracer_tpu/ops/packet.py:1507",
@@ -1130,7 +1255,8 @@ def kd_route(device, scene, soup, cam, scam, launches):
              "mirror_ms": mk3_ms, "mirror_bound_ms": mk3_bound}
     ctx = dict(scene=scene, soup=soup, cam=cam, scam=scam, tree=tree,
                stree=stree, orig=orig, dirs=dirs, s_orig=s_orig,
-               s_dirs=s_dirs, bo=bo, bd=bd, ba=ba, b_out=b_out, k3_ms=k3_ms)
+               s_dirs=s_dirs, bo=bo, bd=bd, ba=ba, b_out=b_out, k3_ms=k3_ms,
+               tail=k3_tail(b_args, b_kw, b_out, mk3_ms))
     return entry, ctx
 
 

@@ -33,8 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points by source: every one returns cudaGetLastError() after its
-# launch
+# C entry points by source: every launch returns cudaGetLastError() after
+# the launch; a *_shape entry writes a cluster launch's shape (cluster_shape)
 SIGNATURES = {
     "plist_super": {
         # key, sid, bits, rows, dir_t, t0, best_t, best_slot, stats,
@@ -52,6 +52,8 @@ SIGNATURES = {
         # ten, ids, table, dir_t, t0, best_t, best_slot, stats, n_gates,
         # kmax, cwin, win_rows, stream
         "plist_gathered_launch": [_P] * 8 + [_I] * 4 + [_P],
+        # mt, win_rows, out [6] i32
+        "plist_super_shape": [_I, _I, _P],
     },
     "plist_subgate": {
         # key, pay, rows, dir_t, best_t, best_slot, stats, n_gates,
@@ -66,6 +68,8 @@ SIGNATURES = {
         # ten, best_t, best_slot, stats, overflow, n_rays, tile, n_rows,
         # n_windows, mode, n_strips, so, bf16, stream
         "packet_stream_launch": [_P] * 14 + [_I] * 8 + [_P],
+        # tile, so, bf16, out [6] i32
+        "packet_stream_shape": [_I, _I, _I, _P],
     },
     "packet_queue": {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, best_t,
@@ -176,3 +180,20 @@ def load_kernels() -> KernelLibrary:
             fns[name] = fn
     return KernelLibrary(fns=fns, paths=tuple(outs.values()),
                          build_seconds=seconds, build_log=log)
+
+
+SHAPE_KEYS = ("cluster", "threads", "max_active_clusters", "registers",
+              "static_smem", "dynamic_smem")
+
+
+def cluster_shape(entry, *ints) -> dict:
+    """The launch shape that the *_shape C entry `entry` reports for its
+    kernel at `ints` (ops/csrc/cluster.cuh::cluster_shape): blocks per
+    cluster, threads per block, the clusters resident on the card at once,
+    registers per thread, static and dynamic shared memory bytes per
+    block. Needs the card; raises on a CUDA error."""
+    out = (ctypes.c_int * len(SHAPE_KEYS))()
+    err = load_kernels().fns[entry](*ints, out)
+    if err != 0:
+        raise RuntimeError(f"{entry}{ints} failed: cudaError {err}")
+    return dict(zip(SHAPE_KEYS, out))

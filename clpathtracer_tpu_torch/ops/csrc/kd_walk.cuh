@@ -10,7 +10,9 @@
 // A walk is block-uniform: every thread of the block computes the same
 // pops, interval tests and window decisions from the same reads; thread 0
 // writes the stack in shared memory and barriers order its reads and
-// writes. The packet bounds and t_upper are block reductions.
+// writes. The packet bounds and t_upper are block reductions (K3/K4 run
+// the walk on every block of a cluster and reduce them over the cluster
+// instead: packet_stream.cu, cluster.cuh).
 //
 //   packet bounds: per axis the origin range and the clipped inverse-
 //     direction range over the tile's active lanes

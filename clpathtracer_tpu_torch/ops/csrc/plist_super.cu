@@ -22,17 +22,32 @@
 // densely against all 512 rays, and stop as soon as the next entry's
 // conservative entry key exceeds the gate's t_upper.
 //
-// Design: one block per gate, 512 threads, one ray per thread. A thread
-// keeps its ray (direction; origin in the MT form), t0, best t and best slot
-// in registers. For each window the block copies its records (win_rows*8
-// records; cols 0-11 of each 16-float record, of which 0-9 are used) into
-// shared memory, synchronises, and each thread tests every record with the
-// SO or MT pair test of pair_tests.cuh (shared with K3). A block
-// max-reduction of min(best t, t0) refreshes t_upper. A stream starts only
-// if its first key <= min(BIG, max t0). Culled windows carry key +inf, so a
+// Design. A thread keeps one ray (direction; origin in the MT form), t0,
+// best t and best slot in registers, and tests every staged record with the
+// SO or MT pair test of pair_tests.cuh (shared with K3). A max-reduction of
+// min(best t, t0) over the gate refreshes t_upper. A stream starts only if
+// its first key <= min(BIG, max t0). Culled windows carry key +inf, so a
 // stream stops at the first +inf entry. A bundle whose lanes are all dead
 // (t0 = 0) still streams the entries whose key is exactly 0, as the TPU
 // kernels do.
+//
+//   K1 and K1' run one gate or bundle on a thread-block cluster of kCluster
+//   = 4 blocks (cluster.cuh), each block 128 of its 512 lanes, with kSplit
+//   threads a lane (2 in the SO form, 4 in the MT form), each testing a
+//   contiguous share of every window's records: the (t, slot) rule below
+//   does not depend on the order of the tests, so a lane's threads merge
+//   their winners (merge_split) before each t_upper and end with the lane's.
+//   Every block walks the same list; the start test and t_upper after each
+//   super come from a max over the whole cluster (cluster_reduce, through
+//   distributed shared memory), so every block takes the decisions that one
+//   512-thread block took, and tests the same windows in the same order;
+//   rank 0 writes the stats row. Windows are staged with cp.async in a ring
+//   of two buffers, one barrier per window: the copy of the next needed
+//   window (the super's next one, else the first one of the next super,
+//   issued before the break decision: an extra read, never an extra test)
+//   flies while the current one is tested.
+//   K2 and K10 run one block of 512 threads per gate, which copies each
+//   window (K10: each chunk) between two barriers (stage) and tests it.
 //
 //   K1: entries are supers of kSuper windows with one need bit per window;
 //       the needed windows of a super are tested, then t_upper is refreshed,
@@ -76,15 +91,18 @@
 // MT: 53 FP32 operations per pair on the full path (27 mul, 18 add or sub,
 // 7 compares, 1 reciprocal; the reciprocal is a several-instruction IEEE
 // sequence), and 15, 27 or 45 on the pairs that the det, u or v branch
-// rejects (mt_hit).
-// Besides, the __syncthreads and the load latency of each window, which
-// nothing hides yet (K10 copies cwin windows per synchronisation). Making
-// them fast is later work: cp.async/TMA double-buffering of windows,
-// several gates per block, persistent blocks.
+// rejects (mt_hit); a warp issues each record to its deepest lane's exit.
+// On one 512-thread block a bounce wave's K1' took as long as its heaviest
+// bundle on one SM (7,824 windows on the 1M terrain's mirror wave, all of
+// them); on a cluster that bundle runs on 4 SMs with 16 warps each, and the
+// launch moves toward its total work at the rate the pair tests issue. K2
+// and K10 still wait out each window's load at a barrier.
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
+#include "kd_walk.cuh"
 #include "pair_tests.cuh"
 
 namespace {
@@ -93,11 +111,22 @@ using clpt::Ray;
 using clpt::load_ray;
 using clpt::nearest_in_window;
 
-constexpr int kGate = 512;     // rays per gate = threads per block
+constexpr int kGate = 512;     // rays per gate (threads per block of K2, K10)
 constexpr int kSuper = 16;     // windows per super
 constexpr int kRecF4 = 4;      // float4s per 16-float record in memory
 constexpr int kUsedF4 = 3;     // float4s loaded per record (cols 0-11)
 constexpr float kBig = 3.4e38f;
+constexpr int kCluster = 4;    // K1, K1': blocks per gate or bundle
+constexpr int kLanes = kGate / kCluster;  // K1, K1': lanes per block
+// K1, K1': threads per lane, each testing a share of every window's
+// records: 256 threads a block in the SO form, 512 in the MT form
+template <bool kMT>
+constexpr int kSplit = kMT ? 4 : 2;
+
+// K1's dynamic shared memory: two windows of win_rows * 8 staged records.
+size_t super_smem(int win_rows) {
+  return 2 * (size_t)win_rows * 8 * kUsedF4 * sizeof(float4);
+}
 
 // Max of v over the block; every thread gets the result. `red` holds one
 // float per warp. Callers are block-uniform.
@@ -124,15 +153,16 @@ __device__ __forceinline__ void stage(float4* win,
   __syncthreads();
 }
 
-// Outputs of one ray, and the gate's stats row (0, a, 512, b, a).
+// Outputs of one ray, and (writer) its gate's stats row g (0, a, 512, b, a).
 __device__ __forceinline__ void finish(float* __restrict__ best_t,
                                        int* __restrict__ best_slot,
                                        int* __restrict__ stats, int ray_i,
-                                       float bt, int bs, int a, int b) {
+                                       float bt, int bs, int a, int b, int g,
+                                       bool writer) {
   best_t[ray_i] = bt;
   best_slot[ray_i] = bt < kBig ? bs : -1;
-  if (threadIdx.x == 0) {
-    int* st = stats + 5 * blockIdx.x;
+  if (writer) {
+    int* st = stats + 5 * g;
     st[0] = 0;
     st[1] = a;
     st[2] = kGate;
@@ -141,9 +171,67 @@ __device__ __forceinline__ void finish(float* __restrict__ best_t,
   }
 }
 
-// K1 and K1'.
-template <bool kMT>
-__global__ void __launch_bounds__(kGate)
+// K1's staging: n_recs records from `rows` (float4 view of [S, 16]) from
+// record rec0 (cols 0-11) into `dst` with cp.async, this thread's share of
+// the 16-byte copies, then its commit group.
+__device__ __forceinline__ void copy_recs(float4* dst,
+                                          const float4* __restrict__ rows,
+                                          long long rec0, int n_recs) {
+  for (int i = threadIdx.x; i < n_recs * kUsedF4; i += blockDim.x)
+    clpt::cp_async16(dst + i, rows + (rec0 + i / kUsedF4) * kRecF4 +
+                                  i % kUsedF4);
+  clpt::cp_async_commit();
+}
+
+// The max of v over the gate's cluster; every thread gets it.
+__device__ __forceinline__ float cluster_max(float v,
+                                             clpt::ClusterSlots<1>& slots,
+                                             int& par) {
+  clpt::cluster_reduce<1>(&v, slots, par, clpt::MaxOp(), -INFINITY);
+  return v;
+}
+
+// The first record of the needed window after the one of bit `m`'s lowest
+// set bit in super j: this super's next needed window, else the first
+// needed window of super j + 1 when the stream may take it (j + 1 < jcap);
+// -1 when there is none.
+__device__ __forceinline__ long long next_window(
+    const int* __restrict__ gsid, const int* __restrict__ gbits, long long s,
+    unsigned m, int j, int jcap, int win_tris) {
+  const unsigned rest = m & (m - 1u);
+  if (rest) return (s * kSuper + __ffs((int)rest) - 1) * win_tris;
+  if (j + 1 >= jcap) return -1;
+  const unsigned b1 = (unsigned)gbits[j + 1];
+  if (!b1) return -1;
+  return ((long long)gsid[j + 1] * kSuper + __ffs((int)b1) - 1) * win_tris;
+}
+
+// The lexicographic (t, slot) least of the kS threads' winners of each
+// lane, into every one of them: each writes its winner into buf, then all
+// read them. The caller's next barrier (a cluster reduction follows every
+// merge) keeps a later merge from overwriting buf before it is read.
+template <int kS>
+__device__ __forceinline__ void merge_split(float& bt, int& bs, float* buf_t,
+                                            int* buf_s) {
+  buf_t[threadIdx.x] = bt;
+  buf_s[threadIdx.x] = bs;
+  __syncthreads();
+  const int l = threadIdx.x % kLanes;
+  for (int h = 0; h < kS; ++h) {
+    const float t = buf_t[h * kLanes + l];
+    const int sl = buf_s[h * kLanes + l];
+    if (t < bt || (t == bt && sl < bs)) {
+      bt = t;
+      bs = sl;
+    }
+  }
+}
+
+// K1 and K1': one gate or bundle per cluster of kCluster blocks, each block
+// kLanes of its lanes, with kS threads per lane: thread h * kLanes + l
+// tests the h-th kS-th of each window's records against lane l.
+template <bool kMT, int kS>
+__global__ void __launch_bounds__(kLanes * kS)
 plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
                    const int* __restrict__ bits,
                    const float4* __restrict__ rows,
@@ -152,14 +240,20 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
                    const float* __restrict__ t0, float* __restrict__ best_t,
                    int* __restrict__ best_slot, int* __restrict__ stats,
                    int n_rays, int list_len, int win_rows, int jcap) {
-  extern __shared__ float4 win[];  // [win_tris * kUsedF4]
-  __shared__ float red[kGate / 32];
+  extern __shared__ float4 win[];  // two windows of win_tris * kUsedF4
+  __shared__ clpt::ClusterSlots<1> slots;
+  __shared__ float split_t[kLanes * kS];
+  __shared__ int split_s[kLanes * kS];
 
-  const int g = blockIdx.x;
-  const int ray_i = g * kGate + threadIdx.x;
+  const int rank = clpt::cluster_rank();
+  const int g = blockIdx.x / kCluster;
+  const int h = threadIdx.x / kLanes;
+  const int ray_i = g * kGate + rank * kLanes + threadIdx.x % kLanes;
   const Ray ray = load_ray<kMT>(orig_t, dir_t, n_rays, ray_i);
   const float t0r = t0[ray_i];
   const int win_tris = win_rows * 8;
+  const int win_f4 = win_tris * kUsedF4;
+  const int share = win_tris / kS;  // records a thread tests of a window
   const float* gkey = key + (size_t)g * list_len;
   const int* gsid = sid + (size_t)g * list_len;
   const int* gbits = bits + (size_t)g * list_len;
@@ -167,24 +261,40 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
   float bt = kBig;
   int bs = INT_MAX;
   int ns = 0, nw = 0;
-  float tup = fminf(kBig, block_max(t0r, red));
+  int par = 0;
+  float tup = fminf(kBig, cluster_max(t0r, slots, par));
   bool alive = jcap > 0 && gkey[0] <= tup;
+  int cur = 0;          // the buffer of the next window tested
+  long long pend = -1;  // the window whose copy flies into win[cur], if any
   for (int j = 0; alive;) {
     const long long s = gsid[j];
     const unsigned b = (unsigned)gbits[j];
-    for (int k = 0; k < kSuper; ++k) {
-      if (!((b >> k) & 1u)) continue;
-      const long long rec0 = (s * kSuper + k) * win_tris;
-      stage(win, rows, rec0, win_tris);
-      nearest_in_window<kMT>(ray, win, win_tris, rec0, bt, bs);
+    for (unsigned m = b; m; m &= m - 1u) {
+      const long long rec0 = (s * kSuper + __ffs((int)m) - 1) * win_tris;
+      const long long next = next_window(gsid, gbits, s, m, j, jcap,
+                                         win_tris);
+      float4* w = win + cur * win_f4;
+      if (pend != rec0) copy_recs(w, rows, rec0, win_tris);
+      clpt::cp_async_wait<0>();
+      __syncthreads();  // the window has landed; win[cur ^ 1] is free
+      if (next >= 0) copy_recs(win + (cur ^ 1) * win_f4, rows, next, win_tris);
+      pend = next;
+      nearest_in_window<kMT>(ray, w + h * share * kUsedF4, share,
+                             rec0 + h * share, bt, bs);
+      cur ^= 1;
     }
     ++ns;
     nw += __popc(b);
-    tup = block_max(fminf(bt, t0r), red);
+    merge_split<kS>(bt, bs, split_t, split_s);
+    tup = cluster_max(fminf(bt, t0r), slots, par);
     ++j;
     alive = j < jcap && gkey[j] <= tup;
   }
-  finish(best_t, best_slot, stats, ray_i, bt, bs, nw, ns);
+  clpt::cp_async_wait<0>();  // a prefetch that the break left unused
+  if (h == 0)  // every thread of a lane holds its merged winner
+    finish(best_t, best_slot, stats, ray_i, bt, bs, nw, ns, g,
+           rank == 0 && threadIdx.x == 0);
+  clpt::cluster_end();
 }
 
 // K2 (both forms).
@@ -225,7 +335,8 @@ plist_window_kernel(const float* __restrict__ key,
     tup = block_max(fminf(bt, t0r), red);
     alive = next;
   }
-  finish(best_t, best_slot, stats, ray_i, bt, bs, ns, 0);
+  finish(best_t, best_slot, stats, ray_i, bt, bs, ns, 0, g,
+         threadIdx.x == 0);
 }
 
 // K10.
@@ -263,7 +374,8 @@ plist_gathered_kernel(const float* __restrict__ ten,
     tup = block_max(fminf(bt, t0r), red);
     ++c;
   }
-  finish(best_t, best_slot, stats, ray_i, bt, bs, c * cwin, 0);
+  finish(best_t, best_slot, stats, ray_i, bt, bs, c * cwin, 0, g,
+         threadIdx.x == 0);
 }
 
 // Launch with `recs` staged records of dynamic shared memory; raises the
@@ -288,15 +400,16 @@ int launch_super(const void* key, const void* sid, const void* bits,
                  const void* t0, void* best_t, void* best_slot, void* stats,
                  int n_gates, int list_len, int win_rows, int jcap,
                  void* stream) {
-  return launch(plist_super_kernel<kMT>, n_gates, win_rows * 8, stream,
-                static_cast<const float*>(key), static_cast<const int*>(sid),
-                static_cast<const int*>(bits),
-                static_cast<const float4*>(rows),
-                static_cast<const float*>(orig_t),
-                static_cast<const float*>(dir_t),
-                static_cast<const float*>(t0), static_cast<float*>(best_t),
-                static_cast<int*>(best_slot), static_cast<int*>(stats),
-                n_gates * kGate, list_len, win_rows, jcap);
+  if (n_gates == 0) return 0;
+  return clpt::launch_cluster(
+      plist_super_kernel<kMT, kSplit<kMT>>, kCluster, n_gates * kCluster,
+      kLanes * kSplit<kMT>, super_smem(win_rows), (cudaStream_t)stream,
+      static_cast<const float*>(key), static_cast<const int*>(sid),
+      static_cast<const int*>(bits), static_cast<const float4*>(rows),
+      static_cast<const float*>(orig_t), static_cast<const float*>(dir_t),
+      static_cast<const float*>(t0), static_cast<float*>(best_t),
+      static_cast<int*>(best_slot), static_cast<int*>(stats),
+      n_gates * kGate, list_len, win_rows, jcap);
 }
 
 template <bool kMT>
@@ -371,6 +484,19 @@ extern "C" int plist_window_mt_launch(const void* key, const void* wid,
   return launch_window<true>(key, wid, rows, orig_t, dir_t, t0, best_t,
                              best_slot, stats, n_gates, list_len, win_rows,
                              stream);
+}
+
+// The shape of K1's (mt == 0) or K1''s cluster launch at win_rows, as
+// clpt::cluster_shape writes it into out[6]: blocks per cluster, threads
+// per block, the clusters resident at once, registers per thread, static
+// and dynamic shared memory bytes per block. Returns a CUDA error or 0.
+extern "C" int plist_super_shape(int mt, int win_rows, int* out) {
+  const size_t smem = super_smem(win_rows);
+  return mt ? clpt::cluster_shape(plist_super_kernel<true, kSplit<true>>,
+                                  kCluster, kLanes * kSplit<true>, smem, out)
+            : clpt::cluster_shape(plist_super_kernel<false, kSplit<false>>,
+                                  kCluster, kLanes * kSplit<false>, smem,
+                                  out);
 }
 
 // K10. ten/ids: [n_gates, kmax] f32/i32, each gate's entry keys in

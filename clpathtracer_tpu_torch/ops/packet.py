@@ -61,6 +61,14 @@ GATE_LANES = 512    # half-gate mode: the dense test runs per 512-lane gate
 QUEUE_DEPTH = 8     # K5: windows in flight (the JAX default qdepth)
 PRECISIONS = ("f32", "bf16")
 BF16_MISS = 3.0e38  # the bf16 preview's miss value (bf16 max is ~3.39e38)
+WARP = 32           # lanes of a warp: 32 consecutive lanes of a gate or tile
+# FP32 operations per MT pair test, counted from ops/csrc/pair_tests.cuh::
+# mt_hit, which leaves its test early. A pair rejected at det > 0 costs 15
+# (p = d x e2: 6 mul, 3 sub; det: 3 mul, 2 add; 1 compare); at the u test
+# 27 (1 reciprocal, 3 sub, 4 mul, 2 add, 2 compares more); at the v test
+# 45 (q: 6 mul, 3 sub; v: 4 mul, 2 add; u + v; 2 compares more); past it
+# 53 (t: 4 mul, 2 add; 2 compares more).
+MT_EXIT_OPS = (15, 27, 45, 53)
 _WIN_RECS = CHUNK_ROWS * 8
 _INT_MAX = torch.iinfo(torch.int32).max
 # (ray, record) pairs per dense step of the plain K3: bounds its
@@ -182,7 +190,7 @@ def so_pairs(r, dx, dy, dz):
 
 
 def mt_pairs(r, ox, oy, oz, dx, dy, dz, tally=None, tested=None,
-             dtype=torch.float32):
+             dtype=torch.float32, lane_dim=-1):
     """The general Moller-Trumbore pair test with backface cull
     (clpathtracer_tpu/ops/packet.py::_mt_chunk_math, its order of
     operations) over broadcast shapes: r [..., >= 10] records (v0, e1, e2,
@@ -197,7 +205,10 @@ def mt_pairs(r, ox, oy, oz, dx, dy, dz, tally=None, tested=None,
     pass det > 0, then also 0 <= u <= 1, then also v >= 0 and u + v <= 1:
     the CUDA test's early exits, which set the work these inputs need.
     tested (optional bool, broadcastable): the pairs the kernel tests; the
-    tally counts only those."""
+    tally counts only those. A tally of 7 lanes also counts what warps
+    issue (warp_ops): in lanes 3-6 the (warp, record) groups with a tested
+    pair, and those whose deepest tested lane passes det, u, v; a warp is
+    32 consecutive lanes along dimension lane_dim of the broadcast shape."""
     if dtype != torch.float32:
         r = r[..., :10].to(dtype)
         ox, oy, oz, dx, dy, dz = (x.to(dtype) for x in (ox, oy, oz, dx, dy,
@@ -224,12 +235,43 @@ def mt_pairs(r, ox, oy, oz, dx, dy, dz, tally=None, tested=None,
         counted = [pass_det, pass_u, pass_v]
         if tested is not None:
             counted = [c & tested for c in counted]
-        tally.add_(torch.stack([c.sum() for c in counted]))
+        tally[:3].add_(torch.stack([c.sum() for c in counted]))
+        if tally.numel() == 7:
+            on = (torch.ones_like(pass_det) if tested is None
+                  else tested.expand_as(pass_det))
+            tally[3:].add_(torch.stack([_warp_any(c, lane_dim).sum()
+                                        for c in (on, *counted)]))
     if dtype == torch.float32:
         return ok, torch.where(ok, tt, BIG)
     t = torch.where(ok, tt, BF16_MISS).float()
     ok = ok & (t < BF16_MISS)
     return ok, torch.where(ok, t, BIG)
+
+
+def _warp_any(x, lane_dim):
+    """Whether any of each WARP consecutive lanes of x along lane_dim is
+    set: the lanes' dimension moved last and cut into warps."""
+    x = x.movedim(lane_dim, -1)
+    return x.reshape(*x.shape[:-1], -1, WARP).any(dim=-1)
+
+
+def mt_ops(tests, tally, exit_ops=MT_EXIT_OPS):
+    """FP32 operations of `tests` MT pairs: each pair weighted by the early
+    exit it takes (tally: the pairs that pass det, u, v; its first three
+    lanes are read)."""
+    passed = [tests, *(int(x) for x in tally[:3])]
+    left = [passed[i] - passed[i + 1] for i in range(3)] + [passed[3]]
+    return sum(c * w for c, w in zip(left, exit_ops))
+
+
+def warp_ops(tally, exit_ops=MT_EXIT_OPS):
+    """The FP32 lane operations that warps issue for the pairs a 7-lane
+    tally (mt_pairs) counted: a warp runs each record to its deepest tested
+    lane's exit, so a (warp, record) group costs WARP times that exit's
+    operations. Against mt_ops of the same pairs (each lane at its own
+    exit), the ratio is what the early exits' divergence within warps
+    costs."""
+    return WARP * mt_ops(int(tally[3]), tally[4:7], exit_ops)
 
 
 # ---------------------------------------------------------------------------

@@ -770,7 +770,8 @@ def _group_test(orig_t, dir_t, lanes, tally=None):
 
     def test(g, r):
         return mt_pairs(r[:, None], *(o[ax, g][:, :, None] for ax in range(3)),
-                        *(d[ax, g][:, :, None] for ax in range(3)), tally)
+                        *(d[ax, g][:, :, None] for ax in range(3)), tally,
+                        lane_dim=-2)
     return test
 
 
@@ -838,7 +839,8 @@ def plist_super_mt_reference(key, sid, bits, rows, orig_t, dir_t, t0, *,
     tally (optional int64 [3] tensor on the device): adds the counts of the
     tested (ray, record) pairs that pass det > 0, then also 0 <= u <= 1,
     then also v >= 0 and u + v <= 1: the kernel's early exits, which set
-    the work these inputs need."""
+    the work these inputs need. A tally of 7 lanes also counts what the
+    warps issue (packet.py::mt_pairs, warp_ops)."""
     return _super_reference(key, sid, bits, rows,
                             _group_test(orig_t, dir_t, GATE, tally), t0,
                             win_rows, kcap)
