@@ -10,9 +10,11 @@ not 0):
    turn TF32 off;
 2. build: compile clpathtracer_tpu_torch/ops/csrc/*.cu with nvcc (sm_90a),
    one nvcc per source, all started together, and load the libraries;
-   print the cluster launch shape of K1, K1', K1's kcap form, K3 and K4
-   (blocks per cluster, threads, registers, shared memory, the clusters
-   resident at once: cudaOccupancyMaxActiveClusters);
+   print the cluster launch shape of K1, K1', K1's kcap form, K2 (SO and
+   MT), K3 and K4 (blocks per cluster, threads, registers, shared memory,
+   the clusters resident at once: cudaOccupancyMaxActiveClusters) and G1's
+   launch shape (threads a block and a ray, blocks resident on an SM,
+   registers, shared memory, spill bytes);
 3. scene: the procedural 1M-triangle terrain (seed 0), windows at
    win_rows 16 with shared-origin tables and resolve rows on the card;
    camera [0, 14, 0] looking down [0, -1, 0.01]; a 512x512 frame
@@ -211,7 +213,11 @@ emissive_frac 0.001), windows at win_rows 8, camera [0, 0, -25] looking
    (no hit, no step); G1 beside K1' on each wave sorted into bundles, in
    turns; steps mean and max; G1's bound on each timed wave (the table
    bytes its loads read and each lane's inputs and outputs, against its
-   MT operations);
+   MT operations); the tail: each timed wave's longest-walking lanes (the
+   top 1/64 by steps) cut out as their own call, equal to the full
+   launch's lanes and to the plain version (exact), timed in turns beside
+   the full wave, and the row latency that implies (tail ms / its most
+   rows);
 36. K1's kcap form at kcap 8, 16 and 32 on the soup primaries, counted
    and against its plain version on every 8th gate (exact in t, slot and
    all five stats lanes); the two-phase traverse_plist(kcap=, grid=)
@@ -248,9 +254,9 @@ op-level calls, K7 and K8 their three traverse_packet calls each, K2 the
 "window" frames, K10 the traverse_plist(gathered=True) call at the
 terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
 frames, K1's kcap form the two-phase calls), with every path's own
-count beside them; the cluster walks (K1, K1', K1's kcap form, K3, K4)
-also give their blocks per cluster ("cluster"). The last line is
-{"ok": true, "device": {...}}.
+count beside them; the cluster walks (K1, K1', K1's kcap form, K2, K3,
+K4) also give their blocks per cluster ("cluster"), G1 its tail calls.
+The last line is {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -268,7 +274,8 @@ from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (Camera, cam_matrix,
                                                 generate_rays)
 from clpathtracer_tpu_torch.ops import packet, packet_mxu, plist
-from clpathtracer_tpu_torch.ops._cuda import cluster_shape, load_kernels
+from clpathtracer_tpu_torch.ops._cuda import (cluster_shape, grid_shape,
+                                              load_kernels)
 from clpathtracer_tpu_torch.ops.grid_walk import (traverse_grid,
                                                   traverse_grid_reference)
 from clpathtracer_tpu_torch.ops.packet import (BIG, MT_EXIT_OPS,
@@ -721,6 +728,12 @@ def main():
             f"{sh['static_smem']} + {sh['dynamic_smem']} bytes of shared "
             f"memory a block, at most {sh['max_active_clusters']} clusters "
             "resident")
+    g = grid_shape()
+    say("build", f"traverse_grid: blocks of {g['threads']} threads, "
+        f"{g['ray_threads']} threads a ray, {g['blocks_per_sm']} blocks "
+        f"resident on an SM, {g['registers']} registers a thread, "
+        f"{g['static_smem']} bytes of shared memory a block, "
+        f"{g['local_bytes']} spill bytes a thread")
 
     kernels = smoke(device)
     for k in kernels:
@@ -742,6 +755,9 @@ def cluster_shapes():
                                             WIN_ROWS),
             "plist_super_kcap": cluster_shape("plist_super_shape", 0,
                                               SOUP_WIN_ROWS),
+            "plist_window": cluster_shape("plist_window_shape", 0, WIN_ROWS),
+            "plist_window_mt": cluster_shape("plist_window_shape", 1,
+                                             WIN_ROWS),
             "packet_stream": cluster_shape("packet_stream_shape", tile, 1, 0),
             "packet_stream_bf16": cluster_shape("packet_stream_shape", tile,
                                                 0, 1)}
@@ -2321,10 +2337,12 @@ def face_forward(normal, d):
     return torch.where((vm.dot(normal, d) > 0)[:, None], -normal, normal)
 
 
+G1_FIELDS = ("hit", "t", "tri", "u", "v", "steps")
+
+
 def same_walk(name, rec, lanes, ref):
     """Hold G1's record on `lanes` to its plain version's, exactly."""
-    bad = {k: int((rec[k][lanes] != ref[k]).sum())
-           for k in ("hit", "t", "tri", "u", "v", "steps")}
+    bad = {k: int((rec[k][lanes] != ref[k]).sum()) for k in G1_FIELDS}
     say(name, f"{lanes.numel()} lanes (every {EVERY}th) against the plain "
         f"version (tolerance: exact): mismatches {bad}, "
         f"{int(ref['hit'].sum())} hits")
@@ -2362,6 +2380,80 @@ def g1_bound(rec, tally, sample_steps, wave):
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", steps, nbytes,
             ops)
+
+
+TAIL_FRAC = 64      # G1's tail call: the top 1/64 of a wave's lanes by steps
+
+
+def g1_tail(name, grid, wave, rec):
+    """Phase 35's tail: the wave's longest-walking lanes (the top 1/64 by
+    the full launch's steps, which phase 35 held to the plain run's) cut
+    out as their own call; its record equal to the full launch's lanes and
+    to the plain version's, exactly; timed in turns beside the full wave.
+    Returns the kernels line's tail entry."""
+    steps = rec["steps"]
+    k = steps.numel() // TAIL_FRAC
+    lanes = torch.argsort(steps, descending=True, stable=True)[:k]
+    sub = {key: (v[lanes].contiguous() if isinstance(v, torch.Tensor)
+                 else v) for key, v in wave.items()}
+    out = traverse_grid(grid, **sub)
+    torch.cuda.synchronize()
+    ref = traverse_grid_reference(grid, **sub)
+    bad = {f: int((out[f] != rec[f][lanes]).sum()) for f in G1_FIELDS}
+    bad_plain = {f: int((ref[f] != rec[f][lanes]).sum()) for f in G1_FIELDS}
+    rows = int(steps[lanes[0]])
+    say(name, f"tail: the {k} lanes that walk longest ({int(steps[lanes[-1]])}"
+        f"-{rows} rows) alone against the full launch's lanes (tolerance: "
+        f"exact): mismatches {bad}; the plain version's against the same "
+        f"{bad_plain}")
+    if any(bad.values()) or any(bad_plain.values()):
+        raise AssertionError(f"{name}: the tail call differs from the full "
+                             "launch")
+    full_ms, tail_ms = turns_ms([lambda: traverse_grid(grid, **wave),
+                                 lambda: traverse_grid(grid, **sub)], 10)
+    say(name, f"tail: {tail_ms:.4f} ms alone beside the full wave's "
+        f"{full_ms:.4f} ms ({tail_ms / full_ms:.3f}x, in turns); its most "
+        f"rows {rows}: {tail_ms / rows * 1e3:.3f} us a row")
+    return {"lanes": k, "rows_max": rows, "ms": tail_ms,
+            "full_ms": full_ms, "us_per_row": tail_ms / rows * 1e3}
+
+
+def nee_waves(soup, lights, device):
+    """Phase 35's waves on the emissive soup's frame (SIZE x SIZE, camera
+    SOUP_POS): its primary hits, a bounce wave cosine-sampled from them
+    and a NEE shadow wave toward sampled lights, from a generator seeded
+    0. Each wave as traverse_grid's keyword arguments (`waves`), beside
+    the windows, camera, rays and options of the frame."""
+    n = SIZE * SIZE
+    swin = build_windows(soup, SOUP_WIN_ROWS, device)
+    scam = Camera.create(SOUP_POS, SOUP_FWD, device=device)
+    orig, dirs = generate_rays(cam_matrix(scam, SIZE), SIZE, SIZE)
+    opts = RenderOptions(width=SIZE, height=SIZE, mode="path", bounces=2,
+                         nee=True, background=0.0)
+    prim = intersect_scene(soup, swin, orig, dirs, opts)
+    point, normal, _, _ = _surface(soup, prim, orig, dirs)
+    normal = face_forward(normal, dirs)
+    hit = prim["hit"]
+    gen = torch.Generator(device=device).manual_seed(0)
+    u12 = torch.rand((n, 2), generator=gen, device=device)
+    b_orig = torch.where(hit[:, None], point + normal * BOUNCE_EPS, orig)
+    b_dirs = torch.where(hit[:, None],
+                         cosine_sample_hemisphere(normal, u12[:, 0],
+                                                  u12[:, 1]), dirs)
+    sw = nee_wave(soup, point, normal, hit,
+                  torch.rand((n, 3), generator=gen, device=device), 1,
+                  lights)
+    s_tmax = sw["dist"] - 1e-3
+    waves = {
+        "bounce": dict(orig=b_orig, dir=b_dirs, active=hit),
+        "shadow nearest": dict(orig=sw["orig"], dir=sw["dir"],
+                               active=sw["live"], t_max=s_tmax),
+        "shadow any-hit": dict(orig=sw["orig"], dir=sw["dir"],
+                               active=sw["live"], t_max=s_tmax,
+                               any_hit=True)}
+    return SimpleNamespace(swin=swin, scam=scam, orig=orig, dirs=dirs,
+                           opts=opts, hit=hit, b_orig=b_orig, b_dirs=b_dirs,
+                           sw=sw, s_tmax=s_tmax, waves=waves)
 
 
 def nee_grid(device, scene, launches):
@@ -2402,32 +2494,11 @@ def nee_grid(device, scene, launches):
                                  "1000 emitters")
 
     # 35. G1 on a bounce wave and a NEE shadow wave of the soup frame
-    swin = build_windows(soup, SOUP_WIN_ROWS, device)
-    scam = Camera.create(SOUP_POS, SOUP_FWD, device=device)
-    orig, dirs = generate_rays(cam_matrix(scam, SIZE), SIZE, SIZE)
-    opts = RenderOptions(width=SIZE, height=SIZE, mode="path", bounces=2,
-                         nee=True, background=0.0)
-    prim = intersect_scene(soup, swin, orig, dirs, opts)
-    point, normal, _, _ = _surface(soup, prim, orig, dirs)
-    normal = face_forward(normal, dirs)
-    hit = prim["hit"]
-    gen = torch.Generator(device=device).manual_seed(0)
-    u12 = torch.rand((n, 2), generator=gen, device=device)
-    b_orig = torch.where(hit[:, None], point + normal * BOUNCE_EPS, orig)
-    b_dirs = torch.where(hit[:, None],
-                         cosine_sample_hemisphere(normal, u12[:, 0],
-                                                  u12[:, 1]), dirs)
-    sw = nee_wave(soup, point, normal, hit,
-                  torch.rand((n, 3), generator=gen, device=device), 1,
-                  lights)
-    s_tmax = sw["dist"] - 1e-3
-    waves = {
-        "bounce": dict(orig=b_orig, dir=b_dirs, active=hit),
-        "shadow nearest": dict(orig=sw["orig"], dir=sw["dir"],
-                               active=sw["live"], t_max=s_tmax),
-        "shadow any-hit": dict(orig=sw["orig"], dir=sw["dir"],
-                               active=sw["live"], t_max=s_tmax,
-                               any_hit=True)}
+    nw = nee_waves(soup, lights, device)
+    swin, scam, orig, dirs, opts = nw.swin, nw.scam, nw.orig, nw.dirs, nw.opts
+    hit, b_orig, b_dirs, sw, s_tmax = (nw.hit, nw.b_orig, nw.b_dirs, nw.sw,
+                                       nw.s_tmax)
+    waves = nw.waves
     lanes = torch.arange(0, n, EVERY, device=device)
     g1 = {}
     g1_err = 0.0
@@ -2503,6 +2574,8 @@ def nee_grid(device, scene, launches):
             f"bound {bnd:.4f} ms ({by}) against {g1_ms[name]:.4f} ms "
             f"({g1_ms[name] / bnd:.2f}x)")
     g1_bound_ms, g1_by = g1_bounds["bounce"][:2]
+    tails = {name: g1_tail(f"G1 {name}", grid, waves[name], g1[name].rec)
+             for name in g1_ms}
 
     # 36. K1's kcap form and the two-phase engine on the soup primaries
     o = orig[0]
@@ -2672,7 +2745,8 @@ def nee_grid(device, scene, launches):
          "plain_lanes": f"every {EVERY}th", "bound_ms": g1_bound_ms,
          "bound_by": g1_by, "library_ms": None,
          "shadow_any_hit_ms": g1_ms["shadow any-hit"],
-         "shadow_any_hit_bound_ms": g1_bounds["shadow any-hit"][0]},
+         "shadow_any_hit_bound_ms": g1_bounds["shadow any-hit"][0],
+         "tail": tails},
         {"name": "plist_super_kcap", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
          "replaces": "clpathtracer_tpu/ops/plist.py:1015",

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points by source: every launch returns cudaGetLastError() after
-# the launch; a *_shape entry writes a cluster launch's shape (cluster_shape)
+# the launch; a *_shape entry writes a launch's shape (cluster_shape,
+# grid_shape)
 SIGNATURES = {
     "plist_super": {
         # key, sid, bits, rows, dir_t, t0, best_t, best_slot, stats,
@@ -54,6 +55,8 @@ SIGNATURES = {
         "plist_gathered_launch": [_P] * 8 + [_I] * 4 + [_P],
         # mt, win_rows, out [6] i32
         "plist_super_shape": [_I, _I, _P],
+        # mt, win_rows, out [6] i32
+        "plist_window_shape": [_I, _I, _P],
     },
     "plist_subgate": {
         # key, pay, rows, dir_t, best_t, best_slot, stats, n_gates,
@@ -88,8 +91,11 @@ SIGNATURES = {
     },
     "grid_dda": {
         # table, geom, orig, dir, t_max, active, out_t, out_tri, out_u,
-        # out_v, out_steps, n, rx, ry, rz, nrows, max_iters, any_hit, stream
-        "grid_dda_launch": [_P] * 11 + [_I] * 7 + [_P],
+        # out_v, out_steps, next_ray, n, rx, ry, rz, nrows, max_iters,
+        # any_hit, stream
+        "grid_dda_launch": [_P] * 12 + [_I] * 7 + [_P],
+        # out [6] i32
+        "grid_dda_shape": [_P],
     },
     "packet_v1": {
         # table, recs, orig_t, dir_t, best_t, best_slot, stats, overflow,
@@ -184,6 +190,16 @@ def load_kernels() -> KernelLibrary:
 
 SHAPE_KEYS = ("cluster", "threads", "max_active_clusters", "registers",
               "static_smem", "dynamic_smem")
+GRID_SHAPE_KEYS = ("threads", "ray_threads", "blocks_per_sm", "registers",
+                   "static_smem", "local_bytes")
+
+
+def _shape(entry, keys, ints) -> dict:
+    out = (ctypes.c_int * len(keys))()
+    err = load_kernels().fns[entry](*ints, out)
+    if err != 0:
+        raise RuntimeError(f"{entry}{tuple(ints)} failed: cudaError {err}")
+    return dict(zip(keys, out))
 
 
 def cluster_shape(entry, *ints) -> dict:
@@ -192,8 +208,12 @@ def cluster_shape(entry, *ints) -> dict:
     cluster, threads per block, the clusters resident on the card at once,
     registers per thread, static and dynamic shared memory bytes per
     block. Needs the card; raises on a CUDA error."""
-    out = (ctypes.c_int * len(SHAPE_KEYS))()
-    err = load_kernels().fns[entry](*ints, out)
-    if err != 0:
-        raise RuntimeError(f"{entry}{ints} failed: cudaError {err}")
-    return dict(zip(SHAPE_KEYS, out))
+    return _shape(entry, SHAPE_KEYS, ints)
+
+
+def grid_shape() -> dict:
+    """G1's launch shape (ops/csrc/grid_dda.cu::grid_dda_shape): threads
+    per block, threads per ray, blocks resident on one SM, registers per
+    thread, static shared memory bytes per block and local (spill) bytes
+    per thread. Needs the card; raises on a CUDA error."""
+    return _shape("grid_dda_shape", GRID_SHAPE_KEYS, ())

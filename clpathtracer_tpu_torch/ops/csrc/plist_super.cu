@@ -31,23 +31,25 @@
 // (t0 = 0) still streams the entries whose key is exactly 0, as the TPU
 // kernels do.
 //
-//   K1 and K1' run one gate or bundle on a thread-block cluster of kCluster
-//   = 4 blocks (cluster.cuh), each block 128 of its 512 lanes, with kSplit
-//   threads a lane (2 in the SO form, 4 in the MT form), each testing a
-//   contiguous share of every window's records: the (t, slot) rule below
+//   K1, K1' and K2 run one gate or bundle on a thread-block cluster of
+//   kCluster = 4 blocks (cluster.cuh), each block 128 of its 512 lanes, with
+//   kSplit threads a lane (2 in the SO form, 4 in the MT form), each testing
+//   a contiguous share of every window's records: the (t, slot) rule below
 //   does not depend on the order of the tests, so a lane's threads merge
 //   their winners (merge_split) before each t_upper and end with the lane's.
-//   Every block walks the same list; the start test and t_upper after each
-//   super come from a max over the whole cluster (cluster_reduce, through
-//   distributed shared memory), so every block takes the decisions that one
-//   512-thread block took, and tests the same windows in the same order;
-//   rank 0 writes the stats row. Windows are staged with cp.async in a ring
-//   of two buffers, one barrier per window: the copy of the next needed
-//   window (the super's next one, else the first one of the next super,
-//   issued before the break decision: an extra read, never an extra test)
-//   flies while the current one is tested.
-//   K2 and K10 run one block of 512 threads per gate, which copies each
-//   window (K10: each chunk) between two barriers (stage) and tests it.
+//   Every block walks the same list; the start test and each t_upper (K1:
+//   after a super, K2: after a window) come from a max over the whole
+//   cluster (cluster_reduce, through distributed shared memory), so every
+//   block takes the decisions that one 512-thread block took, and tests the
+//   same windows in the same order; rank 0 writes the stats row. Windows
+//   are staged with cp.async in a ring of two buffers, one barrier per
+//   window: the copy of the next needed window flies while the current one
+//   is tested. K1 copies the super's next one, else the first one of the
+//   next super, issued before the break decision (an extra read, never an
+//   extra test); K2 copies window j + 1 exactly when its decision below
+//   takes it, before window j is tested.
+//   K10 runs one block of 512 threads per gate, which copies each chunk
+//   between two barriers (stage) and tests it.
 //
 //   K1: entries are supers of kSuper windows with one need bit per window;
 //       the needed windows of a super are tested, then t_upper is refreshed,
@@ -95,8 +97,8 @@
 // On one 512-thread block a bounce wave's K1' took as long as its heaviest
 // bundle on one SM (7,824 windows on the 1M terrain's mirror wave, all of
 // them); on a cluster that bundle runs on 4 SMs with 16 warps each, and the
-// launch moves toward its total work at the rate the pair tests issue. K2
-// and K10 still wait out each window's load at a barrier.
+// launch moves toward its total work at the rate the pair tests issue. K10
+// still waits out each chunk's load at a barrier.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -111,25 +113,26 @@ using clpt::Ray;
 using clpt::load_ray;
 using clpt::nearest_in_window;
 
-constexpr int kGate = 512;     // rays per gate (threads per block of K2, K10)
+constexpr int kGate = 512;     // rays per gate (threads per block of K10)
 constexpr int kSuper = 16;     // windows per super
 constexpr int kRecF4 = 4;      // float4s per 16-float record in memory
 constexpr int kUsedF4 = 3;     // float4s loaded per record (cols 0-11)
 constexpr float kBig = 3.4e38f;
-constexpr int kCluster = 4;    // K1, K1': blocks per gate or bundle
-constexpr int kLanes = kGate / kCluster;  // K1, K1': lanes per block
-// K1, K1': threads per lane, each testing a share of every window's
+constexpr int kCluster = 4;    // K1, K1', K2: blocks per gate or bundle
+constexpr int kLanes = kGate / kCluster;  // K1, K1', K2: lanes per block
+// K1, K1', K2: threads per lane, each testing a share of every window's
 // records: 256 threads a block in the SO form, 512 in the MT form
 template <bool kMT>
 constexpr int kSplit = kMT ? 4 : 2;
 
-// K1's dynamic shared memory: two windows of win_rows * 8 staged records.
-size_t super_smem(int win_rows) {
+// K1's and K2's dynamic shared memory: a ring of two windows of
+// win_rows * 8 staged records.
+size_t ring_smem(int win_rows) {
   return 2 * (size_t)win_rows * 8 * kUsedF4 * sizeof(float4);
 }
 
-// Max of v over the block; every thread gets the result. `red` holds one
-// float per warp. Callers are block-uniform.
+// K10: max of v over the block; every thread gets the result. `red` holds
+// one float per warp. Callers are block-uniform.
 __device__ float block_max(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -141,7 +144,7 @@ __device__ float block_max(float v, float* red) {
   return r;
 }
 
-// Copy n_recs records from `rows` (float4 view of [S, 16]), starting at
+// K10: copy n_recs records from `rows` (float4 view of [S, 16]), starting at
 // record rec0, into shared memory (cols 0-11). The block synchronises
 // before (every thread is done with the previous contents) and after.
 __device__ __forceinline__ void stage(float4* win,
@@ -171,9 +174,9 @@ __device__ __forceinline__ void finish(float* __restrict__ best_t,
   }
 }
 
-// K1's staging: n_recs records from `rows` (float4 view of [S, 16]) from
-// record rec0 (cols 0-11) into `dst` with cp.async, this thread's share of
-// the 16-byte copies, then its commit group.
+// K1's and K2's staging: n_recs records from `rows` (float4 view of
+// [S, 16]) from record rec0 (cols 0-11) into `dst` with cp.async, this
+// thread's share of the 16-byte copies, then its commit group.
 __device__ __forceinline__ void copy_recs(float4* dst,
                                           const float4* __restrict__ rows,
                                           long long rec0, int n_recs) {
@@ -297,9 +300,14 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
   clpt::cluster_end();
 }
 
-// K2 (both forms).
-template <bool kMT>
-__global__ void __launch_bounds__(kGate)
+// K2 (both forms): one gate per cluster of kCluster blocks, each block
+// kLanes of its lanes, with kS threads per lane as in K1. Window j + 1's
+// copy is issued before window j is tested, into the other buffer of the
+// ring, if and only if the TPU kernel's prefetch decision takes it: its key
+// <= the t_upper from before window j. So every window copied is tested,
+// and the stats are the TPU kernel's.
+template <bool kMT, int kS>
+__global__ void __launch_bounds__(kLanes * kS)
 plist_window_kernel(const float* __restrict__ key,
                     const int* __restrict__ wid,
                     const float4* __restrict__ rows,
@@ -308,35 +316,53 @@ plist_window_kernel(const float* __restrict__ key,
                     const float* __restrict__ t0, float* __restrict__ best_t,
                     int* __restrict__ best_slot, int* __restrict__ stats,
                     int n_rays, int list_len, int win_rows) {
-  extern __shared__ float4 win[];  // [win_tris * kUsedF4]
-  __shared__ float red[kGate / 32];
+  extern __shared__ float4 win[];  // two windows of win_tris * kUsedF4
+  __shared__ clpt::ClusterSlots<1> slots;
+  __shared__ float split_t[kLanes * kS];
+  __shared__ int split_s[kLanes * kS];
 
-  const int g = blockIdx.x;
-  const int ray_i = g * kGate + threadIdx.x;
+  const int rank = clpt::cluster_rank();
+  const int g = blockIdx.x / kCluster;
+  const int h = threadIdx.x / kLanes;
+  const int ray_i = g * kGate + rank * kLanes + threadIdx.x % kLanes;
   const Ray ray = load_ray<kMT>(orig_t, dir_t, n_rays, ray_i);
   const float t0r = t0[ray_i];
   const int win_tris = win_rows * 8;
+  const int win_f4 = win_tris * kUsedF4;
+  const int share = win_tris / kS;  // records a thread tests of a window
   const float* gkey = key + (size_t)g * list_len;
   const int* gwid = wid + (size_t)g * list_len;
 
   float bt = kBig;
   int bs = INT_MAX;
   int ns = 0;
-  float tup = fminf(kBig, block_max(t0r, red));
+  int par = 0;
+  float tup = fminf(kBig, cluster_max(t0r, slots, par));
   bool alive = list_len > 0 && gkey[0] <= tup;
+  if (alive) copy_recs(win, rows, (long long)gwid[0] * win_tris, win_tris);
+  int cur = 0;  // the buffer of window j
   for (int j = 0; alive; ++j) {
     // the TPU kernel's prefetch decision: window j+1 against the t_upper
     // from before window j
     const bool next = j + 1 < list_len && gkey[j + 1] <= tup;
     const long long rec0 = (long long)gwid[j] * win_tris;
-    stage(win, rows, rec0, win_tris);
-    nearest_in_window<kMT>(ray, win, win_tris, rec0, bt, bs);
+    clpt::cp_async_wait<0>();
+    __syncthreads();  // window j has landed; win[cur ^ 1] is free
+    if (next)
+      copy_recs(win + (cur ^ 1) * win_f4, rows,
+                (long long)gwid[j + 1] * win_tris, win_tris);
+    nearest_in_window<kMT>(ray, win + cur * win_f4 + h * share * kUsedF4,
+                           share, rec0 + h * share, bt, bs);
     ++ns;
-    tup = block_max(fminf(bt, t0r), red);
+    merge_split<kS>(bt, bs, split_t, split_s);
+    tup = cluster_max(fminf(bt, t0r), slots, par);
     alive = next;
+    cur ^= 1;
   }
-  finish(best_t, best_slot, stats, ray_i, bt, bs, ns, 0, g,
-         threadIdx.x == 0);
+  if (h == 0)  // every thread of a lane holds its merged winner
+    finish(best_t, best_slot, stats, ray_i, bt, bs, ns, 0, g,
+           rank == 0 && threadIdx.x == 0);
+  clpt::cluster_end();
 }
 
 // K10.
@@ -378,8 +404,8 @@ plist_gathered_kernel(const float* __restrict__ ten,
          threadIdx.x == 0);
 }
 
-// Launch with `recs` staged records of dynamic shared memory; raises the
-// kernel's limit above the default 48 KB where it needs more. Returns
+// K10: launch with `recs` staged records of dynamic shared memory; raises
+// the kernel's limit above the default 48 KB where it needs more. Returns
 // cudaGetLastError() after the launch.
 template <typename Kernel, typename... Args>
 int launch(Kernel kernel, int n_gates, int recs, void* stream,
@@ -403,7 +429,7 @@ int launch_super(const void* key, const void* sid, const void* bits,
   if (n_gates == 0) return 0;
   return clpt::launch_cluster(
       plist_super_kernel<kMT, kSplit<kMT>>, kCluster, n_gates * kCluster,
-      kLanes * kSplit<kMT>, super_smem(win_rows), (cudaStream_t)stream,
+      kLanes * kSplit<kMT>, ring_smem(win_rows), (cudaStream_t)stream,
       static_cast<const float*>(key), static_cast<const int*>(sid),
       static_cast<const int*>(bits), static_cast<const float4*>(rows),
       static_cast<const float*>(orig_t), static_cast<const float*>(dir_t),
@@ -417,14 +443,15 @@ int launch_window(const void* key, const void* wid, const void* rows,
                   const void* orig_t, const void* dir_t, const void* t0,
                   void* best_t, void* best_slot, void* stats, int n_gates,
                   int list_len, int win_rows, void* stream) {
-  return launch(plist_window_kernel<kMT>, n_gates, win_rows * 8, stream,
-                static_cast<const float*>(key), static_cast<const int*>(wid),
-                static_cast<const float4*>(rows),
-                static_cast<const float*>(orig_t),
-                static_cast<const float*>(dir_t),
-                static_cast<const float*>(t0), static_cast<float*>(best_t),
-                static_cast<int*>(best_slot), static_cast<int*>(stats),
-                n_gates * kGate, list_len, win_rows);
+  if (n_gates == 0) return 0;
+  return clpt::launch_cluster(
+      plist_window_kernel<kMT, kSplit<kMT>>, kCluster, n_gates * kCluster,
+      kLanes * kSplit<kMT>, ring_smem(win_rows), (cudaStream_t)stream,
+      static_cast<const float*>(key), static_cast<const int*>(wid),
+      static_cast<const float4*>(rows), static_cast<const float*>(orig_t),
+      static_cast<const float*>(dir_t), static_cast<const float*>(t0),
+      static_cast<float*>(best_t), static_cast<int*>(best_slot),
+      static_cast<int*>(stats), n_gates * kGate, list_len, win_rows);
 }
 
 }  // namespace
@@ -491,10 +518,21 @@ extern "C" int plist_window_mt_launch(const void* key, const void* wid,
 // per block, the clusters resident at once, registers per thread, static
 // and dynamic shared memory bytes per block. Returns a CUDA error or 0.
 extern "C" int plist_super_shape(int mt, int win_rows, int* out) {
-  const size_t smem = super_smem(win_rows);
+  const size_t smem = ring_smem(win_rows);
   return mt ? clpt::cluster_shape(plist_super_kernel<true, kSplit<true>>,
                                   kCluster, kLanes * kSplit<true>, smem, out)
             : clpt::cluster_shape(plist_super_kernel<false, kSplit<false>>,
+                                  kCluster, kLanes * kSplit<false>, smem,
+                                  out);
+}
+
+// The shape of K2's (mt == 0) or its MT form's cluster launch at win_rows,
+// as plist_super_shape writes it.
+extern "C" int plist_window_shape(int mt, int win_rows, int* out) {
+  const size_t smem = ring_smem(win_rows);
+  return mt ? clpt::cluster_shape(plist_window_kernel<true, kSplit<true>>,
+                                  kCluster, kLanes * kSplit<true>, smem, out)
+            : clpt::cluster_shape(plist_window_kernel<false, kSplit<false>>,
                                   kCluster, kLanes * kSplit<false>, smem,
                                   out);
 }

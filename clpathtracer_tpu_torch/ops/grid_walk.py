@@ -11,7 +11,9 @@ beyond it); with t_max, once the exit reaches the bound; with any_hit, at
 the first row with an accepted hit below t_max. Ties: the last minimum
 within a row, and a later row's equal t wins over an earlier one's.
 
-On the GPU this is kernel G1 (ops/csrc/grid_dda.cu), one thread per ray.
+On the GPU this is kernel G1 (ops/csrc/grid_dda.cu): 4 threads a ray, a
+row's loads issued together and the next row prefetched, a persistent
+grid that takes rays from a counter (one int32 the wrapper zeroes).
 The JAX package's walk is XLA, not a Pallas kernel; here it is
 hand-written because the lockstep wavefront as torch ops costs hundreds
 of full-width launches a wave. On the CPU the wrapper runs the plain
@@ -89,6 +91,7 @@ def traverse_grid(grid, orig, dir, *, max_iters: int = 16384, t_max=None,
     u = torch.empty_like(t)
     v = torch.empty_like(t)
     steps = torch.empty_like(tri)
+    next_ray = torch.zeros((1,), dtype=torch.int32, device=device)
     act = None if active is None else active.contiguous().to(torch.uint8)
     tm = None if t_max is None else t_max.contiguous()
     rx, ry, rz = grid.res
@@ -98,8 +101,8 @@ def traverse_grid(grid, orig, dir, *, max_iters: int = 16384, t_max=None,
                  dir.data_ptr(), 0 if tm is None else tm.data_ptr(),
                  0 if act is None else act.data_ptr(), t.data_ptr(),
                  tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-                 steps.data_ptr(), n, rx, ry, rz, grid.table.shape[0],
-                 max_iters, int(any_hit), stream)
+                 steps.data_ptr(), next_ray.data_ptr(), n, rx, ry, rz,
+                 grid.table.shape[0], max_iters, int(any_hit), stream)
     if err != 0:
         raise RuntimeError(f"traverse_grid launch failed: cudaError {err} "
                            f"(N={n}, res={grid.res})")
