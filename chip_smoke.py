@@ -244,6 +244,50 @@ The tail of the two cluster walks:
    exits, counted by the plain run) on one SM and on the SMs of its
    cluster, and what its warps issue.
 
+The JAX package's default kd route (intersector "wavefront"): the per-ray
+rope walk W1 (ops/csrc/ray_walk.cu) and the brute force W2
+(ops/csrc/brute_force.cu), both XLA in the JAX package. Phases 12-38 pass
+intersector="packet" wherever they give render_image or intersect_scene a
+tree, so their launches are as before (W1 and W2 0):
+
+39. trees: the 1M terrain with emissive_frac 0.001 and its windows (win_rows
+   16, SO tables, resolve rows), phase 12's packet tree, and
+   build_shadow_tree (leaf 16, depth 26); build seconds, nodes, leaves,
+   records and bytes on the card;
+40. W1 on each wave, one launch each: the terrain primaries on the packet
+   tree; phase 13's mirror bounce wave with its active mask on the shadow
+   tree and on the packet tree; a NEE shadow wave toward sampled lights
+   (t_max = dist - 1e-3) on the shadow tree, nearest and any-hit; a sky
+   wave (no hit, no step). Each exact against its plain version on every
+   64th lane (hit, t, tri, u, v, steps), 4096 live lanes against W2 (hit
+   mismatch < 1e-3, t rtol 1e-5; shadow waves: the flags against "some
+   hit below t_max", < 1e-3; lanes with a direction component of exactly
+   0 counted apart: no hit gained, at most ZERO_DIR_LOST lost); steps mean
+   and max; W1 alone (ray_walk) and its wrapper (traverse_fast) timed on
+   each wave; the bounce wave's W1 (both trees) in turns beside K3's MT
+   form and K1' on it sorted; W1's bound (the node lanes and records its
+   steps need, counted by the plain run, against its MT operations);
+41. W2 on 4096 terrain pixels and 4096 live bounce lanes over all 1M
+   triangles: exact against its plain version, equal to phase 5's
+   hand-written oracle (hits and t), timed beside its bound; the flat
+   scan's normal frame at 512x512 of icosphere(5) and three spheres (W2 1
+   a frame, every other kernel 0; 1 warm-up, 3 timed), the image finite;
+   W2 on that frame's primaries, its own launch shape, exact against its
+   plain version on every 63rd lane, and the frame's record with the
+   spheres merged exact against nearest_hit_bruteforce_reference there;
+42. frames: (a) the kd normal terrain frame on the default route (W1 1 a
+   frame, K3 0; 2 warm-up, 20 timed), its image within the tie budget
+   (< 1.5e-2 of pixels differ by more than 1e-5) of phase 15's packet
+   frame; (b) a 500x500 frame with intersector "packet" (not whole tiles:
+   W1 1, K3 0); (c) bench.py's path leg on the emissive terrain, windows
+   and the shadow tree (512x512, bounces 2, NEE at stride 1, background 0,
+   generator seeded 0; 1 warm-up, 5 timed): K1 1 and W1 3 a frame (one
+   bounce wave, two shadow waves), K1' 0, G1 0; the image finite with
+   mean > 0; paths/s and the split as in phase 37; then one frame with
+   bounce_walk off (K1 1, K1' 1, W1 2) within the NEE image budgets of the
+   first (at most 2e-2 of pixels differ by more than 1e-4, mean abs
+   difference at most 2e-3).
+
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
 kernel's launches are those of the frames of the path that gives its ms
@@ -253,9 +297,11 @@ calls, K6b and K9 the six v1 traverse_packet calls, K6a its three
 op-level calls, K7 and K8 their three traverse_packet calls each, K2 the
 "window" frames, K10 the traverse_plist(gathered=True) call at the
 terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
-frames, K1's kcap form the two-phase calls), with every path's own
+frames, K1's kcap form the two-phase calls, W1 the default kd normal
+frames of phase 42a, W2 the flat-scan frames), with every path's own
 count beside them; the cluster walks (K1, K1', K1's kcap form, K2, K3,
-K4) also give their blocks per cluster ("cluster"), G1 its tail calls.
+K4) also give their blocks per cluster ("cluster"), G1 its tail calls,
+W1 each wave of phase 40.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -282,7 +328,11 @@ from clpathtracer_tpu_torch.ops.packet import (BIG, MT_EXIT_OPS,
                                                _blockify, _unblockify,
                                                mt_ops, so_combine, warp_ops)
 from clpathtracer_tpu_torch.ops.sort import sort_rays
-from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
+from clpathtracer_tpu_torch.ops.intersect import (
+    brute_force, brute_force_reference, nearest_hit_bruteforce_reference)
+from clpathtracer_tpu_torch.ops.traverse_fast import (_mt_pre, ray_walk,
+                                                      traverse_fast,
+                                                      traverse_fast_reference)
 from clpathtracer_tpu_torch.render.integrator import (BOUNCE_EPS,
                                                       PLIST_SCHEDULES,
                                                       RenderOptions,
@@ -295,8 +345,10 @@ from clpathtracer_tpu_torch.render.integrator import (BOUNCE_EPS,
                                                       sort_wave)
 from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
                                                    normal_color)
-from clpathtracer_tpu_torch.scene.procedural import (random_tri_soup,
+from clpathtracer_tpu_torch.scene.procedural import (icosphere,
+                                                     random_tri_soup,
                                                      terrain_mesh)
+from clpathtracer_tpu_torch.scene.scene import Scene
 
 N_TRIS = 1_000_000
 SIZE = 512
@@ -378,6 +430,8 @@ def reset_counts():
     packet.packet_wide.launches = 0
     packet.packet_stream2.launches = 0
     packet_mxu.packet_mxu.launches = 0
+    ray_walk.launches = 0
+    brute_force.launches = 0
 
 
 def counts():
@@ -396,7 +450,9 @@ def counts():
             "packet_legacy_resident": packet.packet_legacy.resident_launches,
             "packet_wide": packet.packet_wide.launches,
             "packet_stream2": packet.packet_stream2.launches,
-            "packet_mxu": packet_mxu.packet_mxu.launches}
+            "packet_mxu": packet_mxu.packet_mxu.launches,
+            "ray_walk": ray_walk.launches,
+            "brute_force": brute_force.launches}
 
 
 def bruteforce_hits(scene, orig, dirs, chunk=16384):
@@ -591,7 +647,8 @@ def check_counts(phase, got, want):
             "plist_gathered": 0, "plist_subgate": 0, "packet_stream": 0,
             "packet_stream_bf16": 0, "packet_queue": 0, "packet_legacy": 0,
             "packet_legacy_resident": 0, "packet_wide": 0,
-            "packet_stream2": 0, "packet_mxu": 0, **want}
+            "packet_stream2": 0, "packet_mxu": 0, "ray_walk": 0,
+            "brute_force": 0, **want}
     if got != want:
         raise AssertionError(f"{phase}: kernel launches {got}, want {want}")
 
@@ -764,7 +821,7 @@ def cluster_shapes():
 
 
 def smoke(device):
-    """Phases 3-38 on `device`; returns the kernels line's entries."""
+    """Phases 3-42 on `device`; returns the kernels line's entries."""
     # 3. scene at full size
     t = time.perf_counter()
     scene = terrain_mesh(N_TRIS, seed=0, extent=10.0,
@@ -1024,6 +1081,7 @@ def smoke(device):
     grid_entries = nee_grid(device, scene, launches)
     tails["K3 MT"] = ctx["tail"]
     tail_phase(tails)
+    walk_entries = walk_route(device, ctx, launches)
     return [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -1043,7 +1101,7 @@ def smoke(device):
          "max_abs_err": mt_err,
          "ms": mt_ms, "plain_ms": mt_plain_ms,
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
-        k3, k4, k5, *v1, *k7_k8, *sched, *grid_entries,
+        k3, k4, k5, *v1, *k7_k8, *sched, *grid_entries, *walk_entries,
     ]
 
 
@@ -1112,7 +1170,7 @@ def kd_route(device, scene, soup, cam, scam, launches):
     del f_args, f_kw, f_out
 
     m_opts = RenderOptions(width=SIZE, height=SIZE, mode="mirror", bounces=2,
-                           packet_tile=t_tile)
+                           intersector="packet", packet_tile=t_tile)
     all_alive = torch.ones((n,), dtype=torch.bool, device=device)
     prim = intersect_scene(scene, None, orig, dirs, m_opts, tree=tree)
     b_alive, b_orig, b_dirs, _ = mirror_wave(scene, prim, orig, dirs,
@@ -1141,7 +1199,8 @@ def kd_route(device, scene, soup, cam, scam, launches):
     del p_rec, b_rec
 
     # 15. kd frames
-    opts = RenderOptions(width=SIZE, height=SIZE, packet_tile=t_tile)
+    opts = RenderOptions(width=SIZE, height=SIZE, intersector="packet",
+                         packet_tile=t_tile)
     k_ms, k_wall, got, img = run_frames(
         lambda: render_image(scene, cam, opts, tree=tree), WARMUP, FRAMES)
     check_counts("kd frame", got, {"packet_stream": WARMUP + FRAMES})
@@ -1192,7 +1251,8 @@ def kd_route(device, scene, soup, cam, scam, launches):
         f" bound {k3_bound:.4f} ms ({k3_by}; {n_tests_k3} SO tests x "
         f"{K1_OPS})")
 
-    s_opts = RenderOptions(width=SIZE, height=SIZE, packet_tile=s_tile,
+    s_opts = RenderOptions(width=SIZE, height=SIZE, intersector="packet",
+                           packet_tile=s_tile,
                            packet_strips=False, packet_frustum=False)
     s_ms, s_wall, got, s_img = run_frames(
         lambda: render_image(soup, scam, s_opts, tree=stree), 2, 10)
@@ -1338,7 +1398,8 @@ def preview_route(ctx, launches):
     }
     for name, (sc, cm, tr, kw, warm, reps, per) in frames.items():
         sc, cm = ctx[sc], ctx[cm]
-        opts = RenderOptions(width=SIZE, height=SIZE, precision="bf16", **kw)
+        opts = RenderOptions(width=SIZE, height=SIZE, precision="bf16",
+                             intersector="packet", **kw)
         ms, wall, got, img = run_frames(
             lambda: render_image(sc, cm, opts, tree=tr), warm, reps)
         check_counts(name, got, {"packet_stream_bf16": per * (warm + reps)})
@@ -1349,7 +1410,8 @@ def preview_route(ctx, launches):
         o, d = generate_rays(cam_matrix(cm, SIZE), SIZE, SIZE)
         prim = intersect_scene(sc, None, o, d, opts, tree=tr)
         ref = intersect_scene(sc, None, o, d,
-                              RenderOptions(width=SIZE, height=SIZE, **kw),
+                              RenderOptions(width=SIZE, height=SIZE,
+                                            intersector="packet", **kw),
                               tree=tr)
         agree = float((prim["hit"] == ref["hit"]).float().mean())
         say(name, f"{SIZE}x{SIZE}: median {med:.4f} ms over {reps} frames "
@@ -1836,7 +1898,7 @@ def interval_guard(ctx):
     # what the flag costs: each walk wrapper reads it after its launch (a
     # host synchronisation); the kd normal terrain frame as shipped against
     # the same frame with the read skipped, in turns
-    opts = RenderOptions(width=SIZE, height=SIZE,
+    opts = RenderOptions(width=SIZE, height=SIZE, intersector="packet",
                          packet_tile=TERRAIN_KD["tile"])
 
     def frame():
@@ -2341,13 +2403,16 @@ G1_FIELDS = ("hit", "t", "tri", "u", "v", "steps")
 
 
 def same_walk(name, rec, lanes, ref):
-    """Hold G1's record on `lanes` to its plain version's, exactly."""
+    """Hold a per-ray walk's record (G1, W1) on `lanes` to its plain
+    version's, exactly."""
     bad = {k: int((rec[k][lanes] != ref[k]).sum()) for k in G1_FIELDS}
-    say(name, f"{lanes.numel()} lanes (every {EVERY}th) against the plain "
+    every = rec["hit"].numel() // max(lanes.numel(), 1)
+    say(name, f"{lanes.numel()} lanes (every {every}th) against the plain "
         f"version (tolerance: exact): mismatches {bad}, "
         f"{int(ref['hit'].sum())} hits")
     if any(bad.values()):
-        raise AssertionError(f"{name}: G1 disagrees with its plain version")
+        raise AssertionError(f"{name}: the kernel disagrees with its plain "
+                             "version")
     hit = ref["hit"]
     return (float((rec["t"][lanes] - ref["t"])[hit].abs().max())
             if bool(hit.any()) else 0.0)
@@ -2380,6 +2445,31 @@ def g1_bound(rec, tally, sample_steps, wave):
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", steps, nbytes,
             ops)
+
+
+def w1_bound(rec, tally, sample_steps, touched, wave):
+    """W1's bound: the larger of the bytes it must move over the HBM rate
+    and its MT operations over the FP32 rate. Bytes: each node row (the 16
+    lanes a step reads, 64 B; a leaf's first record and count, 8 B more)
+    and each record (cols 0-11, 48 B) that the plain run on a sample of
+    lanes read (`touched`), once, and each lane's inputs (orig, dir;
+    t_max, active where given) and outputs (t, slot, steps); a sample
+    reads fewer distinct rows than the whole wave, so this stays a lower
+    bound. Operations: MT_EXIT_OPS weighted by the early exits the plain
+    run counted, scaled to all lanes by their steps. Also returns the
+    bytes of every step's reads (the plain run's tally, scaled the same
+    way), a diagnostic: most of them come from L2."""
+    scale = int(rec["steps"].sum()) / max(sample_steps, 1)
+    ops = mt_ops(int(tally[0]), tally[1:4]) * scale
+    lane = 24 + 12 + (4 if wave.get("t_max") is not None else 0) \
+        + (1 if wave.get("active") is not None else 0)
+    nbytes = (72 * int(touched["nodes"].sum()) + 48 * int(
+        touched["recs"].sum()) + lane * rec["steps"].numel())
+    ops_ms = ops / PEAK_FP32_OPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", nbytes, ops,
+            int(tally[4]) * scale)
 
 
 TAIL_FRAC = 64      # G1's tail call: the top 1/64 of a wave's lanes by steps
@@ -2703,8 +2793,9 @@ def nee_grid(device, scene, launches):
         w, ms_ = timed(lambda: nee_wave(soup, pt, nr, h, light[0, bi], 1,
                                         lights))
         split["light sampling"] += ms_
-        _, ms_ = timed(lambda: _occluded(grid, w["orig"], w["dir"],
-                                         w["dist"], active=w["live"]))
+        _, ms_ = timed(lambda: _occluded(soup, w["orig"], w["dir"],
+                                         w["dist"], opts, active=w["live"],
+                                         grid=grid))
         split["shadow waves"] += ms_
         alive = h
         u = bounce[0, bi]
@@ -2763,6 +2854,460 @@ def nee_grid(device, scene, launches):
          "unsettled_by_kcap": {k: r["unsettled"]
                                for k, r in kcap_rows.items()},
          "phase2_ms_by_kcap": {k: r["dda_ms"] for k, r in kcap_rows.items()}},
+    ]
+
+
+SHADOW_KD = dict(leaf_size=16, max_depth=26)   # build_shadow_tree's defaults
+WALK_EVERY = 64      # the plain walk runs on every 64th lane of a wave
+# hits of W2 that W1 loses on rays with a direction component of exactly 0,
+# at most (the JAX walk's arithmetic, ROADMAP section 3): the 512x512
+# terrain primaries' centre column, 512 such rays, lost 243 (H100 SXM5,
+# 700 W); every other wave has none
+ZERO_DIR_LOST = {"primary": 243}
+FLAT_EVERY = 63      # the flat frame's plain lanes: odd, so they sweep every
+                     # column of the frame and reach the spheres
+# the flat scan's frame: icosphere(5) behind three spheres
+FLAT_SPHERES = dict(sphere_pos=[[-0.6, -0.5, 1.2], [0.6, 0.4, 0.9],
+                                [0.0, 0.0, 1.0]],
+                    sphere_radius=[0.3, 0.25, 0.45],
+                    sphere_albedo=[[0.9, 0.2, 0.2], [0.2, 0.9, 0.2],
+                                   [0.5, 0.5, 0.9]],
+                    sphere_emission=[[0.0, 0.0, 0.0], [2.0, 2.0, 2.0],
+                                     [0.0, 0.0, 0.0]])
+
+
+def sub_wave(wave, lanes):
+    return {k: (v[lanes].contiguous() if isinstance(v, torch.Tensor) else v)
+            for k, v in wave.items()}
+
+
+def live_pick(live, seed):
+    idx = torch.nonzero(live).squeeze(1)
+    k = min(ORACLE_PIXELS, idx.numel())
+    return idx[torch.as_tensor(np.random.default_rng(seed).choice(
+        idx.numel(), k, replace=False), device=live.device)]
+
+
+def walk_waves(scene, tree, shadow, orig, dirs, lights, device):
+    """Phase 40's waves on the emissive terrain's frame: (tree, the wave
+    as traverse_fast's keyword arguments) by name, and W1's record of the
+    primaries. The mirror bounce wave is phase 13's (its primaries by K3,
+    all lanes alive); the NEE shadow wave goes from W1's primary hits
+    toward lights sampled from a generator seeded 0; the sky wave points
+    away from the terrain."""
+    n = orig.shape[0]
+    m_opts = RenderOptions(width=SIZE, height=SIZE, mode="mirror", bounces=2,
+                           intersector="packet",
+                           packet_tile=TERRAIN_KD["tile"])
+    prim_k3 = intersect_scene(scene, None, orig, dirs, m_opts, tree=tree)
+    b_alive, b_orig, b_dirs, _ = mirror_wave(
+        scene, prim_k3, orig, dirs,
+        torch.ones((n,), dtype=torch.bool, device=device))
+    prim = traverse_fast(tree, orig, dirs)
+    point, normal, _, _ = _surface(scene, prim, orig, dirs)
+    gen = torch.Generator(device=device).manual_seed(0)
+    sw = nee_wave(scene, point, face_forward(normal, dirs), prim["hit"],
+                  torch.rand((n, 3), generator=gen, device=device), 1, lights)
+    bounce = dict(orig=b_orig, dir=b_dirs, active=b_alive)
+    shadow_w = dict(orig=sw["orig"], dir=sw["dir"], active=sw["live"],
+                    t_max=sw["dist"] - 1e-3)
+    return {"primary": (tree, dict(orig=orig, dir=dirs)),
+            "bounce, shadow tree": (shadow, bounce),
+            "bounce, packet tree": (tree, bounce),
+            "shadow nearest": (shadow, shadow_w),
+            "shadow any-hit": (shadow, dict(shadow_w, any_hit=True)),
+            "sky": (tree, dict(orig=orig, dir=-dirs))}
+
+
+def flat_frame_record(flat, fcam, f_opts):
+    """Phase 41's flat frame at its own launch shape: W2 on all the frame's
+    primaries (one split: one block scans every triangle) against its
+    plain version on every FLAT_EVERY-th lane, and the frame's record,
+    the spheres merged, against the plain oracle nearest_hit_bruteforce_
+    reference on those lanes; both exact. Returns W2's largest t error."""
+    n = f_opts.width * f_opts.height
+    o, d = generate_rays(cam_matrix(fcam, f_opts.height), f_opts.width,
+                         f_opts.height)
+    lanes = torch.arange(0, n, FLAT_EVERY, device=o.device)
+    out = brute_force(flat.tri_records, o, d)
+    ref = brute_force_reference(flat.tri_records, o[lanes], d[lanes])
+    bad = [int((a[lanes] != b).sum()) for a, b in zip(out, ref)]
+    rec = intersect_scene(flat, None, o, d, f_opts)
+    prim = torch.where(rec["sphere"] >= 0, flat.num_tris + rec["sphere"],
+                       rec["tri"])
+    oracle = nearest_hit_bruteforce_reference(flat, o[lanes], d[lanes])
+    got = dict(rec, prim_id=prim)
+    s_bad = {k: int((got[k][lanes] != oracle[k]).sum()) for k in oracle}
+    hit = oracle["hit"]
+    spheres = int((oracle["prim_id"] >= flat.num_tris).sum())
+    say("flat frame", f"W2 on the frame's {n} primaries over "
+        f"{flat.num_tris} triangles against its plain version on "
+        f"{lanes.numel()} lanes (every {FLAT_EVERY}rd; tolerance: exact): "
+        f"hit/t/prim/u/v mismatches {bad}, {int(ref[0].sum())} hits; the "
+        f"frame's record, spheres merged, against nearest_hit_bruteforce_"
+        f"reference (exact): mismatches {s_bad}, {int(hit.sum())} hits, "
+        f"{spheres} on spheres")
+    if any(bad) or any(s_bad.values()) or not spheres or not int(
+            (hit & (oracle["prim_id"] < flat.num_tris)).sum()):
+        raise AssertionError("flat frame: the record disagrees with the "
+                             "plain versions, or spheres or triangles go "
+                             "unhit")
+    return (float((out[1][lanes] - ref[1])[ref[0]].abs().max())
+            if bool(ref[0].any()) else 0.0)
+
+
+def walk_route(device, ctx, launches):
+    """Phases 39-42: the per-ray rope walk W1, the brute force W2, and the
+    frames they carry. Returns their kernels entries."""
+    n = SIZE * SIZE
+    tree, cam, orig, dirs = ctx["tree"], ctx["cam"], ctx["orig"], ctx["dirs"]
+    t_tile = TERRAIN_KD["tile"]
+
+    # 39. trees
+    t = time.perf_counter()
+    terrain = terrain_mesh(N_TRIS, seed=0, extent=10.0,
+                           emissive_frac=EMISSIVE_FRAC,
+                           device=device).bake_shading()
+    win = build_windows(terrain, WIN_ROWS, device)
+    torch.cuda.synchronize()
+    emitters = int((terrain.emission.amax(dim=1) > 0).sum())
+    say("trees", f"emissive terrain: {terrain.num_tris} triangles, "
+        f"{emitters} emitters, {win.num_windows} windows at win_rows "
+        f"{WIN_ROWS}, host build {time.perf_counter() - t:.2f} s, "
+        f"{terrain.nbytes() + win.nbytes()} device bytes")
+    st = tree.stats()
+    say("trees", f"packet tree (phase 12: depth {TERRAIN_KD['max_depth']}, "
+        f"leaf {TERRAIN_KD['leaf_size']}): {st['nodes']} nodes, "
+        f"{st['leaves']} leaves, largest leaf {st['max_tris_per_leaf']}, "
+        f"{tree.tris.shape[0]} records, {tree.nbytes()} device bytes")
+    t = time.perf_counter()
+    shadow = sah.build_shadow_tree(terrain.tri_corners(), device=device,
+                                   **SHADOW_KD)
+    torch.cuda.synchronize()
+    st = shadow.stats()
+    say("trees", f"build_shadow_tree (leaf {SHADOW_KD['leaf_size']}, depth "
+        f"{SHADOW_KD['max_depth']}): host build "
+        f"{time.perf_counter() - t:.2f} s (g++ builder); {st['nodes']} nodes, "
+        f"{st['leaves']} leaves, largest leaf {st['max_tris_per_leaf']}, "
+        f"{shadow.tris.shape[0]} records, {shadow.nbytes()} device bytes")
+    lights = light_cdf(terrain)
+
+    # 40. W1 on each wave, counted
+    waves = walk_waves(terrain, tree, shadow, orig, dirs, lights, device)
+    lanes = torch.arange(0, n, WALK_EVERY, device=device)
+    recs = terrain.tri_records
+    w1, w1_err = {}, 0.0
+    for name, (tr, w) in waves.items():
+        reset_counts()
+        rec = traverse_fast(tr, **w)
+        torch.cuda.synchronize()
+        check_counts(f"W1 {name}", counts(), {"ray_walk": 1})
+        live = w.get("active", torch.ones((n,), dtype=torch.bool,
+                                          device=device))
+        if name == "sky":
+            if bool(rec["hit"].any()) or bool(rec["steps"].any()):
+                raise AssertionError("W1 sky: hits or steps")
+            say("W1 sky", f"{n} rays away from the terrain: no hit, no step")
+            continue
+        tally = torch.zeros(5, dtype=torch.int64, device=device)
+        touched = {"nodes": torch.zeros(tr.num_nodes, dtype=torch.bool,
+                                        device=device),
+                   "recs": torch.zeros(tr.tris.shape[0], dtype=torch.bool,
+                                       device=device)}
+        ref, plain_ms = timed(lambda: traverse_fast_reference(
+            tr, **sub_wave(w, lanes), tally=tally, touched=touched))
+        w1_err = max(w1_err, same_walk(f"W1 {name}", rec, lanes, ref))
+        st = rec["steps"][live].to(torch.float64)
+        w1[name] = SimpleNamespace(
+            rec=rec, plain_ms=plain_ms, tally=tally,
+            sample_steps=int(ref["steps"].sum()), touched=touched,
+            steps_mean=float(st.mean()), steps_max=int(st.max()))
+        say(f"W1 {name}", f"{walk_stats(rec, live)}; plain {plain_ms:.1f} "
+            f"ms on {lanes.numel()} lanes; sampled pairs {int(tally[0])}, "
+            f"det/u/v passes {tally[1:4].tolist()}, bytes {int(tally[4])}")
+        # against the brute force (W2) on live lanes
+        pick = live_pick(live, 5)
+        o, d = w["orig"][pick], w["dir"][pick]
+        bf_hit, bf_t, _, _, _ = brute_force(recs, o, d)
+        if "t_max" in w:
+            want = bf_hit & (bf_t < w["t_max"][pick])
+            mismatch = float((rec["hit"][pick] != want).float().mean())
+            say(f"W1 {name} oracle", f"{pick.numel()} live lanes: flags "
+                f"against 'some hit below t_max' over all {terrain.num_tris} "
+                f"triangles (W2): mismatch {mismatch} (< 1e-3), "
+                f"{int(want.sum())} occluded")
+            ok = mismatch < 1e-3
+        else:
+            # the JAX walk loses hits of rays with a direction component of
+            # exactly 0 in a slab plane (0 x inf = NaN; ROADMAP section 3);
+            # W1 keeps its arithmetic: those lanes are counted apart
+            axial = (d == 0).any(dim=1)
+            hit = rec["hit"][pick]
+            off = hit != bf_hit
+            mismatch = float((off & ~axial).float().mean())
+            both = hit & bf_hit
+            ok = mismatch < 1e-3 and bool(both.any()) and bool(
+                torch.allclose(rec["t"][pick][both], bf_t[both], rtol=1e-5,
+                               atol=1e-6))
+            say(f"W1 {name} oracle", f"{pick.numel()} live lanes against the "
+                f"brute force (W2) over {terrain.num_tris} triangles: hit "
+                f"mismatch {mismatch} (< 1e-3) on the lanes without a zero "
+                f"direction component, {int((off & axial).sum())} more of "
+                f"{int(axial.sum())} with one; {int(both.sum())} common hits,"
+                f" t rtol 1e-5: {'ok' if ok else 'FAIL'}")
+            zero = torch.nonzero(live & (w["dir"] == 0).any(dim=1)).squeeze(1)
+            if zero.numel():
+                z_hit = brute_force(recs, w["orig"][zero], w["dir"][zero])[0]
+                lost = int((z_hit & ~rec["hit"][zero]).sum())
+                extra = int((~z_hit & rec["hit"][zero]).sum())
+                cap = ZERO_DIR_LOST.get(name, 0)
+                say(f"W1 {name}", f"rays with a direction component of "
+                    f"exactly 0: {zero.numel()} live lanes, {lost} hits of "
+                    f"W2 lost (at most {cap}) and {extra} gained (0; the JAX "
+                    "walk's arithmetic, kept)")
+                ok = ok and extra == 0 and lost <= cap
+        if not ok:
+            raise AssertionError(f"W1 {name}: disagrees with the brute force")
+    # W1 alone (ray_walk: the kernel's launch and its output buffers) and
+    # its wrapper (traverse_fast: ray_walk, then resolve_slot's gather and
+    # Moller-Trumbore on the winners)
+    for name, (tr, w) in waves.items():
+        if name in w1:
+            if not name.startswith("bounce"):
+                w1[name].ms = median_ms(
+                    lambda tr=tr, w=w: ray_walk(tr, **w), 5)
+            w1[name].wrapper_ms = median_ms(
+                lambda tr=tr, w=w: traverse_fast(tr, **w), 5)
+    # the bounce wave: W1 (shadow tree, packet tree), K3's MT form and K1'
+    # on the same rays sorted into tiles and bundles, in turns
+    bw = waves["bounce, shadow tree"][1]
+    _, bo, bd, ba = sort_wave(bw["orig"], bw["dir"], bw["active"])
+    k3_args, k3_kw, _ = packet.stream_kernel_args(tree, bo, bd, tile=t_tile,
+                                                  active=ba)
+    k1_args = plist.bundle_kernel_args(win, bo, bd, active=ba)
+    ms = turns_ms([lambda: ray_walk(shadow, **bw),
+                   lambda: ray_walk(tree, **bw),
+                   lambda: packet.packet_stream(*k3_args, **k3_kw),
+                   lambda: plist.plist_super_mt(*k1_args, win_rows=WIN_ROWS)],
+                  5)
+    w1["bounce, shadow tree"].ms, w1["bounce, packet tree"].ms = ms[:2]
+    say("W1 bounce", f"in turns: W1 on the shadow tree {ms[0]:.4f} ms, W1 on "
+        f"the packet tree {ms[1]:.4f} ms, K3 MT (sorted tiles of {t_tile}) "
+        f"{ms[2]:.4f} ms, K1' (sorted bundles) {ms[3]:.4f} ms; "
+        f"{int(bw['active'].sum())} live lanes")
+    for name, b in w1.items():
+        say(f"W1 {name}", f"the kernel (ray_walk) {b.ms:.4f} ms, its wrapper "
+            f"(traverse_fast, with resolve_slot) {b.wrapper_ms:.4f} ms")
+    del k3_args, k3_kw, k1_args
+    for name, b in w1.items():
+        b.bound, b.by, nbytes, ops, step_bytes = w1_bound(
+            b.rec, b.tally, b.sample_steps, b.touched, waves[name][1])
+        say("W1 bound", f"{name}: {int(b.rec['steps'].sum())} steps (mean "
+            f"{b.steps_mean:.2f}, max {b.steps_max}); {nbytes:.6g} B, each "
+            f"node row and record the plain run on every {WALK_EVERY}th lane "
+            f"read ({int(b.touched['nodes'].sum())} rows, "
+            f"{int(b.touched['recs'].sum())} records) once, and each lane's "
+            f"inputs and outputs; {ops:.6g} MT operations (scaled by steps): "
+            f"bound {b.bound:.4f} ms ({b.by}) against {b.ms:.4f} ms "
+            f"({b.ms / b.bound:.2f}x). Were every step's node lanes and "
+            f"records read from memory: {step_bytes:.6g} B, "
+            f"{step_bytes / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES:.3g} B/s")
+
+    # 41. W2
+    pix = torch.as_tensor(np.random.default_rng(2).choice(
+        n, ORACLE_PIXELS, replace=False), device=device)
+    bpick = live_pick(bw["active"], 6)
+    w2_err, w2 = 0.0, {}
+    for name, o, d in (("terrain pixels", orig[pix], dirs[pix]),
+                       ("bounce lanes", bw["orig"][bpick], bw["dir"][bpick])):
+        reset_counts()
+        out = brute_force(recs, o, d)
+        torch.cuda.synchronize()
+        check_counts(f"W2 {name}", counts(), {"brute_force": 1})
+        tally = torch.zeros(4, dtype=torch.int64, device=device)
+        ref, plain_ms = timed(lambda: brute_force_reference(recs, o, d,
+                                                            tally=tally))
+        bad = [int((a != b).sum()) for a, b in zip(out, ref)]
+        hit = ref[0]
+        err = float((out[1] - ref[1])[hit].abs().max()) if bool(
+            hit.any()) else 0.0
+        w2_err = max(w2_err, err)
+        hand = bruteforce_hits(terrain, o, d)
+        hand_bad = int((torch.isfinite(hand) != out[0]).sum()) + int(
+            (hand[out[0]] != out[1][out[0]]).sum())
+        say(f"W2 {name}", f"{o.shape[0]} rays over {terrain.num_tris} "
+            f"triangles against the plain version (tolerance: exact): "
+            f"hit/t/prim/u/v mismatches {bad}, {int(hit.sum())} hits; against "
+            f"phase 5's hand-written oracle (hits and t, exact): {hand_bad} "
+            f"mismatches; plain {plain_ms:.1f} ms")
+        if any(bad) or hand_bad:
+            raise AssertionError(f"W2 {name}: disagrees with its plain "
+                                 "version or the oracle")
+        ms = median_ms(lambda: brute_force(recs, o, d), 5)
+        pairs = o.shape[0] * terrain.num_tris
+        bnd, by = bound([recs[:, :12], o, d, *out],
+                        mt_ops(pairs, tally[1:4]))
+        w2[name] = SimpleNamespace(ms=ms, plain_ms=plain_ms, bound=bnd, by=by)
+        say(f"W2 {name}", f"{ms:.4f} ms; {pairs} pairs, det/u/v passes "
+            f"{tally[1:4].tolist()}: bound {bnd:.4f} ms ({by}, "
+            f"{ms / bnd:.2f}x)")
+    ico = icosphere(5, device=device)
+    flat = Scene.create(ico.verts.cpu().numpy(), ico.faces.cpu().numpy(),
+                        ico.normals.cpu().numpy(), device=device,
+                        **FLAT_SPHERES)
+    fcam = Camera.create([0.0, 0.0, -1.5], [0.0, 0.0, 1.0], device=device)
+    f_opts = RenderOptions(SIZE, SIZE)
+    f_ms, f_wall, got, f_img = run_frames(
+        lambda: render_image(flat, fcam, f_opts), 1, 3)
+    check_counts("flat frame", got, {"brute_force": 4})
+    launches["flat"] = got
+    f_hit = float((f_img < 1.0).any(dim=-1).float().mean())
+    if not bool(torch.isfinite(f_img).all()) or not f_hit > 0.0:
+        raise AssertionError(f"flat frame: finite "
+                             f"{bool(torch.isfinite(f_img).all())}, hit "
+                             f"fraction {f_hit}")
+    w2_err = max(w2_err, flat_frame_record(flat, fcam, f_opts))
+    f_med = float(np.median(f_ms))
+    say("flat frame", f"{SIZE}x{SIZE} normal, icosphere(5) "
+        f"({flat.num_tris} triangles) and {flat.num_spheres} spheres, no "
+        f"structure (the flat scan): median {f_med:.4f} ms over 3 frames "
+        f"(host wall {f_wall:.4f} ms/frame), {n / f_med * 1e3:.6g} rays/s, "
+        f"hit fraction {f_hit}, launches {got}")
+
+    # 42. frames
+    scene = ctx["scene"]
+    w_opts = RenderOptions(width=SIZE, height=SIZE)
+    k_ms, k_wall, got, img = run_frames(
+        lambda: render_image(scene, cam, w_opts, tree=tree), WARMUP, FRAMES)
+    check_counts("walk frame", got, {"ray_walk": WARMUP + FRAMES})
+    launches["walk normal"] = got
+    packed = render_image(scene, cam, RenderOptions(
+        width=SIZE, height=SIZE, intersector="packet", packet_tile=t_tile),
+        tree=tree)
+    differ = float(((img - packed).abs().amax(dim=-1) > 1e-5).float().mean())
+    med = float(np.median(k_ms))
+    say("walk frame", f"{SIZE}x{SIZE} normal, terrain, the rope walk "
+        f"(intersector 'wavefront', the default): median {med:.4f} ms over "
+        f"{FRAMES} frames (min {min(k_ms):.4f}, max {max(k_ms):.4f}; host "
+        f"wall {k_wall:.4f} ms/frame), {n / med * 1e3:.6g} rays/s, launches "
+        f"{got}; against phase 15's packet frame {differ} of pixels differ "
+        f"by more than 1e-5 (< 1.5e-2)")
+    if not bool(torch.isfinite(img).all()) or differ >= 1.5e-2:
+        raise AssertionError("walk frame: image differs from the packet "
+                             "frame")
+    odd = RenderOptions(width=500, height=500, intersector="packet",
+                        packet_tile=t_tile)
+    o_ms, _, got, o_img = run_frames(
+        lambda: render_image(scene, cam, odd, tree=tree), 1, 3)
+    check_counts("walk 500x500", got, {"ray_walk": 4})
+    launches["walk 500x500"] = got
+    o_hit = float((o_img < 1.0).any(dim=-1).float().mean())
+    if not bool(torch.isfinite(o_img).all()) or o_hit <= 0.99:
+        raise AssertionError(f"walk 500x500: hit fraction {o_hit}")
+    say("walk 500x500", f"intersector 'packet', not whole tiles of {t_tile}:"
+        f" median {float(np.median(o_ms)):.4f} ms over 3 frames, hit "
+        f"fraction {o_hit}, launches {got}")
+
+    p_opts = RenderOptions(width=SIZE, height=SIZE, mode="path", bounces=2,
+                           nee=True, background=0.0)
+
+    def frame(o=p_opts):
+        return render_image(terrain, cam, o, win, shadow=shadow,
+                            lights=lights,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(0))
+    p_ms, p_wall, got, p_img = run_frames(frame, 1, 5)
+    check_counts("walk path", got, {"plist_super": 6, "ray_walk": 18})
+    launches["walk path"] = got
+    mean = float(p_img.mean())
+    if not bool(torch.isfinite(p_img).all()) or not mean > 0.0:
+        raise AssertionError(f"walk path: image finite "
+                             f"{bool(torch.isfinite(p_img).all())}, mean "
+                             f"{mean}")
+    p_med = float(np.median(p_ms))
+    say("walk path", f"{SIZE}x{SIZE} emissive terrain, windows and the "
+        f"shadow tree, spp 1 bounces 2 NEE (stride 1, background 0): median "
+        f"{p_med:.4f} ms over 5 frames (min {min(p_ms):.4f}, max "
+        f"{max(p_ms):.4f}; host wall {p_wall:.4f} ms/frame), "
+        f"{n / p_med * 1e3:.6g} paths/s, image mean {mean:.6f}, launches "
+        f"{got}")
+    _, bounce, light = path_draws(
+        p_opts, torch.Generator(device=device).manual_seed(0), device)
+    split = {"primary": 0.0, "light sampling": 0.0, "shadow waves": 0.0,
+             "bounce wave": 0.0}
+    alive = torch.ones((n,), dtype=torch.bool, device=device)
+    o_, d_ = orig, dirs
+    for bi in range(p_opts.bounces):
+        part = "primary" if bi == 0 else "bounce wave"
+        rec, ms_ = timed(lambda: intersect_scene(
+            terrain, win, o_, d_, p_opts, coherent=bi == 0,
+            active=None if bi == 0 else alive, shadow=shadow))
+        split[part] += ms_
+        pt, nr, _, _ = _surface(terrain, rec, o_, d_)
+        nr = face_forward(nr, d_)
+        h = rec["hit"] & alive
+        w, ms_ = timed(lambda: nee_wave(terrain, pt, nr, h, light[0, bi], 1,
+                                        lights))
+        split["light sampling"] += ms_
+        _, ms_ = timed(lambda: _occluded(terrain, w["orig"], w["dir"],
+                                         w["dist"], p_opts, active=w["live"],
+                                         shadow=shadow))
+        split["shadow waves"] += ms_
+        alive = h
+        u = bounce[0, bi]
+        d_ = torch.where(h[:, None], cosine_sample_hemisphere(
+            nr, u[:, 0], u[:, 1]), d_)
+        o_ = torch.where(h[:, None], pt + nr * BOUNCE_EPS, o_)
+    split["shade and the rest"] = p_med - sum(split.values())
+    say("walk path", "split (ms; the parts of one rebuilt frame, the rest "
+        "the median frame minus them): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in split.items()))
+    off_ms, _, got, off = run_frames(
+        lambda: frame(dataclasses.replace(p_opts, bounce_walk=False)), 0, 1)
+    check_counts("walk path, bounce_walk off", got,
+                 {"plist_super": 1, "plist_super_mt": 1, "ray_walk": 2})
+    launches["walk path, bounce_walk off"] = got
+    differ = float(((off - p_img).abs().amax(dim=-1) > 1e-4).float().mean())
+    mad = float((off - p_img).abs().mean())
+    say("walk path, bounce_walk off", f"one frame {off_ms[0]:.4f} ms, "
+        f"launches {got}; against the shadow-tree bounce frame: {differ} of "
+        f"pixels differ by more than 1e-4 (<= 2e-2), mean abs difference "
+        f"{mad:.3g} (<= 2e-3)")
+    if not bool(torch.isfinite(off).all()) or differ > 2e-2 or mad > 2e-3:
+        raise AssertionError("walk path, bounce_walk off: image differs from"
+                             " the shadow-tree bounce frame")
+
+    a = w1["primary"]
+    return [
+        {"name": "ray_walk", "route": "cuda",
+         "source": "clpathtracer_tpu_torch/ops/csrc/ray_walk.cu",
+         "replaces": "clpathtracer_tpu/ops/traverse_fast.py:204 and "
+                     "ops/traverse.py:69 (XLA, not Pallas kernels)",
+         "launches": launches["walk normal"]["ray_walk"],
+         "launches_by_path": {p: c.get("ray_walk", 0)
+                              for p, c in launches.items()},
+         "max_abs_err": w1_err, "ms": a.ms, "plain_ms": a.plain_ms,
+         "plain_lanes": f"every {WALK_EVERY}th", "bound_ms": a.bound,
+         "bound_by": a.by, "library_ms": None,
+         "wrapper": "traverse_fast", "wrapper_ms": a.wrapper_ms,
+         "waves": {k: {"ms": b.ms, "wrapper_ms": b.wrapper_ms,
+                       "bound_ms": b.bound, "bound_by": b.by,
+                       "plain_ms": b.plain_ms, "steps_mean": b.steps_mean,
+                       "steps_max": b.steps_max} for k, b in w1.items()}},
+        {"name": "brute_force", "route": "cuda",
+         "source": "clpathtracer_tpu_torch/ops/csrc/brute_force.cu",
+         "replaces": "clpathtracer_tpu/ops/intersect.py:151 (XLA, not a "
+                     "Pallas kernel)",
+         "launches": launches["flat"]["brute_force"],
+         "launches_by_path": {p: c.get("brute_force", 0)
+                              for p, c in launches.items()},
+         "max_abs_err": w2_err, "ms": w2["terrain pixels"].ms,
+         "plain_ms": w2["terrain pixels"].plain_ms,
+         "bound_ms": w2["terrain pixels"].bound,
+         "bound_by": w2["terrain pixels"].by, "library_ms": None,
+         "bounce_ms": w2["bounce lanes"].ms,
+         "bounce_bound_ms": w2["bounce lanes"].bound,
+         "flat_frame_ms": f_med},
     ]
 
 

@@ -111,12 +111,12 @@ def build_grid(tri_verts: np.ndarray, res=None, density: float = 1.0,
     cubes as the scene AABB allows, at most 512 a side and
     min(2^23, max(8F, 4096)) in all. layout: "inline" only; the JAX
     package's "split" layout (meta + quad tables) is not ported (ROADMAP
-    queue 1 item 1)."""
+    queue 1 item 3)."""
     if layout != "inline":
         raise NotImplementedError(
             f"build_grid(layout={layout!r}): only the inline layout is "
             "ported; the split layout and its walk are ROADMAP queue 1 "
-            "item 1")
+            "item 3")
     tv = np.asarray(tri_verts, np.float32)
     f = tv.shape[0]
     if f == 0:

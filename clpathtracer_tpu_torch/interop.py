@@ -12,17 +12,26 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from clpathtracer_tpu_torch.accel.sah import CHUNK_ROWS, FlatKdTree
+from clpathtracer_tpu_torch.accel.sah import (CHUNK_ROWS, FlatKdTree,
+                                              tree_from_arrays)
 from clpathtracer_tpu_torch.core.camera import Camera
 from clpathtracer_tpu_torch.ops.plist import MortonWindows
 from clpathtracer_tpu_torch.scene.scene import Scene
 
 
 def scene_from_numpy(verts, faces, normals, albedo, emission,
-                     shade_rows=None, *, device) -> Scene:
-    """Scene from clpathtracer_tpu.scene.scene.Scene's arrays."""
-    scene = Scene.create(verts, faces, normals, albedo, emission,
-                         device=device)
+                     shade_rows=None, sphere_pos=None, sphere_radius=None,
+                     sphere_albedo=None, sphere_emission=None, *,
+                     device) -> Scene:
+    """Scene from clpathtracer_tpu.scene.scene.Scene's arrays, spheres
+    included."""
+    has_spheres = sphere_pos is not None and np.asarray(sphere_pos).size
+    scene = Scene.create(
+        verts, faces, normals, albedo, emission,
+        sphere_pos if has_spheres else None,
+        sphere_radius if has_spheres else None,
+        sphere_albedo if has_spheres else None,
+        sphere_emission if has_spheres else None, device=device)
     if shade_rows is not None:
         scene = scene.replace(shade_rows=torch.as_tensor(
             np.array(shade_rows, np.float32), device=device))
@@ -52,14 +61,15 @@ def windows_from_numpy(tris128, win_bnd, so_base, resolve_rows, slot_of_tri,
         win_rows=int(win_rows))
 
 
-def tree_from_numpy(node_table, tri_indices, quads, chunk_start, chunk_bnd,
-                    so_base, max_leaf_tris: int, wide_table=None, *,
-                    device) -> FlatKdTree:
-    """FlatKdTree from clpathtracer_tpu.accel.sah.FlatKdTree's arrays:
-    node_table [M, 24], tri_indices [T], quads [T/4, 64], chunk_start [M],
+def tree_from_numpy(node_table, tri_indices, quads, chunk_start=None,
+                    chunk_bnd=None, so_base=None, max_leaf_tris: int = 0,
+                    wide_table=None, *, device) -> FlatKdTree:
+    """FlatKdTree from clpathtracer_tpu.accel.sah.FlatKdTree's arrays, for
+    a tri_block 4 tree (the main tree or its shadow tree): node_table
+    [M, 24], tri_indices [T], quads [T/4, 64], chunk_start [M] or None,
     chunk_bnd [ceil(W/16), 128] (8 lanes per window, padded to whole rows
-    of 16 windows), so_base [4, R, 128] or None, wide_table [S, 128] or
-    None."""
+    of 16 windows) or None, so_base [4, R, 128] or None, wide_table
+    [S, 128] or None."""
     table = np.array(node_table, np.float32)
     flags = table[:, 7].astype(np.int32)
     leaf_start = table[:, 10].astype(np.int32) * 4
@@ -80,14 +90,37 @@ def tree_from_numpy(node_table, tri_indices, quads, chunk_start, chunk_bnd,
         is_leaf=dev(flags >= 4), leaf_start=dev(leaf_start),
         leaf_count=dev(leaf_count),
         tris=dev(np.asarray(quads, np.float32).reshape(-1, 16)),
-        chunk_start=dev(np.asarray(chunk_start, np.int32)),
-        chunk_bnd=dev(np.asarray(chunk_bnd, np.float32)
-                      .reshape(-1, 8)[:n_win, :6]),
+        chunk_start=(None if chunk_start is None else
+                     dev(np.asarray(chunk_start, np.int32))),
+        chunk_bnd=(None if chunk_bnd is None else
+                   dev(np.asarray(chunk_bnd, np.float32)
+                       .reshape(-1, 8)[:n_win, :6])),
         so_base=(None if so_base is None else dev(
             np.asarray(so_base, np.float32).reshape(4, -1, 16))),
         wide_table=(None if wide_table is None else dev(
             np.asarray(wide_table, np.float32))),
         max_leaf_tris=int(max_leaf_tris))
+
+
+def kd_tree_from_numpy(node_min, node_max, is_leaf, split_axis, split_value,
+                       child_lo, child_hi, leaf_start, leaf_count, ropes,
+                       tri_indices, tri_verts, tri_block: int, *,
+                       device) -> FlatKdTree:
+    """FlatKdTree from clpathtracer_tpu.accel.sah.FlatKdTree's column
+    arrays (the JAX package's SoA tree, as its Python builder returns it
+    for any tri_block): the port's node table and records, packed from the
+    same columns and leaf lists, and tri_verts [F, 3, 3]; no window
+    tables."""
+    arrays = {"node_min": node_min, "node_max": node_max,
+              "is_leaf": np.asarray(is_leaf, bool),
+              "split_axis": split_axis, "split_value": split_value,
+              "child_lo": child_lo, "child_hi": child_hi,
+              "leaf_start": np.asarray(leaf_start, np.int32),
+              "leaf_count": np.asarray(leaf_count, np.int32),
+              "ropes": ropes}
+    return tree_from_arrays(arrays, np.asarray(tri_indices, np.int32),
+                            np.asarray(tri_verts, np.float32), tri_block,
+                            device=device)
 
 
 def camera_from_numpy(position, forward, fov, near, far, *,

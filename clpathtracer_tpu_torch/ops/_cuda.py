@@ -97,6 +97,16 @@ SIGNATURES = {
         # out [6] i32
         "grid_dda_shape": [_P],
     },
+    "ray_walk": {
+        # table, leaf_first, recs, orig, dir, t_max, active, out_t, out_slot,
+        # out_steps, n, n_recs, block, max_iters, any_hit, stream
+        "ray_walk_launch": [_P] * 10 + [_I] * 5 + [_P],
+    },
+    "brute_force": {
+        # recs, orig, dir, key, out_t, out_prim, out_u, out_v, n, f,
+        # eps_bits, stream
+        "brute_force_launch": [_P] * 8 + [_I] * 3 + [_P],
+    },
     "packet_v1": {
         # table, recs, orig_t, dir_t, best_t, best_slot, stats, overflow,
         # n_rays, tile, n_recs, engine, stream

@@ -494,6 +494,17 @@ def _strip_masks(chunk_bnd, dir_bs, origin, n_strips, bh=8, bw=16):
 # ---------------------------------------------------------------------------
 
 
+def require_quad_tree(tree, name):
+    """Raise ValueError for a tree whose leaves are not padded to blocks
+    of 4 records: the packet engines read the quad-unit layout (lane 10 of
+    the node table) and its window tables. Such a tree (build_kd_tree's
+    tri_block != 4) takes the rope walk, ops/traverse.py::traverse."""
+    if getattr(tree, "tri_block", 4) != 4:
+        raise ValueError(f"{name}: a tri_block={tree.tri_block} tree; the "
+                         "packet engines read tri_block 4 trees only (walk "
+                         "it with ops/traverse.py::traverse)")
+
+
 def stream_nodes(tree):
     """K3's node tables from the packed node table, on its device
     (clpathtracer_tpu/ops/packet.py::_smem_nodes without the TPU's bit
@@ -501,6 +512,7 @@ def stream_nodes(tree):
     split and (flags, first record row r0, first window win0, window
     count) for a leaf, flags = axis + 4*is_leaf; nodes_f [6 + M] f32 = the
     root AABB, then each node's split value."""
+    require_quad_tree(tree, "stream_nodes")
     nt = tree.node_table
     flags = nt[:, 7].to(torch.int32)
     is_leaf = flags >= 4
@@ -1334,6 +1346,7 @@ def _stream_leaf(recs, rays, on, qstart, count, n_rows, bt, bs, tally=None):
 def _leaf_span(tree):
     """(is_leaf, first record 4 * quad start, triangle count) per node of
     the packed node table, int32 [M] each."""
+    require_quad_tree(tree, "packet walk")
     nt = tree.node_table
     return (nt[:, 7].to(torch.int32) >= 4, nt[:, 10].to(torch.int32) * 4,
             nt[:, 11].to(torch.int32))
@@ -1519,6 +1532,7 @@ def packet_mode(tree, n_rays: int, tile: int = TILE, engine: str = "auto"):
       "tri_stream" (K6b) when the node table does;
     * "wide": "wide" (K9) when the tree has a wide table (the JAX
       package's CLPT_WIDE=1)."""
+    require_quad_tree(tree, "traverse_packet")
     if tree is None or tree.node_table is None or n_rays % tile:
         return None
     if engine in ("auto", "stream"):
@@ -1584,6 +1598,7 @@ def v1_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
     packet_rays'. The records: tree.tris as they are for K6a, pad_records
     for K6b and K9; the rays pixel-blocked when image_shape divides into
     tiles."""
+    require_quad_tree(tree, "v1_kernel_args")
     orig_t, dir_t, _, layout = packet_rays(orig, dir, image_shape, tile)
     table = (tree.wide_table if mode == "wide"
              else tree.node_table[:, :16].contiguous())

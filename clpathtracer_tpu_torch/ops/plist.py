@@ -1051,7 +1051,8 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
     if n != h * w or h % GH or w % GW:
         raise NotImplementedError(
             f"traverse_plist needs an {h}x{w} frame of {n} rays that "
-            f"divides into {GH}x{GW} gates; other frames are not ported")
+            f"divides into {GH}x{GW} gates; render_image sends other frames "
+            "to the kd-tree (tree=)")
     so = mwin.so_base is not None
     whole = mwin.num_windows % SUPER == 0
     if kcap > 0 and (grid is None or gathered or not supers or not whole):
@@ -1265,7 +1266,7 @@ def _resolve_winners_body(mwin: MortonWindows, best_slot, orig, dir):
     if mwin.resolve_rows is None:
         raise NotImplementedError(
             "winner resolution without fused resolve rows (attach_resolve) "
-            "is not ported yet: ROADMAP queue 1 item 7")
+            "is not ported yet: ROADMAP queue 1 item 3")
     hit = best_slot >= 0
     slot = best_slot.clamp(0, mwin.resolve_rows.shape[0] - 1).long()
     rows = mwin.resolve_rows[slot]                               # [n, 32]

@@ -42,6 +42,17 @@ def resolve_tri_hits(scene, tri: torch.Tensor, u: torch.Tensor,
             "albedo": scene.albedo[safe], "emission": scene.emission[safe]}
 
 
+def resolve_sphere_hits(scene, sph: torch.Tensor, point: torch.Tensor):
+    """Surface attributes of sphere hits: dict(normal, albedo, emission),
+    each [N, 3]. sph: [N] sphere ids (-1 = not a sphere: sphere 0's
+    attributes, gate on your own mask); point: [N, 3] hit points."""
+    safe = sph.clamp(min=0).long()
+    return {"normal": vm.normalize(point - scene.sphere_pos[safe],
+                                   eps=1e-30),
+            "albedo": scene.sphere_albedo[safe],
+            "emission": scene.sphere_emission[safe]}
+
+
 def normal_color(normal: torch.Tensor) -> torch.Tensor:
     """The reference's normals-as-color visualization."""
     return (normal + 1.0) / 2.0

@@ -62,6 +62,54 @@ def cornell_box(light: bool = True, wall_albedo: float = 0.75, *,
                         device=device)
 
 
+def icosphere(subdivisions: int = 3, radius: float = 0.5,
+              center=(0.0, 0.0, 1.0), smooth: bool = True, *,
+              device) -> Scene:
+    """Subdivided icosahedron: 20 * 4^n triangles (n = 3: 1280, n = 5:
+    20480). smooth=True gives per-vertex normals (the sphere's), which
+    exercise the smooth-normal interpolation."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+    ], np.float64)
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], np.int64)
+    for _ in range(subdivisions):
+        edge_mid: dict = {}
+        verts_list = list(verts)
+
+        def midpoint(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = verts_list[a] + verts_list[b]
+                edge_mid[key] = len(verts_list)
+                verts_list.append(m / np.linalg.norm(m))
+            return edge_mid[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, np.int64)
+    normals = verts.copy()
+    verts = verts * radius + np.asarray(center, np.float64)
+    f = np.full((len(faces), 3, 3), -1, np.int32)
+    f[:, :, 0] = faces
+    if smooth:
+        f[:, :, 1] = faces  # normal index == vertex index
+    return Scene.create(verts.astype(np.float32), f,
+                        normals=normals.astype(np.float32) if smooth else None,
+                        device=device)
+
+
 def random_tri_soup(num_tris: int, seed: int = 0, extent: float = 10.0,
                     tri_size: float = 0.05, emissive_frac: float = 0.0, *,
                     device) -> Scene:

@@ -1,13 +1,12 @@
 """Scene container: flat SoA tensors.
 
-Port of clpathtracer_tpu/scene/scene.py. Sphere primitives stay as empty
-tensors in this slice: the renderer raises NotImplementedError on a scene
-that holds any.
+Port of clpathtracer_tpu/scene/scene.py: triangles and spheres.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -26,7 +25,8 @@ class Scene(TensorStruct):
               mesh has none).
     albedo:   [F, 3] f32 per-face diffuse reflectance.
     emission: [F, 3] f32 per-face radiant exitance.
-    sphere_pos/radius/albedo/emission: [0, 3], [0], [0, 3], [0, 3].
+    sphere_pos/radius/albedo/emission: [S, 3], [S], [S, 3], [S, 3] f32
+              (S = 0 without spheres).
     shade_rows: optional [F, 16] baked shading rows (n0, n1, n2, albedo,
               emission, pad); see bake_shading().
     """
@@ -44,7 +44,8 @@ class Scene(TensorStruct):
 
     @classmethod
     def create(cls, verts, faces, normals=None, albedo=None, emission=None,
-               *, device) -> "Scene":
+               sphere_pos=None, sphere_radius=None, sphere_albedo=None,
+               sphere_emission=None, *, device) -> "Scene":
         def f32(x):
             return torch.as_tensor(np.array(x, np.float32), device=device)
         verts = f32(verts).reshape(-1, 3)
@@ -59,11 +60,22 @@ class Scene(TensorStruct):
                   else f32(albedo).expand(nf, 3).contiguous())
         emission = (torch.zeros((nf, 3), device=device) if emission is None
                     else f32(emission).expand(nf, 3).contiguous())
-        z3 = torch.zeros((0, 3), dtype=torch.float32, device=device)
+        sphere_pos = (np.zeros((0, 3), np.float32) if sphere_pos is None
+                      else sphere_pos)
+        sphere_pos = f32(sphere_pos).reshape(-1, 3)
+        ns = sphere_pos.shape[0]
+        sphere_radius = (torch.zeros((0,), device=device) if ns == 0
+                         else f32(sphere_radius).reshape(ns))
+        sphere_albedo = (torch.full((ns, 3), 0.75, device=device)
+                         if sphere_albedo is None
+                         else f32(sphere_albedo).expand(ns, 3).contiguous())
+        sphere_emission = (torch.zeros((ns, 3), device=device)
+                           if sphere_emission is None else
+                           f32(sphere_emission).expand(ns, 3).contiguous())
         return cls(verts=verts, faces=faces, normals=normals, albedo=albedo,
-                   emission=emission, sphere_pos=z3,
-                   sphere_radius=torch.zeros((0,), device=device),
-                   sphere_albedo=z3, sphere_emission=z3)
+                   emission=emission, sphere_pos=sphere_pos,
+                   sphere_radius=sphere_radius, sphere_albedo=sphere_albedo,
+                   sphere_emission=sphere_emission)
 
     @property
     def num_tris(self) -> int:
@@ -77,6 +89,19 @@ class Scene(TensorStruct):
         """Gathered corner positions (v0, v1, v2), each [F, 3]."""
         v = self.verts[self.faces[:, :, 0].long()]                # [F, 3, 3]
         return v[:, 0, :], v[:, 1, :], v[:, 2, :]
+
+    @functools.cached_property
+    def tri_records(self) -> torch.Tensor:
+        """The triangles as [F, 16] records in index order, the flat scan's
+        (ops/intersect.py::brute_force): (v0, e1, e2, tri_id, pad 6), e1 =
+        v1 - v0 and e2 = v2 - v0 rounded in f32 as moller_trumbore rounds
+        them. Built at first use and kept with this scene (replace() and
+        to() give a scene that builds its own)."""
+        v0, v1, v2 = self.tri_verts()
+        f = v0.shape[0]
+        ids = torch.arange(f, dtype=torch.float32, device=v0.device)[:, None]
+        pad = torch.zeros((f, 6), dtype=torch.float32, device=v0.device)
+        return torch.cat([v0, v1 - v0, v2 - v0, ids, pad], dim=1).contiguous()
 
     def tri_corners(self) -> np.ndarray:
         """Host-side [F, 3, 3] corner positions in face-winding order: the

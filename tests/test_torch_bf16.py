@@ -155,7 +155,7 @@ def test_render_image_bf16_kd_route_matches_jax(terrain):  # noqa: F811
     ref_bf, ref_f32 = jax_image("bf16"), jax_image("f32")
     img = render_image(terrain["scene"], Camera.create(POS, FWD, device=CPU),
                        RenderOptions(width=64, height=64, packet_tile=1024,
-                                     precision="bf16"),
+                                     intersector="packet", precision="bf16"),
                        tree=terrain["tree"]).numpy()
     assert img.shape == (64, 64, 3) and np.isfinite(img).all()
 
@@ -169,7 +169,8 @@ def test_render_image_bf16_kd_route_matches_jax(terrain):  # noqa: F811
 def test_windows_route_ignores_precision(terrain):  # noqa: F811
     cam = Camera.create(POS, FWD, device=CPU)
     imgs = [render_image(terrain["scene"], cam,
-                         RenderOptions(width=64, height=64, precision=p),
+                         RenderOptions(width=64, height=64,
+                                       intersector="packet", precision=p),
                          terrain["mwin"]) for p in ("f32", "bf16")]
     assert torch.equal(imgs[0], imgs[1])
 
@@ -183,7 +184,9 @@ def test_unknown_precision_raises(terrain, where):  # noqa: F811
         with pytest.raises(ValueError, match="precision"):
             render_image(terrain["scene"], Camera.create(POS, FWD,
                                                          device=CPU),
-                         RenderOptions(width=64, height=64, precision="fp16"),
+                         RenderOptions(width=64, height=64,
+                                       intersector="packet",
+                                       precision="fp16"),
                          tree=terrain["tree"])
     elif where == "traverse_packet":
         with pytest.raises(ValueError, match="precision"):

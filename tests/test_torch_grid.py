@@ -75,7 +75,7 @@ def test_cornell_box_matches_jax():
 
 
 def test_split_layout_raises(soup):
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         tgrid.build_grid(soup["tv"], layout="split", device=CPU)
 
 

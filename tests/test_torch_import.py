@@ -53,6 +53,7 @@ tree = sah.attach_so_tables(sah.build_kd_tree(scene.tri_corners(),
                                               device=cpu))
 for mode, ref in (("normal", img), ("mirror", mirror)):
     kd = render_image(scene, cam, RenderOptions(width=32, height=32,
+                                                intersector="packet",
                                                 mode=mode, packet_tile=256),
                       tree=tree)
     assert torch.allclose(kd, ref, atol=1e-6), mode

@@ -167,8 +167,14 @@ def test_morton10_and_leaf_sort():
 
 def test_tree_build_errors(monkeypatch, tmp_path):
     tv = np.zeros((4, 3, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="tri_block"):
-        sah.build_kd_tree(tv, tri_block=1, device=CPU)
+    # tri_block 1 now builds with the Python builder; the native one
+    # emits tri_block 4 only and raises for another
+    tree = sah.build_kd_tree(tv, tri_block=1, device=CPU)
+    assert tree.tri_block == 1 and tree.tris.shape == (4, 16)
+    with pytest.raises(ValueError, match="tri_block"):
+        sah.build_kd_tree(tv, tri_block=1, backend="native", device=CPU)
+    with pytest.raises(ValueError, match="backend"):
+        sah.build_kd_tree(tv, backend="numba", device=CPU)
     with pytest.raises(ValueError, match="tri_block"):
         native.build_kd_native(tv, 4, 1, tri_block=2)
     # no g++: the loader raises, it does not fall back

@@ -21,6 +21,7 @@ from clpathtracer_tpu.render import integrator as jint
 from clpathtracer_tpu.scene import procedural as jproc
 from clpathtracer_tpu_torch.accel.grid import build_grid
 from clpathtracer_tpu_torch.core import camera as tcam
+from clpathtracer_tpu_torch.ops import intersect as tisx
 from clpathtracer_tpu_torch.ops import plist as tpl
 from clpathtracer_tpu_torch.render import integrator as tint
 from clpathtracer_tpu_torch.scene import procedural as tproc
@@ -112,9 +113,10 @@ def test_occluded_matches_jax(pair):
         pair["js"], pair["tree"], jnp.asarray(a), jnp.asarray(d),
         jnp.asarray(dist), jint.RenderOptions(compact=False),
         active=jnp.asarray(act)))
-    occ_t = tint._occluded(pair["grid"], torch.as_tensor(a),
+    occ_t = tint._occluded(pair["ts"], torch.as_tensor(a),
                            torch.as_tensor(d), torch.as_tensor(dist),
-                           active=torch.as_tensor(act)).numpy()
+                           tint.RenderOptions(), active=torch.as_tensor(act),
+                           grid=pair["grid"]).numpy()
     np.testing.assert_array_equal(occ_t, occ_j)
     assert occ_t.any() and not occ_t[~act].any()
 
@@ -218,9 +220,29 @@ def test_nee_bounce_grid_off(pair):
 
 @pytest.mark.parametrize("spp", [1, 2])
 def test_nee_without_grid_raises(pair, spp):
-    opts = tint.RenderOptions(W, H, mode="path", nee=True, spp=spp)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tint.render_image(pair["ts"], pair["tcam"], opts, pair["mwin"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tint._occluded(None, torch.zeros((4, 3)),
-                       torch.ones((4, 3)), torch.ones(4))
+    """NEE without a grid now renders: the shadow waves of the windows
+    route go through the sorted bundles (K1'), within the NEE image
+    budgets of the grid route's frame on the same draws; with no
+    structure at all the shadow query is the flat scan's (W2), equal to
+    the brute force's hits below the bound."""
+    opts = tint.RenderOptions(32, 16, mode="path", nee=True, spp=spp,
+                              bounces=2, background=0.0)
+    lights = tint.light_cdf(pair["ts"])
+    img = tint.render_image(pair["ts"], pair["tcam"], opts, pair["mwin"],
+                            lights=lights)
+    ref = tint.render_image(pair["ts"], pair["tcam"], opts, pair["mwin"],
+                            grid=pair["grid"], lights=lights)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+    differ = float(((img - ref).abs().amax(dim=-1) > 1e-4).float().mean())
+    assert differ <= 2e-2, differ
+    assert float((img - ref).abs().mean()) <= 2e-3
+    rng = np.random.default_rng(spp)
+    lo, hi = pair["tv"].min(axis=(0, 1)), pair["tv"].max(axis=(0, 1))
+    o = torch.as_tensor(rng.uniform(lo, hi, (256, 3)).astype(np.float32))
+    d = torch.nn.functional.normalize(torch.as_tensor(
+        rng.normal(size=(256, 3)).astype(np.float32)), dim=1)
+    dist = torch.full((256,), float(np.linalg.norm(hi - lo)) / 2)
+    occ = tint._occluded(pair["ts"], o, d, dist, tint.RenderOptions())
+    bf = tisx.nearest_hit_bruteforce(pair["ts"], o, d)
+    assert torch.equal(occ, bf["hit"] & (bf["t"] < dist - 1e-3))
+    assert bool(occ.any())

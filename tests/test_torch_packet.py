@@ -235,7 +235,7 @@ def test_render_image_kd_route_matches_jax(terrain, mode):
     cam = Camera.create(POS, FWD, device=CPU)
     img = render_image(terrain["scene"], cam,
                        RenderOptions(width=64, height=64, mode=mode,
-                                     packet_tile=1024),
+                                     intersector="packet", packet_tile=1024),
                        tree=terrain["tree"]).numpy()
     assert img.shape == (64, 64, 3) and np.isfinite(img).all()
     # the same hits give the same image up to exact-t tie winners at
@@ -251,7 +251,7 @@ def test_path_kd_route_matches_windows_route(terrain, spp):
     jittered samples) and sorted MT packet tiles against the windows
     route's gates and bundles."""
     opts = RenderOptions(width=64, height=64, mode="path", spp=spp,
-                         bounces=2, packet_tile=512)
+                         bounces=2, intersector="packet", packet_tile=512)
     rng = np.random.default_rng(5)
     jitter = (torch.as_tensor(rng.random((spp, 4096, 2), np.float32))
               if spp > 1 else None)
@@ -326,11 +326,18 @@ def test_outside_the_route_raises(terrain, case):
             assert (rec["hit"] == ref["hit"]).float().mean() >= 0.995
         elif case != "bf16":
             assert torch.equal(rec["hit"], ref["hit"])
-    elif case == "frame":      # not whole packet tiles: traverse_fast
+    elif case == "frame":      # not whole packet tiles: the rope walk
         cam = Camera.create(POS, FWD, device=CPU)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            render_image(terrain["scene"], cam,
-                         RenderOptions(width=48, height=48), tree=tree)
+        walk = render_image(terrain["scene"], cam,
+                            RenderOptions(width=48, height=48,
+                                          intersector="packet"), tree=tree)
+        packed = render_image(terrain["scene"], cam,
+                              RenderOptions(width=48, height=48,
+                                            intersector="packet",
+                                            packet_tile=256), tree=tree)
+        assert bool(torch.isfinite(walk).all())
+        differ = ((walk - packed).abs().amax(dim=-1) > 1e-5).float().mean()
+        assert float(differ) < 1.5e-2
     else:
         with pytest.raises(ValueError):
             tpk.traverse_packet(None, o, d)
