@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's paths once on one CUDA GPU and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+--parent DIR: a tree of the parent commit (a git archive); its W1 and W2
+are built beside this tree's and timed in turns with them in phases 40-42.
 
 Phases, one line or more each (any failure raises and the exit code is
 not 0):
@@ -12,9 +15,10 @@ not 0):
    one nvcc per source, all started together, and load the libraries;
    print the cluster launch shape of K1, K1', K1's kcap form, K2 (SO and
    MT), K3 and K4 (blocks per cluster, threads, registers, shared memory,
-   the clusters resident at once: cudaOccupancyMaxActiveClusters) and G1's
-   launch shape (threads a block and a ray, blocks resident on an SM,
-   registers, shared memory, spill bytes);
+   the clusters resident at once: cudaOccupancyMaxActiveClusters) and G1's,
+   W1's and W2's launch shapes (threads a block, threads a ray or rays a
+   thread, blocks resident on an SM, registers, shared memory, spill
+   bytes; W1's and W2's `-Xptxas -v` lines also go to the kernels line);
 3. scene: the procedural 1M-triangle terrain (seed 0), windows at
    win_rows 16 with shared-origin tables and resolve rows on the card;
    camera [0, 14, 0] looking down [0, -1, 0.01]; a 512x512 frame
@@ -266,15 +270,25 @@ tree, so their launches are as before (W1 and W2 0):
    and max; W1 alone (ray_walk) and its wrapper (traverse_fast) timed on
    each wave; the bounce wave's W1 (both trees) in turns beside K3's MT
    form and K1' on it sorted; W1's bound (the node lanes and records its
-   steps need, counted by the plain run, against its MT operations);
+   steps need, counted by the plain run, against its MT operations); the
+   hand-built edge waves of the split-leaf rule (walk_cases: ties in
+   and across blocks, chunks and leaves, a leaf of 70 records, mid-leaf
+   step caps, any-hit's first block, a hit at exactly t_max, dead lanes
+   and root misses), every lane exact against the plain version and the
+   built-in winners and steps; with --parent, each wave's W1 alone and
+   wrapped, the parent's and this tree's in turns;
 41. W2 on 4096 terrain pixels and 4096 live bounce lanes over all 1M
    triangles: exact against its plain version, equal to phase 5's
-   hand-written oracle (hits and t), timed beside its bound; the flat
+   hand-written oracle (hits and t), timed beside its bound; the tie wave
+   (walk_cases.bf_tie_case: 512 records copied to equal-t rows in their
+   own tile, a later tile and past the end, a ray at each), exact against the plain version, the last copy winning; the flat
    scan's normal frame at 512x512 of icosphere(5) and three spheres (W2 1
    a frame, every other kernel 0; 1 warm-up, 3 timed), the image finite;
    W2 on that frame's primaries, its own launch shape, exact against its
    plain version on every 63rd lane, and the frame's record with the
-   spheres merged exact against nearest_hit_bruteforce_reference there;
+   spheres merged exact against nearest_hit_bruteforce_reference there,
+   then W2 alone on them timed beside its FP32 bound; with --parent, W2 on
+   the three inputs, the parent's and this tree's in turns;
 42. frames: (a) the kd normal terrain frame on the default route (W1 1 a
    frame, K3 0; 2 warm-up, 20 timed), its image within the tie budget
    (< 1.5e-2 of pixels differ by more than 1e-5) of phase 15's packet
@@ -286,7 +300,10 @@ tree, so their launches are as before (W1 and W2 0):
    mean > 0; paths/s and the split as in phase 37; then one frame with
    bounce_walk off (K1 1, K1' 1, W1 2) within the NEE image budgets of the
    first (at most 2e-2 of pixels differ by more than 1e-4, mean abs
-   difference at most 2e-3).
+   difference at most 2e-3); with --parent, frames (a) and (c) with the
+   parent's W1 and this tree's, in turns (frame (c) 30 a side with their
+   spread, and each of its W1 waves' device time and host time: the
+   wrapper's and the launch entry's).
 
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
@@ -305,10 +322,16 @@ W1 each wave of phase 40.
 The last line is {"ok": true, "device": {...}}.
 """
 
+import argparse
+import contextlib
+import ctypes
 import dataclasses
+import importlib.util
 import json
 import subprocess
+import sys
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -320,8 +343,10 @@ from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (Camera, cam_matrix,
                                                 generate_rays)
 from clpathtracer_tpu_torch.ops import packet, packet_mxu, plist
-from clpathtracer_tpu_torch.ops._cuda import (cluster_shape, grid_shape,
-                                              load_kernels)
+from clpathtracer_tpu_torch.ops import _cuda
+from clpathtracer_tpu_torch.ops._cuda import (brute_force_shape,
+                                              cluster_shape, grid_shape,
+                                              load_kernels, ptxas_report)
 from clpathtracer_tpu_torch.ops.grid_walk import (traverse_grid,
                                                   traverse_grid_reference)
 from clpathtracer_tpu_torch.ops.packet import (BIG, MT_EXIT_OPS,
@@ -330,9 +355,10 @@ from clpathtracer_tpu_torch.ops.packet import (BIG, MT_EXIT_OPS,
 from clpathtracer_tpu_torch.ops.sort import sort_rays
 from clpathtracer_tpu_torch.ops.intersect import (
     brute_force, brute_force_reference, nearest_hit_bruteforce_reference)
-from clpathtracer_tpu_torch.ops.traverse_fast import (_mt_pre, ray_walk,
-                                                      traverse_fast,
-                                                      traverse_fast_reference)
+from clpathtracer_tpu_torch.ops.traverse_fast import (
+    _mt_pre, ray_walk, ray_walk_reference, traverse_fast,
+    traverse_fast_reference)
+from clpathtracer_tpu_torch.render import integrator
 from clpathtracer_tpu_torch.render.integrator import (BOUNCE_EPS,
                                                       PLIST_SCHEDULES,
                                                       RenderOptions,
@@ -349,6 +375,7 @@ from clpathtracer_tpu_torch.scene.procedural import (icosphere,
                                                      random_tri_soup,
                                                      terrain_mesh)
 from clpathtracer_tpu_torch.scene.scene import Scene
+from clpathtracer_tpu_torch.walk_cases import bf_tie_case, walk_edge_cases
 
 N_TRIS = 1_000_000
 SIZE = 512
@@ -597,15 +624,20 @@ def mt_bound(args, kw, out, ref_stats, tally):
     return (*bound(k3_tensors(args, kw, out), ops), tests, sample, ops)
 
 
-def turns_ms(fns, reps):
-    """Median device ms of each of fns, timed in turns: in order on even
-    repetitions, in reverse on odd ones."""
+def turns_all(fns, reps):
+    """Device ms of each call of fns, timed in turns: in order on even
+    repetitions, in reverse on odd ones. Returns a list of times a fn."""
     acc = [[] for _ in fns]
     for i in range(reps):
         order = list(range(len(fns)))
         for j in (order if i % 2 == 0 else order[::-1]):
             acc[j].extend(cuda_times_ms(fns[j], 1))
-    return [float(np.median(a)) for a in acc]
+    return acc
+
+
+def turns_ms(fns, reps):
+    """Median device ms of each of fns, timed in turns (turns_all)."""
+    return [float(np.median(a)) for a in turns_all(fns, reps)]
 
 
 def bound(tensors, ops):
@@ -752,6 +784,12 @@ def tile_stats_line(stats, tile):
 
 
 def main():
+    ap = argparse.ArgumentParser(description="Run the port's paths once on "
+                                 "one CUDA card and check them.")
+    ap.add_argument("--parent", default=None, help="a tree of the parent "
+                    "commit (git archive): its W1 and W2 are built and timed "
+                    "in turns beside this tree's in phases 40-42")
+    args = ap.parse_args()
     # 1. device
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device: "
@@ -785,17 +823,29 @@ def main():
             f"{sh['static_smem']} + {sh['dynamic_smem']} bytes of shared "
             f"memory a block, at most {sh['max_active_clusters']} clusters "
             "resident")
-    g = grid_shape()
-    say("build", f"traverse_grid: blocks of {g['threads']} threads, "
-        f"{g['ray_threads']} threads a ray, {g['blocks_per_sm']} blocks "
-        f"resident on an SM, {g['registers']} registers a thread, "
-        f"{g['static_smem']} bytes of shared memory a block, "
-        f"{g['local_bytes']} spill bytes a thread")
+    walk_shapes = {}
+    for name, g, kernel in (
+            ("traverse_grid", grid_shape(), None),
+            ("ray_walk", grid_shape("ray_walk_shape"), "ray_walk_kernel"),
+            ("brute_force", brute_force_shape(), "brute_force_scan")):
+        per = (f"{g['ray_threads']} threads a ray" if "ray_threads" in g
+               else f"{g['thread_rays']} rays a thread")
+        say("build", f"{name}: blocks of {g['threads']} threads, {per}, "
+            f"{g['blocks_per_sm']} blocks resident on an SM, "
+            f"{g['registers']} registers a thread, {g['static_smem']} bytes "
+            f"of shared memory a block, {g['local_bytes']} spill bytes a "
+            "thread")
+        if kernel:
+            walk_shapes[name] = dict(g, ptxas=ptxas_report(lib.build_log,
+                                                           kernel))
+    parent = parent_library(args.parent) if args.parent else None
 
-    kernels = smoke(device)
+    kernels = smoke(device, parent)
     for k in kernels:
         if k["name"] in shapes:
             k["cluster"] = shapes[k["name"]]["cluster"]
+        if k["name"] in walk_shapes:
+            k["shape"] = walk_shapes[k["name"]]
     print(card, flush=True)   # again, where the end of a long log shows it
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -820,8 +870,156 @@ def cluster_shapes():
                                                 0, 1)}
 
 
-def smoke(device):
-    """Phases 3-42 on `device`; returns the kernels line's entries."""
+PARENT_STEMS = ("ray_walk", "brute_force")
+
+
+def parent_library(parent_dir):
+    """W1's and W2's launch entries of the parent tree `parent_dir` (a git
+    archive): its ops/csrc sources built with this tree's nvcc flags into
+    the git-ignored build directory, bound with the parent's own
+    signatures. Returns {entry: function}, each called with this tree's
+    arguments (a W1 without the persistent grid's ray counter is called
+    without it)."""
+    root = Path(parent_dir).resolve() / "clpathtracer_tpu_torch" / "ops"
+    spec = importlib.util.spec_from_file_location("parent_cuda",
+                                                  root / "_cuda.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod   # its dataclasses look themselves up
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        del sys.modules[spec.name]
+    out = _cuda.BUILD_DIR / "parent"
+    out.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    procs = {stem: subprocess.Popen(
+        [_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, "-o",
+         str(out / f"lib{stem}.so"), str(root / "csrc" / f"{stem}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for stem in PARENT_STEMS}
+    fns = {}
+    for stem, proc in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"parent {stem}.cu: nvcc failed\n{text}")
+        lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
+        name = f"{stem}_launch"
+        fn = getattr(lib, name)
+        fn.argtypes = mod.SIGNATURES[stem][name]
+        fn.restype = ctypes.c_int
+        ours = _cuda.SIGNATURES[stem][name]
+        if len(fn.argtypes) == len(ours):
+            fns[name] = fn
+        elif stem == "ray_walk" and len(fn.argtypes) == len(ours) - 1:
+            # no ray counter (argument 10)
+            fns[name] = lambda *a, fn=fn: fn(*a[:10], *a[11:])
+        else:
+            raise RuntimeError(f"parent {name}: {len(fn.argtypes)} "
+                               f"arguments, this tree's {len(ours)}")
+    say("build", f"parent {', '.join(PARENT_STEMS)} from {parent_dir}: "
+        f"{time.perf_counter() - t:.2f} s nvcc")
+    return fns
+
+
+@contextlib.contextmanager
+def swapped(fns):
+    """The kernel wrappers launch `fns` (entry -> function) instead of
+    this tree's kernels inside the block."""
+    lib = load_kernels().fns
+    saved = {k: lib[k] for k in fns}
+    lib.update(fns)
+    try:
+        yield
+    finally:
+        lib.update(saved)
+
+
+def parent_turns(parent, fn, reps):
+    """(parent ms, change ms): fn with the parent's kernels swapped in and
+    with this tree's, timed in turns (parent, change, change, parent, ...;
+    medians)."""
+    def with_parent():
+        with swapped(parent):
+            fn()
+    return tuple(turns_ms([with_parent, fn], reps))
+
+
+PATH_TURNS = 30   # frame 42c's frames a side, in turns, with --parent
+
+
+def spread(ms):
+    """min / lower quartile / median / upper quartile / max of times."""
+    return " / ".join(f"{v:.4f}" for v in np.percentile(ms, [0, 25, 50, 75,
+                                                             100]))
+
+
+def path_leg_parent(parent, frame):
+    """Frame 42c (`frame`) with the parent's W1 and this tree's: its W1
+    waves, recorded from one frame, each timed in turns on the device and
+    on the host (the wrapper ray_walk from its call to its return: the
+    output and counter allocations and the launch entry; and the launch
+    entry alone: this tree's occupancy query, counter memset and launch;
+    the parent's launch and, to drop the counter argument, one Python
+    call); then PATH_TURNS frames a side in turns, with their spread.
+    Returns the frames' median ms (parent, change)."""
+    waves = []
+    walk = integrator.traverse_fast
+
+    def record(tree, orig, dir, **kw):
+        waves.append((tree, dict(orig=orig.clone(), dir=dir.clone(), **{
+            k: v.clone() if isinstance(v, torch.Tensor) else v
+            for k, v in kw.items()})))
+        return walk(tree, orig, dir, **kw)
+    integrator.traverse_fast = record
+    try:
+        frame()
+    finally:
+        integrator.traverse_fast = walk
+    lib = load_kernels().fns
+    ours = lib["ray_walk_launch"]
+    for k, (tr, w) in enumerate(waves):
+        dev_ms = parent_turns(parent, lambda: ray_walk(tr, **w), 10)
+        host = ([], [])
+        entry = ([], [])
+        for i in range(2 * PATH_TURNS):
+            for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+                fn = parent["ray_walk_launch"] if side == 0 else ours
+
+                def timed_entry(*a, fn=fn, side=side):
+                    t = time.perf_counter()
+                    err = fn(*a)
+                    entry[side].append((time.perf_counter() - t) * 1e6)
+                    return err
+                lib["ray_walk_launch"] = timed_entry
+                try:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    ray_walk(tr, **w)
+                    host[side].append((time.perf_counter() - t) * 1e6)
+                    torch.cuda.synchronize()
+                finally:
+                    lib["ray_walk_launch"] = ours
+        live = int(w["active"].sum()) if "active" in w else w["orig"].shape[0]
+        say("walk path parent", f"W1 wave {k} of the frame ({live} live "
+            f"lanes, any_hit {bool(w.get('any_hit', False))}): the parent's "
+            f"/ this tree's, in turns: device {dev_ms[0]:.4f} / "
+            f"{dev_ms[1]:.4f} ms; host us (median over {2 * PATH_TURNS}): "
+            f"the wrapper {np.median(host[0]):.1f} / {np.median(host[1]):.1f}"
+            f", the launch entry {np.median(entry[0]):.1f} / "
+            f"{np.median(entry[1]):.1f}")
+    def with_parent():
+        with swapped(parent):
+            frame()
+    ms = turns_all([with_parent, frame], PATH_TURNS)
+    say("walk path parent", f"{PATH_TURNS} frames a side in turns, the "
+        f"parent's W1 / this tree's: min / quartile / median / quartile / max"
+        f" {spread(ms[0])} ms / {spread(ms[1])} ms")
+    return float(np.median(ms[0])), float(np.median(ms[1]))
+
+
+def smoke(device, parent=None):
+    """Phases 3-42 on `device`; returns the kernels line's entries. parent:
+    parent_library's entries, timed beside this tree's W1 and W2."""
     # 3. scene at full size
     t = time.perf_counter()
     scene = terrain_mesh(N_TRIS, seed=0, extent=10.0,
@@ -1081,7 +1279,7 @@ def smoke(device):
     grid_entries = nee_grid(device, scene, launches)
     tails["K3 MT"] = ctx["tail"]
     tail_phase(tails)
-    walk_entries = walk_route(device, ctx, launches)
+    walk_entries = walk_route(device, ctx, launches, parent)
     return [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -2919,18 +3117,73 @@ def walk_waves(scene, tree, shadow, orig, dirs, lights, device):
             "sky": (tree, dict(orig=orig, dir=-dirs))}
 
 
+def w1_edges(device):
+    """Phase 40's edge waves (walk_edge_cases; the Python builder at
+    tri_block 4): W1 (ray_walk, and its wrapper traverse_fast) on every
+    lane against its plain version and against the winners and steps the
+    cases were built for, exactly; then the same waves through trees of
+    tri_block 1 and 2 (W1 at those blocks, as ops/traverse.py::traverse
+    runs it) against the plain version. Returns the lanes held."""
+    lanes = 0
+    cases = walk_edge_cases()
+    for tb in (1, 2):
+        bad = [0, 0, 0]
+        for name, tv, build, wave, want in cases:
+            tree = sah.build_kd_tree(tv, tri_block=tb, backend="python",
+                                     device=device, **build)
+            w = {k: torch.as_tensor(v, device=device)
+                 if isinstance(v, np.ndarray) else v
+                 for k, v in wave.items()}
+            out = ray_walk(tree, block=tb, **w)
+            ref = ray_walk_reference(tree, block=tb, **w)
+            bad = [b + int((x != y).sum()) for b, x, y in zip(bad, out, ref)]
+            lanes += want[0].size
+        say("W1 edges", f"tri_block {tb} trees of the {len(cases)} waves, "
+            f"every lane against the plain version (tolerance: exact): "
+            f"t/slot/steps mismatches {bad}")
+        if any(bad):
+            raise AssertionError(f"W1 edges, tri_block {tb}: the kernel "
+                                 "disagrees")
+    for name, tv, build, wave, want in cases:
+        tree = sah.build_kd_tree(tv, tri_block=4, backend="python",
+                                 device=device, **build)
+        w = {k: torch.as_tensor(v, device=device)
+             if isinstance(v, np.ndarray) else v for k, v in wave.items()}
+        out = ray_walk(tree, **w)
+        ref = ray_walk_reference(tree, **w)
+        rec = traverse_fast(tree, **w)
+        rec_ref = traverse_fast_reference(tree, **w)
+        bad = [int((a != b).sum()) for a, b in zip(out, ref)]
+        off = [int((a != torch.as_tensor(b, device=device)).sum())
+               for a, b in zip(out, (want[2], want[0], want[1]))]
+        rbad = {k: int((rec[k] != rec_ref[k]).sum()) for k in G1_FIELDS}
+        lanes += want[0].size
+        say("W1 edges", f"{name}: {want[0].size} lanes (every lane) against"
+            f" the plain version (tolerance: exact): t/slot/steps mismatches"
+            f" {bad}, traverse_fast {rbad}; against the winners and steps "
+            f"built in: {off}")
+        if any(bad) or any(off) or any(rbad.values()):
+            raise AssertionError(f"W1 edges {name}: the kernel disagrees")
+    return lanes
+
+
 def flat_frame_record(flat, fcam, f_opts):
     """Phase 41's flat frame at its own launch shape: W2 on all the frame's
     primaries (one split: one block scans every triangle) against its
     plain version on every FLAT_EVERY-th lane, and the frame's record,
     the spheres merged, against the plain oracle nearest_hit_bruteforce_
-    reference on those lanes; both exact. Returns W2's largest t error."""
+    reference on those lanes; both exact. Then W2 alone on those
+    primaries, timed beside its FP32 bound (the pairs weighted by the exits
+    the plain run counted, scaled to all lanes). Returns W2's largest t
+    error, the timing and the primaries."""
     n = f_opts.width * f_opts.height
     o, d = generate_rays(cam_matrix(fcam, f_opts.height), f_opts.width,
                          f_opts.height)
     lanes = torch.arange(0, n, FLAT_EVERY, device=o.device)
     out = brute_force(flat.tri_records, o, d)
-    ref = brute_force_reference(flat.tri_records, o[lanes], d[lanes])
+    tally = torch.zeros(4, dtype=torch.int64, device=o.device)
+    ref, plain_ms = timed(lambda: brute_force_reference(
+        flat.tri_records, o[lanes], d[lanes], tally=tally))
     bad = [int((a[lanes] != b).sum()) for a, b in zip(out, ref)]
     rec = intersect_scene(flat, None, o, d, f_opts)
     prim = torch.where(rec["sphere"] >= 0, flat.num_tris + rec["sphere"],
@@ -2952,13 +3205,26 @@ def flat_frame_record(flat, fcam, f_opts):
         raise AssertionError("flat frame: the record disagrees with the "
                              "plain versions, or spheres or triangles go "
                              "unhit")
-    return (float((out[1][lanes] - ref[1])[ref[0]].abs().max())
-            if bool(ref[0].any()) else 0.0)
+    ms = median_ms(lambda: brute_force(flat.tri_records, o, d), 5)
+    scale = n / lanes.numel()
+    pairs = n * flat.num_tris
+    bnd, by = bound([flat.tri_records[:, :12], o, d, *out], mt_ops(
+        pairs, [int(x) * scale for x in tally[1:4]]))
+    say("flat frame", f"W2 alone on the {n} primaries: {ms:.4f} ms; "
+        f"{pairs} pairs, det/u/v passes {tally[1:4].tolist()} on the "
+        f"plain run's {lanes.numel()} lanes (scaled by {scale:.4f}): bound "
+        f"{bnd:.4f} ms ({by}, {ms / bnd:.2f}x); plain {plain_ms:.1f} ms")
+    err = (float((out[1][lanes] - ref[1])[ref[0]].abs().max())
+           if bool(ref[0].any()) else 0.0)
+    return err, SimpleNamespace(ms=ms, plain_ms=plain_ms, bound=bnd, by=by,
+                                orig=o, dir=d)
 
 
-def walk_route(device, ctx, launches):
+def walk_route(device, ctx, launches, parent=None):
     """Phases 39-42: the per-ray rope walk W1, the brute force W2, and the
-    frames they carry. Returns their kernels entries."""
+    frames they carry. Returns their kernels entries. parent: the parent
+    tree's W1 and W2 (parent_library), timed in turns beside this tree's
+    on phase 40's waves, phase 41's inputs and frames 42a and 42c."""
     n = SIZE * SIZE
     tree, cam, orig, dirs = ctx["tree"], ctx["cam"], ctx["orig"], ctx["dirs"]
     t_tile = TERRAIN_KD["tile"]
@@ -3068,6 +3334,7 @@ def walk_route(device, ctx, launches):
                 ok = ok and extra == 0 and lost <= cap
         if not ok:
             raise AssertionError(f"W1 {name}: disagrees with the brute force")
+    edge_lanes = w1_edges(device)
     # W1 alone (ray_walk: the kernel's launch and its output buffers) and
     # its wrapper (traverse_fast: ray_walk, then resolve_slot's gather and
     # Moller-Trumbore on the winners)
@@ -3112,6 +3379,16 @@ def walk_route(device, ctx, launches):
             f"({b.ms / b.bound:.2f}x). Were every step's node lanes and "
             f"records read from memory: {step_bytes:.6g} B, "
             f"{step_bytes / PEAK_BYTES * 1e3:.4f} ms at {PEAK_BYTES:.3g} B/s")
+    if parent:
+        for name, b in w1.items():
+            tr, w = waves[name]
+            b.parent = parent_turns(parent, lambda: ray_walk(tr, **w), 6)
+            b.parent_wrapper = parent_turns(
+                parent, lambda: traverse_fast(tr, **w), 6)
+            say("W1 parent", f"{name}: the parent's W1 / this tree's, in "
+                f"turns: alone {b.parent[0]:.4f} / {b.parent[1]:.4f} ms, "
+                f"wrapped {b.parent_wrapper[0]:.4f} / "
+                f"{b.parent_wrapper[1]:.4f} ms; bound {b.bound:.4f} ms")
 
     # 41. W2
     pix = torch.as_tensor(np.random.default_rng(2).choice(
@@ -3151,6 +3428,27 @@ def walk_route(device, ctx, launches):
         say(f"W2 {name}", f"{ms:.4f} ms; {pairs} pairs, det/u/v passes "
             f"{tally[1:4].tolist()}: bound {bnd:.4f} ms ({by}, "
             f"{ms / bnd:.2f}x)")
+    # W2's tie wave: 512 records, each copied into its own tile, a later
+    # tile and past the end
+    f = recs.shape[0]
+    targets = np.arange(0, f - 1000, (f - 1000) // 512)[:512]
+    rows, o, d, want = bf_tie_case(recs, targets, [
+        np.array([t, t + 1, t + 700, f + k]) for k, t in enumerate(targets)])
+    t_recs = recs[rows].contiguous()
+    out = brute_force(t_recs, o, d)
+    ref = brute_force_reference(t_recs, o, d)
+    bad = [int((a != b).sum()) for a, b in zip(out, ref)]
+    off = int((out[2] != want).sum())
+    tie_lanes = o.shape[0]
+    say("W2 ties", f"{tie_lanes} rays at {len(targets)} records with equal-t"
+        f" copies (rows r, r + 1, r + 700, past the end) over "
+        f"{t_recs.shape[0]} records: against the plain version (tolerance: "
+        f"exact) hit/t/prim/u/v mismatches {bad}; lanes whose winner is not "
+        f"the last copy: {off}")
+    if any(bad) or off:
+        raise AssertionError("W2 ties: disagrees with its plain version or "
+                             "the last-copy rule")
+    del t_recs, rows
     ico = icosphere(5, device=device)
     flat = Scene.create(ico.verts.cpu().numpy(), ico.faces.cpu().numpy(),
                         ico.normals.cpu().numpy(), device=device,
@@ -3166,7 +3464,18 @@ def walk_route(device, ctx, launches):
         raise AssertionError(f"flat frame: finite "
                              f"{bool(torch.isfinite(f_img).all())}, hit "
                              f"fraction {f_hit}")
-    w2_err = max(w2_err, flat_frame_record(flat, fcam, f_opts))
+    err, w2_flat = flat_frame_record(flat, fcam, f_opts)
+    w2_err = max(w2_err, err)
+    if parent:
+        w2_in = {"terrain pixels": (recs, orig[pix], dirs[pix]),
+                 "bounce lanes": (recs, bw["orig"][bpick], bw["dir"][bpick]),
+                 "flat frame": (flat.tri_records, w2_flat.orig, w2_flat.dir)}
+        for name, (r, o, d) in w2_in.items():
+            b = w2_flat if name == "flat frame" else w2[name]
+            b.parent = parent_turns(parent, lambda: brute_force(r, o, d), 6)
+            say("W2 parent", f"{name}: the parent's W2 / this tree's, in "
+                f"turns: {b.parent[0]:.4f} / {b.parent[1]:.4f} ms; bound "
+                f"{b.bound:.4f} ms")
     f_med = float(np.median(f_ms))
     say("flat frame", f"{SIZE}x{SIZE} normal, icosphere(5) "
         f"({flat.num_tris} triangles) and {flat.num_spheres} spheres, no "
@@ -3195,6 +3504,13 @@ def walk_route(device, ctx, launches):
     if not bool(torch.isfinite(img).all()) or differ >= 1.5e-2:
         raise AssertionError("walk frame: image differs from the packet "
                              "frame")
+    frames_parent = {}
+    if parent:
+        frames_parent["42a"] = parent_turns(
+            parent, lambda: render_image(scene, cam, w_opts, tree=tree), 10)
+        say("walk frame", f"the parent's W1 / this tree's, in turns: "
+            f"{frames_parent['42a'][0]:.4f} / {frames_parent['42a'][1]:.4f} "
+            "ms a frame")
     odd = RenderOptions(width=500, height=500, intersector="packet",
                         packet_tile=t_tile)
     o_ms, _, got, o_img = run_frames(
@@ -3231,6 +3547,11 @@ def walk_route(device, ctx, launches):
         f"{max(p_ms):.4f}; host wall {p_wall:.4f} ms/frame), "
         f"{n / p_med * 1e3:.6g} paths/s, image mean {mean:.6f}, launches "
         f"{got}")
+    if parent:
+        frames_parent["42c"] = path_leg_parent(parent, frame)
+        say("walk path", f"the parent's W1 / this tree's, in turns: "
+            f"{frames_parent['42c'][0]:.4f} / {frames_parent['42c'][1]:.4f} "
+            "ms a frame")
     _, bounce, light = path_draws(
         p_opts, torch.Generator(device=device).manual_seed(0), device)
     split = {"primary": 0.0, "light sampling": 0.0, "shadow waves": 0.0,
@@ -3293,7 +3614,16 @@ def walk_route(device, ctx, launches):
          "waves": {k: {"ms": b.ms, "wrapper_ms": b.wrapper_ms,
                        "bound_ms": b.bound, "bound_by": b.by,
                        "plain_ms": b.plain_ms, "steps_mean": b.steps_mean,
-                       "steps_max": b.steps_max} for k, b in w1.items()}},
+                       "steps_max": b.steps_max,
+                       **({"parent_ms": b.parent[0],
+                           "turns_ms": b.parent[1],
+                           "parent_wrapper_ms": b.parent_wrapper[0],
+                           "turns_wrapper_ms": b.parent_wrapper[1]}
+                          if parent else {})} for k, b in w1.items()},
+         "edge_lanes": edge_lanes,
+         **({"parent_frames_ms": {k: {"parent": v[0], "change": v[1]}
+                                  for k, v in frames_parent.items()}}
+            if parent else {})},
         {"name": "brute_force", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/brute_force.cu",
          "replaces": "clpathtracer_tpu/ops/intersect.py:151 (XLA, not a "
@@ -3307,7 +3637,13 @@ def walk_route(device, ctx, launches):
          "bound_by": w2["terrain pixels"].by, "library_ms": None,
          "bounce_ms": w2["bounce lanes"].ms,
          "bounce_bound_ms": w2["bounce lanes"].bound,
-         "flat_frame_ms": f_med},
+         "flat_frame_ms": f_med, "flat_ms": w2_flat.ms,
+         "flat_bound_ms": w2_flat.bound, "flat_bound_by": w2_flat.by,
+         "flat_plain_ms": w2_flat.plain_ms, "tie_lanes": tie_lanes,
+         **({"parent_ms": {k: {"parent": b.parent[0], "change": b.parent[1]}
+                           for k, b in (*w2.items(),
+                                        ("flat frame", w2_flat))}}
+            if parent else {})},
     ]
 
 

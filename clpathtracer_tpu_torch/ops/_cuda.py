@@ -99,13 +99,17 @@ SIGNATURES = {
     },
     "ray_walk": {
         # table, leaf_first, recs, orig, dir, t_max, active, out_t, out_slot,
-        # out_steps, n, n_recs, block, max_iters, any_hit, stream
-        "ray_walk_launch": [_P] * 10 + [_I] * 5 + [_P],
+        # out_steps, next_ray, n, n_recs, block, max_iters, any_hit, stream
+        "ray_walk_launch": [_P] * 11 + [_I] * 5 + [_P],
+        # out [6] i32
+        "ray_walk_shape": [_P],
     },
     "brute_force": {
         # recs, orig, dir, key, out_t, out_prim, out_u, out_v, n, f,
         # eps_bits, stream
         "brute_force_launch": [_P] * 8 + [_I] * 3 + [_P],
+        # out [6] i32
+        "brute_force_shape": [_P],
     },
     "packet_v1": {
         # table, recs, orig_t, dir_t, best_t, best_slot, stats, overflow,
@@ -202,6 +206,8 @@ SHAPE_KEYS = ("cluster", "threads", "max_active_clusters", "registers",
               "static_smem", "dynamic_smem")
 GRID_SHAPE_KEYS = ("threads", "ray_threads", "blocks_per_sm", "registers",
                    "static_smem", "local_bytes")
+BF_SHAPE_KEYS = ("threads", "thread_rays", "blocks_per_sm", "registers",
+                 "static_smem", "local_bytes")
 
 
 def _shape(entry, keys, ints) -> dict:
@@ -221,9 +227,33 @@ def cluster_shape(entry, *ints) -> dict:
     return _shape(entry, SHAPE_KEYS, ints)
 
 
-def grid_shape() -> dict:
-    """G1's launch shape (ops/csrc/grid_dda.cu::grid_dda_shape): threads
-    per block, threads per ray, blocks resident on one SM, registers per
+def grid_shape(entry: str = "grid_dda_shape") -> dict:
+    """The launch shape of a per-ray walk: G1 (ops/csrc/grid_dda.cu::
+    grid_dda_shape) or, with entry "ray_walk_shape", W1: threads per
+    block, threads per ray, blocks resident on one SM, registers per
     thread, static shared memory bytes per block and local (spill) bytes
     per thread. Needs the card; raises on a CUDA error."""
-    return _shape("grid_dda_shape", GRID_SHAPE_KEYS, ())
+    return _shape(entry, GRID_SHAPE_KEYS, ())
+
+
+def brute_force_shape() -> dict:
+    """W2's scan launch shape (ops/csrc/brute_force.cu::brute_force_shape):
+    threads per block, rays per thread, blocks resident on one SM,
+    registers per thread, static shared memory bytes per block and local
+    (spill) bytes per thread. Needs the card; raises on a CUDA error."""
+    return _shape("brute_force_shape", BF_SHAPE_KEYS, ())
+
+
+def ptxas_report(log: str, kernel: str) -> str:
+    """What `nvcc -Xptxas -v` said of the kernel whose mangled name holds
+    `kernel`, in a build log (KernelLibrary.build_log): its stack frame and
+    spill line and its "Used ... registers" line, joined; "" when the log
+    does not have it (a library loaded from the build directory)."""
+    out, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("spill" in line or "Used" in line):
+            out.append(line.split(":", 1)[-1].strip() if "ptxas" in line
+                       else line.strip())
+    return "; ".join(out)

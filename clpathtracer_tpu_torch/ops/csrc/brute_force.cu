@@ -5,19 +5,21 @@
 // not a Pallas kernel. It carries the port's flat scan (no windows, no
 // tree) and is its in-package oracle.
 //
-// One thread a ray. A block's 256 rays scan the records of one split of the
-// triangle range in tiles of 256, each tile staged through shared memory
-// (cols 0-11 of a record, three float4s). Each pair is tested with
-// mt_hit_uv (pair_tests.cuh: Moller-Trumbore, det > 0); a hit counts when
-// its t > t_min_eps and t < BIG. The winner is the least t and, on equal t,
-// the last record in index order (the reference's `t <= minHit`,
-// src/kernel.cl:344; the JAX package's last argmin): within a thread's scan
-// by <=, across the splits by an atomicMin on the key (t's bits << 32 |
-// ~record), t > 0 so its bits order as the floats do. When there are few
-// rays the triangles are split over more blocks, so that the card fills;
-// many rays take one split. A second kernel resolves each key: t, u and v
-// from mt_hit_uv on the winner again (the same arithmetic, the same
-// values), BIG, -1, 0, 0 on a miss.
+// One ray a thread, kThreads threads a block. A block's rays scan the
+// records of one split of the triangle range in tiles of kTile records,
+// each tile staged in shared memory (cols 0-11 of a record, three float4s)
+// with cp.async in a ring of two tiles: the next tile is copied while this
+// one is tested, one barrier a tile. Each thread tests every staged record
+// against its ray with mt_hit_uv (pair_tests.cuh: Moller-Trumbore, det >
+// 0); a hit counts when its t > t_min_eps and t < BIG. The winner is the
+// least t and, on equal t, the last record in index order (the reference's
+// `t <= minHit`, src/kernel.cl:344; the JAX package's last argmin): within
+// a ray's scan by <=, across the splits by an atomicMin on the key (t's
+// bits << 32 | ~record), t > 0 so its bits order as the floats do. When
+// there are few rays the triangles are split over more blocks, so that the
+// card fills; many rays take one split. A second kernel resolves each key:
+// t, u and v from mt_hit_uv on the winner again (the same arithmetic, the
+// same values), BIG, -1, 0, 0 on a miss.
 //
 // The plain version is ops/intersect.py::brute_force_reference (chunked
 // torch ops, the last minimum of a chunk taken on <= over the chunks
@@ -30,6 +32,7 @@
 #include <algorithm>
 #include <cstring>
 
+#include "kd_walk.cuh"
 #include "pair_tests.cuh"
 
 namespace {
@@ -37,10 +40,11 @@ namespace {
 using clpt::Ray;
 using clpt::mt_hit_uv;
 
-constexpr int kThreads = 256;   // rays a block
+constexpr int kThreads = 256;   // threads a block
 constexpr int kTile = 256;      // records staged at a time
 constexpr float kBig = 3.4e38f;
 constexpr int kRecF4 = 4;       // float4s per 16-float record
+constexpr int kUsedF4 = 3;      // float4s staged per record (cols 0-11)
 constexpr unsigned long long kNone = ~0ull;
 
 __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
@@ -55,42 +59,55 @@ __device__ __forceinline__ Ray load_ray(const float* orig, const float* dir,
   return ray;
 }
 
+// Copy records [start, start + cnt) (cols 0-11) into a tile buffer.
+__device__ __forceinline__ void stage_tile(float4* dst,
+                                           const float4* __restrict__ recs,
+                                           int start, int cnt) {
+  for (int e = threadIdx.x; e < cnt * kUsedF4; e += kThreads)
+    clpt::cp_async16(dst + e, recs + (size_t)(start + e / kUsedF4) * kRecF4 +
+                                  e % kUsedF4);
+  clpt::cp_async_commit();
+}
+
 __global__ void __launch_bounds__(kThreads)
 brute_force_scan(const float4* __restrict__ recs,
                  const float* __restrict__ orig,
                  const float* __restrict__ dir,
                  unsigned long long* __restrict__ key, int n, int f,
                  int per_split, float eps) {
-  __shared__ float4 tile[kTile * 3];
+  __shared__ float4 tile[2][kTile * kUsedF4];
+  // the thread's ray (a thread past the last ray repeats ray n - 1 and
+  // writes nothing)
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = i < n;
-  const Ray ray = load_ray(orig, dir, live ? i : 0);
-  const int lo = blockIdx.y * per_split;
-  const int hi = min(f, lo + per_split);
+  const Ray ray = load_ray(orig, dir, min(i, n - 1));
   float best_t = kBig;
   int best = -1;
-  for (int start = lo; start < hi; start += kTile) {
+  const int lo = blockIdx.y * per_split;
+  const int hi = min(f, lo + per_split);
+  const int tiles = (hi - lo + kTile - 1) / kTile;
+  stage_tile(tile[0], recs, lo, min(kTile, hi - lo));
+  for (int k = 0; k < tiles; ++k) {
+    const int start = lo + k * kTile;
     const int cnt = min(kTile, hi - start);
+    clpt::cp_async_wait<0>();
+    // tile k is in for every thread, and every thread is done with tile
+    // k - 1, whose buffer takes tile k + 1 next
     __syncthreads();
-    for (int r = threadIdx.x; r < cnt; r += kThreads) {
-      const float4* rec = recs + (size_t)(start + r) * kRecF4;
-      tile[3 * r] = rec[0];
-      tile[3 * r + 1] = rec[1];
-      tile[3 * r + 2] = rec[2];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int r = 0; r < cnt; ++r) {
+    if (k + 1 < tiles)
+      stage_tile(tile[(k + 1) & 1], recs, start + kTile,
+                 min(kTile, hi - start - kTile));
+    const float4* buf = tile[k & 1];
+    for (int j = 0; j < cnt; ++j) {
       float t, u, v;
-      if (mt_hit_uv(ray, tile[3 * r], tile[3 * r + 1], tile[3 * r + 2], &t,
-                    &u, &v) &&
+      if (mt_hit_uv(ray, buf[kUsedF4 * j], buf[kUsedF4 * j + 1],
+                    buf[kUsedF4 * j + 2], &t, &u, &v) &&
           t > eps && t < kBig && t <= best_t) {
         best_t = t;
-        best = start + r;
+        best = start + j;
       }
     }
   }
-  if (live && best >= 0)
+  if (i < n && best >= 0)
     atomicMin(key + i, ((unsigned long long)__float_as_uint(best_t) << 32) |
                            (0xFFFFFFFFull - (unsigned)best));
 }
@@ -166,4 +183,26 @@ extern "C" int brute_force_launch(const void* recs, const void* orig,
       static_cast<float*>(out_t), static_cast<int*>(out_prim),
       static_cast<float*>(out_u), static_cast<float*>(out_v), n);
   return (int)cudaGetLastError();
+}
+
+// W2's launch shape into out[6]: threads a block, rays a thread, blocks of
+// the scan resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// registers a thread, static shared memory and local (spill) bytes a thread.
+// Returns a CUDA error or 0.
+extern "C" int brute_force_shape(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, brute_force_scan);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
+                                                      brute_force_scan,
+                                                      kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kThreads;
+  out[1] = 1;   // rays a thread
+  out[2] = blocks;
+  out[3] = fa.numRegs;
+  out[4] = (int)fa.sharedSizeBytes;
+  out[5] = (int)fa.localSizeBytes;
+  return 0;
 }

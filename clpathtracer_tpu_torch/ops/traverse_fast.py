@@ -15,14 +15,16 @@ tmin + EXIT_EPS > best t: after a hit without t_max, always with it.
 any_hit stops a ray at its first take. Dead lanes (`active` False, or a
 miss of the root box) never step.
 
-On the GPU the walk is kernel W1 (ops/csrc/ray_walk.cu), one thread a
-ray, each with its own cap of max_iters steps. The JAX package's loop caps
-all lanes together; the two agree wherever no lane reaches the cap. On the
-CPU the wrapper runs the plain version, the JAX package's lockstep body
-in torch ops, one rounding per operation in the same order. The JAX
-package's XLA schedule (chunk_wave and CLPT_WALK_CHUNK, the wind-down
-compaction, the fused walk table build_walk_table) is not ported: it
-changes no lane's result or steps.
+On the GPU the walk is kernel W1 (ops/csrc/ray_walk.cu): 4 threads a
+ray split each leaf's records, a warp's groups reconverge after each
+iteration, and a persistent grid refills a warp's groups with live rays
+from a counter; each ray has its own cap of max_iters steps. The JAX
+package's loop caps all lanes together; the two agree wherever no lane
+reaches the cap. On the CPU the wrapper runs the plain version, the JAX
+package's lockstep body in torch ops, one rounding per operation in the
+same order. The JAX package's XLA schedule (chunk_wave and
+CLPT_WALK_CHUNK, the wind-down compaction, the fused walk table
+build_walk_table) is not ported: it changes no lane's result or steps.
 """
 
 from __future__ import annotations
@@ -146,14 +148,16 @@ def ray_walk(tree, orig, dir, *, block: int = QBLOCK,
     tm = None if t_max is None else t_max.contiguous()
     table = tree.node_table.contiguous()
     first = tree.leaf_start.to(torch.int32).contiguous()
+    next_ray = torch.empty((1,), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(table.data_ptr(), first.data_ptr(), tree.tris.data_ptr(),
                  orig.data_ptr(), dir.data_ptr(),
                  0 if tm is None else tm.data_ptr(),
                  0 if act is None else act.data_ptr(), best_t.data_ptr(),
-                 best_slot.data_ptr(), steps.data_ptr(), n,
-                 tree.tris.shape[0], block, max_iters, int(any_hit), stream)
+                 best_slot.data_ptr(), steps.data_ptr(), next_ray.data_ptr(),
+                 n, tree.tris.shape[0], block, max_iters, int(any_hit),
+                 stream)
     if err != 0:
         raise RuntimeError(f"ray_walk launch failed: cudaError {err} "
                            f"(N={n}, nodes={table.shape[0]})")

@@ -75,6 +75,32 @@ def test_grid_shape_reads_the_entry(monkeypatch):
     assert calls == [()]
 
 
+def test_walk_shapes_read_their_entries(monkeypatch):
+    calls = _fake_library(monkeypatch)
+    assert _cuda.grid_shape("ray_walk_shape") == dict(
+        zip(_cuda.GRID_SHAPE_KEYS, range(10, 16)))
+    assert _cuda.brute_force_shape() == {
+        "threads": 10, "thread_rays": 11, "blocks_per_sm": 12,
+        "registers": 13, "static_smem": 14, "local_bytes": 15}
+    assert calls == [(), ()]
+
+
+def test_ptxas_report_picks_the_kernel():
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115"
+        "ray_walk_kernelEPK6float4' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_115"
+        "ray_walk_kernelEPK6float4",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, 12288 bytes smem",
+        "ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'",
+        "ptxas info    : Used 8 registers"])
+    assert _cuda.ptxas_report(log, "ray_walk_kernel") == (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+        "Used 96 registers, 12288 bytes smem")
+    assert _cuda.ptxas_report(log, "brute_force_scan") == ""
+
+
 @pytest.mark.parametrize("entry", ["plist_super_shape", "plist_window_shape"])
 def test_cluster_shape_reads_the_entry(monkeypatch, entry):
     calls = _fake_library(monkeypatch)
