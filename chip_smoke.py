@@ -304,6 +304,33 @@ tree, so their launches are as before (W1 and W2 0):
    parent's W1 and this tree's, in turns (frame (c) 30 a side with their
    spread, and each of its W1 waves' device time and host time: the
    wrapper's and the launch entry's).
+43. differentiable rendering (diff_route), the card line first: (a) on
+   the emissive terrain with the packet tree and the shadow tree
+   (512x512, path, spp 1, 2 bounces, NEE, background 0, one generator's
+   draws): the differentiable primaries' hit and tri equal to the plain
+   frame's on W1 and on K3 (t allclose, rtol 1e-6); the W1 and K3
+   frames' pixels apart before any step, and how many of them have
+   primaries with other winners; make_train_step with verts, albedo and
+   emission under Adam (a learning rate a group) against a target
+   rendered with 1.2x the albedo on the same draws: three steps on the
+   default route (W1 4 a step: the primaries, the bounce wave on the
+   packet tree, two any-hit shadow waves on the shadow tree) and one
+   with intersector "packet" (K3 2, W1 2), each step's forward, backward
+   and optimizer ms (CUDA events), its loss and launches, the peak
+   memory; the loss falls over the three W1 steps and every gradient is
+   finite; the step's loss on the central 16x16 pixels: its verts,
+   albedo and emission gradients through the card's kernels (W1 4)
+   equal to the same through the plain versions on the CPU (rtol 1e-4,
+   atol 1e-6) and not 0; NEE's two face searches (torch.searchsorted,
+   searchsorted_scan for a table with a negative probability) timed on
+   the frame's first light wave, equal on a sorted table; (b) an
+   edge-aware normal frame on the terrain (W1 2), forward and backward
+   timed, its vertex gradient finite and nonzero; (c) tests/test_grad.py's small scenes: the
+   gradients through W1 and W2 (icosphere(2), camera position and
+   vertices), K3 (the Cornell box, path, packet_tile 64, albedo) and G1
+   (the small emissive soup with a grid and NEE, albedo; K3 1, G1 3) on
+   the card against the same on the CPU through the plain versions
+   (rtol 1e-4, atol 1e-6), and against fd_grad (rtol 0.05, atol 2e-4).
 
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
@@ -316,9 +343,12 @@ op-level calls, K7 and K8 their three traverse_packet calls each, K2 the
 terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
 frames, K1's kcap form the two-phase calls, W1 the default kd normal
 frames of phase 42a, W2 the flat-scan frames), with every path's own
-count beside them; the cluster walks (K1, K1', K1's kcap form, K2, K3,
-K4) also give their blocks per cluster ("cluster"), G1 its tail calls,
-W1 each wave of phase 40.
+count beside them (phase 43's as "diff step W1", "diff step K3" and
+"diff edge-aware"; W1's entry also holds phase 43's steps, peak memory
+and crop check, and W1's, W2's, K3's and G1's their gradient checks);
+the cluster walks (K1, K1', K1's kcap form, K2, K3, K4) also give their
+blocks per cluster ("cluster"), G1 its tail calls, W1 each wave of phase
+40.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -368,6 +398,8 @@ from clpathtracer_tpu_torch.render.integrator import (BOUNCE_EPS,
                                                       mirror_wave, nee_wave,
                                                       path_draws,
                                                       render_image,
+                                                      render_rays,
+                                                      searchsorted_scan,
                                                       sort_wave)
 from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
                                                    normal_color)
@@ -796,11 +828,7 @@ def main():
                            "torch.cuda.is_available() is False")
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     say("device", f"{kind}, {torch.cuda.device_count()} device(s), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; card and power "
         "limit on the next line")
@@ -851,6 +879,15 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def cluster_shapes():
@@ -1018,7 +1055,7 @@ def path_leg_parent(parent, frame):
 
 
 def smoke(device, parent=None):
-    """Phases 3-42 on `device`; returns the kernels line's entries. parent:
+    """Phases 3-43 on `device`; returns the kernels line's entries. parent:
     parent_library's entries, timed beside this tree's W1 and W2."""
     # 3. scene at full size
     t = time.perf_counter()
@@ -1280,7 +1317,8 @@ def smoke(device, parent=None):
     tails["K3 MT"] = ctx["tail"]
     tail_phase(tails)
     walk_entries = walk_route(device, ctx, launches, parent)
-    return [
+    diff = diff_route(device, ctx, launches)
+    entries = [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
          "replaces": "clpathtracer_tpu/ops/plist.py:955",
@@ -1301,6 +1339,18 @@ def smoke(device, parent=None):
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
         k3, k4, k5, *v1, *k7_k8, *sched, *grid_entries, *walk_entries,
     ]
+    # phase 43 runs after the entries' own phases: add its paths' launches
+    for e in entries:
+        for p in ("diff step W1", "diff step K3", "diff edge-aware"):
+            e["launches_by_path"][p] = launches[p].get(e["name"], 0)
+    by_name = {e["name"]: e for e in entries}
+    for name, kernel in (("W1", "ray_walk"), ("W2", "brute_force"),
+                         ("K3", "packet_stream"), ("G1", "traverse_grid")):
+        by_name[kernel]["diff_grad"] = diff["small"][name]
+    by_name["ray_walk"]["diff_steps"] = diff["steps"]
+    by_name["ray_walk"]["diff_crop"] = diff["crop"]
+    by_name["ray_walk"]["diff_peak_bytes"] = diff["peak_bytes"]
+    return entries
 
 
 def kd_route(device, scene, soup, cam, scam, launches):
@@ -3257,6 +3307,7 @@ def walk_route(device, ctx, launches, parent=None):
         f"{st['leaves']} leaves, largest leaf {st['max_tris_per_leaf']}, "
         f"{shadow.tris.shape[0]} records, {shadow.nbytes()} device bytes")
     lights = light_cdf(terrain)
+    ctx.update(terrain=terrain, shadow=shadow)
 
     # 40. W1 on each wave, counted
     waves = walk_waves(terrain, tree, shadow, orig, dirs, lights, device)
@@ -3645,6 +3696,411 @@ def walk_route(device, ctx, launches, parent=None):
                                         ("flat frame", w2_flat))}}
             if parent else {})},
     ]
+
+
+# phase 43: differentiable rendering and the train step
+# Adam, a learning rate a group: a step moves every parameter with a
+# gradient by about its rate. The gradients hold no edge term: at 1e-5
+# on the vertices a primary pixel flipped onto an emitter (5.0) and the
+# loss rose 5.8x (on an H100, PERF.md section 6); at 1e-8 on emission the
+# light table, and so each light sample's face, stays as it was. The loss
+# falls on albedo; the vertex and emission gradients are checked on a
+# crop (diff_crop_check)
+DIFF_LR = {"verts": 1e-6, "albedo": 1e-2, "emission": 1e-8}
+DIFF_CROP = 16           # diff_crop_check: the central crop's side, pixels
+DIFF_SMALL = 24          # the small scenes' frames (tests/test_grad.py's)
+DIFF_RTOL, DIFF_ATOL = 1e-4, 1e-6     # the card's gradients against the CPU's
+FD_RTOL, FD_ATOL = 0.05, 2e-4         # against fd_grad (tests/test_grad.py's)
+DIFF_POS = [0.0131, -0.0097, -1.0]    # off icosphere(2)'s vertex on the axis
+
+
+def adam_groups(params):
+    return torch.optim.Adam([{"params": [params[k]], "lr": DIFF_LR[k]}
+                             for k in params])
+
+
+def diff_route(device, ctx, launches):
+    """Phase 43: differentiable rendering on the card. (a) the 1M emissive
+    terrain with the packet tree and the shadow tree at 512x512, path, spp
+    1, 2 bounces, NEE: the differentiable primaries' hit/tri equal to the
+    plain frame's on W1 and on K3, t allclose; three Adam steps of
+    make_train_step (verts, albedo, emission) on the default route and
+    one with intersector "packet", each step's forward, backward and
+    optimizer ms, its launches and the peak memory; the loss falls over
+    the three W1 steps and every gradient is finite. (b) an edge-aware
+    normal frame on the terrain, forward and backward. (c) the small
+    scenes' gradients through W1, W2, K3 and G1 against the same on the
+    CPU through the plain versions and against fd_grad. Adds the paths'
+    launches to `launches`."""
+    from clpathtracer_tpu_torch.parallel.train import make_train_step
+    say("diff", f"card: {card_line()}")
+    terrain, shadow, tree = ctx["terrain"], ctx["shadow"], ctx["tree"]
+    cam, orig, dirs = ctx["cam"], ctx["orig"], ctx["dirs"]
+    t_tile = TERRAIN_KD["tile"]
+    opts = RenderOptions(width=SIZE, height=SIZE, mode="path", bounces=2,
+                         nee=True, background=0.0, differentiable=True)
+    k3_opts = dataclasses.replace(opts, intersector="packet",
+                                  packet_tile=t_tile)
+
+    # (a) the differentiable frame's topology against the plain frame's
+    winners = {}
+    for name, o_ in (("W1", opts), ("K3", k3_opts)):
+        with torch.no_grad():
+            rd = intersect_scene(terrain, None, orig, dirs, o_, tree=tree)
+            rp = intersect_scene(terrain, None, orig, dirs,
+                                 dataclasses.replace(o_, differentiable=False),
+                                 tree=tree)
+        hit = rp["hit"]
+        winners[name] = rd["tri"]
+        bad = (int((rd["hit"] != hit).sum())
+               + int((rd["tri"] != rp["tri"]).sum()))
+        t_err = float((rd["t"] - rp["t"])[hit].abs().max())
+        say("diff topology", f"{name}: primaries of the differentiable frame "
+            f"against the plain frame's: hit/tri mismatches {bad} (exact), "
+            f"{int(hit.sum())} hits, t max abs difference {t_err:.3g} "
+            "(allclose rtol 1e-6)")
+        if bad or not torch.allclose(rd["t"][hit], rp["t"][hit], rtol=1e-6,
+                                     atol=0.0):
+            raise AssertionError(f"diff topology {name}: the differentiable "
+                                 "frame's hits differ from the plain frame's")
+
+    # (a) the train steps
+    draws = path_draws(opts, torch.Generator(device=device).manual_seed(0),
+                       device)
+    with torch.no_grad():
+        target = render_image(terrain.replace(albedo=terrain.albedo * 1.2),
+                              cam, opts, tree=tree, shadow=shadow,
+                              bounce=draws[1], light=draws[2])
+    diff_frames_apart(terrain, cam, opts, k3_opts, tree, shadow, draws,
+                      winners)
+    step, init = make_train_step(terrain, opts, adam_groups, tree=tree,
+                                 shadow=shadow)
+    k3_step, _ = make_train_step(terrain, k3_opts, adam_groups, tree=tree,
+                                 shadow=shadow)
+    state = init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base_mem = torch.cuda.memory_allocated(device)
+    rows = []
+    for i, (name, fn, want) in enumerate((
+            ("W1", step, {"ray_walk": 4}), ("W1", step, {"ray_walk": 4}),
+            ("W1", step, {"ray_walk": 4}),
+            ("K3", k3_step, {"ray_walk": 2, "packet_stream": 2}))):
+        ev = {"start": torch.cuda.Event(enable_timing=True)}
+
+        def mark(part):
+            ev[part] = torch.cuda.Event(enable_timing=True)
+            ev[part].record()
+        reset_counts()
+        ev["start"].record()
+        state, loss = fn(state, cam, target, draws, marks=mark)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts(f"diff step {i} ({name})", got, want)
+        launches[f"diff step {name}"] = got
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in state.params.values())
+        ms = [ev["start"].elapsed_time(ev["forward"]),
+              ev["forward"].elapsed_time(ev["backward"]),
+              ev["backward"].elapsed_time(ev["update"])]
+        rows.append(dict(route=name, loss=float(loss), forward_ms=ms[0],
+                         backward_ms=ms[1], update_ms=ms[2], launches=got))
+        say("diff step", f"{i} ({name}): loss {float(loss):.9g}; forward "
+            f"{ms[0]:.4f} ms, backward {ms[1]:.4f}, optimizer {ms[2]:.4f}; "
+            f"launches W1 {got['ray_walk']}, K3 {got['packet_stream']}, W2 "
+            f"{got['brute_force']}; gradients finite: {finite}")
+        if not finite:
+            raise AssertionError(f"diff step {i}: non-finite gradients")
+    peak = torch.cuda.max_memory_allocated(device)
+    top = profile_backward(lambda: step(state, cam, target, draws)[1])
+    say("diff step", "a W1 step under torch.profiler, the device time by "
+        "operation (ms, the largest): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in top))
+    losses = [r["loss"] for r in rows[:3]]
+    say("diff step", f"{SIZE}x{SIZE} emissive terrain ({terrain.num_tris} "
+        f"triangles), path spp 1, 2 bounces, NEE through the shadow tree, "
+        f"Adam (lr {DIFF_LR}): peak memory {peak} B ({peak - base_mem} B "
+        f"above the {base_mem} B held before the steps); the W1 steps' "
+        f"losses {losses} must fall")
+    if not losses[0] > losses[1] > losses[2]:
+        raise AssertionError(f"diff steps: the loss does not fall: {losses}")
+    crop = diff_crop_check(terrain, tree, shadow, cam, opts, state.params,
+                           target, draws)
+
+    # (b) an edge-aware normal frame, forward and backward
+    e_opts = RenderOptions(width=SIZE, height=SIZE, differentiable=True,
+                           edge_aware=True)
+    verts = terrain.verts.detach().clone().requires_grad_(True)
+    reset_counts()
+    img, e_fwd = timed(lambda: render_image(terrain.with_verts(verts), cam,
+                                            e_opts, tree=tree))
+    _, e_bwd = timed(lambda: img.mean().backward())
+    got = counts()
+    check_counts("diff edge-aware", got, {"ray_walk": 2})
+    launches["diff edge-aware"] = got
+    g = verts.grad
+    ok = bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0)
+    say("diff edge-aware", f"{SIZE}x{SIZE} normal frame on the terrain: "
+        f"forward {e_fwd:.4f} ms, backward {e_bwd:.4f} ms, launches {got}; "
+        f"vertex gradient finite and nonzero: {ok} (max "
+        f"{float(g.abs().max()):.4g}, "
+        f"{int((g != 0).any(dim=1).sum())} vertices moved)")
+    if not ok:
+        raise AssertionError("diff edge-aware: vertex gradient not finite "
+                             "and nonzero")
+    del img, verts, state
+    rows.append(dict(route="edge-aware normal", forward_ms=e_fwd,
+                     backward_ms=e_bwd))
+
+    # (c) the small scenes: the card's kernels against the plain versions
+    small = diff_small_cases(device)
+    return {"steps": rows, "peak_bytes": peak, "crop": crop, "small": small}
+
+
+def diff_frames_apart(terrain, cam, opts, k3_opts, tree, shadow, draws,
+                      winners):
+    """Phase 43a: the W1 and K3 differentiable frames before any step, on
+    the same draws: how many pixels part, and how many of those have
+    primaries whose winners (winners[route], the tri of each) differ."""
+    with torch.no_grad():
+        img = {name: render_image(terrain, cam, o_, tree=tree, shadow=shadow,
+                                  bounce=draws[1], light=draws[2])
+               .reshape(-1, 3) for name, o_ in (("W1", opts), ("K3", k3_opts))}
+    gap = (img["W1"] - img["K3"]).abs().amax(dim=1)
+    apart = gap > 1e-6
+    won = winners["W1"] != winners["K3"]
+    say("diff frames", f"the W1 and K3 frames before any step, the same "
+        f"draws: {int(apart.sum())} of {gap.numel()} pixels apart by more "
+        f"than 1e-6 (max {float(gap.max()):.4g}); the primaries' winners "
+        f"differ on {int(won.sum())} pixels (W1 misses "
+        f"{int((winners['W1'] < 0).sum())}, K3 misses "
+        f"{int((winners['K3'] < 0).sum())}), {int((apart & won).sum())} of "
+        f"the pixels apart; the other {int((apart & ~won).sum())} part on a "
+        "bounce or shadow wave")
+
+
+def diff_crop_check(terrain, tree, shadow, cam, opts, params, target,
+                    draws):
+    """Phase 43a, the full-size gradients checked: the train step's loss on
+    the frame's central DIFF_CROP x DIFF_CROP pixels (their rays and
+    draws), its gradients with respect to params (the 1M terrain's verts,
+    albedo and emission after the steps) through the card's kernels
+    (W1 4: the primaries, the bounce wave, two shadow waves) against the
+    same through the plain versions on the CPU (the scene, the trees and
+    the parameters copied), rtol DIFF_RTOL, atol DIFF_ATOL; no gradient
+    may be 0. The light table's cdf only picks
+    each sample's face: the CPU takes the card's, since its running sum
+    rounds apart from the card's and a sample near an emitter's boundary
+    would take another face; the probabilities, areas and normals, which
+    carry the gradient, are each side's own. Returns the largest
+    differences by parameter."""
+    device, cpu = terrain.verts.device, torch.device("cpu")
+    lo = SIZE // 2 - DIFF_CROP // 2
+    span = torch.arange(lo, lo + DIFF_CROP, device=device)
+    idx = (span[:, None] * SIZE + span[None, :]).reshape(-1)
+    orig, dirs = generate_rays(cam_matrix(cam, SIZE), SIZE, SIZE)
+    inputs = (orig[idx], dirs[idx], draws[1][0][:, idx], draws[2][0][:, idx],
+              target.reshape(-1, 3)[idx])
+    grads, cdf, ordered = [], None, None
+    t = time.perf_counter()
+    for dev in (device, cpu):
+        if dev == device:
+            sc, tr, sh = terrain, tree, shadow
+        else:
+            sc, tr, sh = terrain.to(cpu), tree.to(cpu), shadow.to(cpu)
+        x = {k: v.detach().to(dev).clone().requires_grad_(True)
+             for k, v in params.items()}
+        live = sc.replace(**x)
+        lights = light_cdf(live)
+        if cdf is None:
+            cdf, ordered = lights["cdf"].detach(), lights["sorted"]
+        else:
+            lights["cdf"] = cdf.to(cpu)
+        o, d, bu, lu, tg = (a.to(dev) for a in inputs)
+        reset_counts()
+        img = render_rays(live, None, o, d, opts, bu, tree=tr, shadow=sh,
+                          light_u=lu, lights=lights)
+        ((img - tg) ** 2).mean().backward()
+        if dev == device:
+            torch.cuda.synchronize()
+            check_counts("diff crop", counts(), {"ray_walk": 4})
+        grads.append({k: v.grad.cpu() for k, v in x.items()})
+    card, plain = grads
+    out = {}
+    for k, g in card.items():
+        ok = (bool(torch.isfinite(g).all())
+              and torch.allclose(g, plain[k], rtol=DIFF_RTOL, atol=DIFF_ATOL))
+        nonzero = int((g.reshape(g.shape[0], -1) != 0).any(dim=1).sum())
+        out[k] = {"max_abs_err": float((g - plain[k]).abs().max()),
+                  "max_abs": float(g.abs().max()), "rows_nonzero": nonzero}
+        say("diff crop", f"{k} [{g.shape[0]} rows]: the card's gradient "
+            f"against the CPU's plain versions, max abs difference "
+            f"{out[k]['max_abs_err']:.3g} of max {out[k]['max_abs']:.4g} "
+            f"(rtol {DIFF_RTOL}, atol {DIFF_ATOL}), {nonzero} rows nonzero: "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok or nonzero == 0:
+            raise AssertionError(f"diff crop: the card's {k} gradient differs "
+                                 "from the plain versions' or is 0")
+    say("diff crop", f"{DIFF_CROP}x{DIFF_CROP} central pixels, both sides "
+        f"in {time.perf_counter() - t:.2f} s; the light table after the "
+        f"steps {'sorted' if ordered else 'unsorted (an emission below 0)'}"
+        ", so the face search is "
+        f"{'torch.searchsorted' if ordered else 'searchsorted_scan'}")
+    # the two face searches on the frame's first light wave: equal on a
+    # sorted table, and what the scan costs where the table is not
+    q = (draws[2][0][0, :, 0] * cdf[-1]).contiguous()
+    lib = torch.searchsorted(cdf, q)
+    scan = searchsorted_scan(cdf, q)
+    lib_ms = median_ms(lambda: torch.searchsorted(cdf, q), 5)
+    scan_ms = median_ms(lambda: searchsorted_scan(cdf, q), 5)
+    same = int((lib == scan).sum())
+    say("diff crop", f"face search on {q.numel()} lanes over {cdf.numel()} "
+        f"faces: torch.searchsorted {lib_ms:.4f} ms, searchsorted_scan "
+        f"{scan_ms:.4f} ms (median of 5); equal on {same} lanes")
+    if ordered and same != q.numel():
+        raise AssertionError("diff crop: searchsorted_scan differs from "
+                             "torch.searchsorted on a sorted light table")
+    out["face_search_ms"] = {"searchsorted": lib_ms, "scan": scan_ms}
+    return out
+
+
+def profile_backward(fn, top=8):
+    """The largest device times (ms, summed over calls) of the operations
+    that fn runs, from torch.profiler's CUDA activity; empty where the
+    profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()]
+    return sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:top]
+
+
+def diff_small_cases(device):
+    """Phase 43c: gradients of tests/test_grad.py's small scenes through
+    W1 and W2 (icosphere(2), normal mode, camera position and vertices),
+    K3 (the Cornell box, path mode, packet_tile 64, albedo) and G1 (the
+    small emissive soup with a grid and NEE, albedo) on the card, against
+    the same on the CPU through the plain versions (rtol 1e-4, atol 1e-6)
+    and against fd_grad on the card (rtol 0.05, atol 2e-4). Returns each
+    case's largest differences."""
+    from clpathtracer_tpu_torch.diff.fd import fd_grad
+    from clpathtracer_tpu_torch.scene.procedural import cornell_box
+    cpu = torch.device("cpu")
+    ico = icosphere(2, device=cpu)
+    box = cornell_box(device=cpu)
+    soup = random_tri_soup(1500, seed=6, extent=1.0, tri_size=0.12,
+                           emissive_frac=0.02, device=cpu)
+    path = RenderOptions(32, 32, mode="path", bounces=2, background=0.0,
+                         differentiable=True, intersector="packet",
+                         packet_tile=64)
+    nee = RenderOptions(DIFF_SMALL, DIFF_SMALL, mode="path", bounces=2,
+                        background=0.0, nee=True, differentiable=True,
+                        intersector="packet", packet_tile=64)
+    gen = torch.Generator().manual_seed(5)
+    _, p_bounce, _ = path_draws(path, gen, cpu)
+    _, n_bounce, n_light = path_draws(nee, gen, cpu)
+
+    def structures(sc, dev, grid=False):
+        tv = sc.tri_corners()
+        out = {"tree": sah.build_kd_tree(tv, tri_block=4, device=dev)}
+        if grid:
+            out["grid"] = build_grid(tv, device=dev)
+        return out
+
+    def ico_loss(dev, use_tree):
+        sc = ico.to(dev)
+        st = structures(ico, dev) if use_tree else {}
+
+        def loss(x):
+            cam = Camera.create(DIFF_POS, [0.0, 0.0, 1.0], device=dev)
+            img = render_image(sc.with_verts(x["verts"]),
+                               cam.replace(position=x["pos"]),
+                               RenderOptions(DIFF_SMALL, DIFF_SMALL,
+                                             differentiable=True), **st)
+            return img[9:15, 9:15].mean()
+        return loss, {"verts": sc.verts,
+                      "pos": torch.tensor(DIFF_POS, device=dev)}, "pos"
+
+    def box_loss(dev):
+        sc = box.to(dev)
+        st = structures(box, dev)
+        cam = Camera.create([0.0, 0.0, -1.0], [0.0, 0.0, 1.0], device=dev)
+
+        def loss(x):
+            albedo = torch.cat([x["albedo0"][None], sc.albedo[1:]])
+            img = render_image(sc.replace(albedo=albedo), cam, path,
+                               bounce=p_bounce.to(dev), **st)
+            return img[4:28, 4:28].mean()
+        return loss, {"albedo0": sc.albedo[0]}, "albedo0"
+
+    def soup_loss(dev):
+        sc = soup.to(dev)
+        st = structures(soup, dev, grid=True)
+        cam = Camera.create([0.0, 0.0, -2.5], [0.0, 0.0, 1.0], device=dev)
+
+        def loss(x):
+            img = render_image(sc.replace(albedo=x["albedo"]), cam, nee,
+                               bounce=n_bounce.to(dev),
+                               light=n_light.to(dev), **st)
+            return img.mean()
+        return loss, {"albedo": sc.albedo}, None
+
+    cases = (("W1", lambda dev: ico_loss(dev, True), {"ray_walk": 1}),
+             ("W2", lambda dev: ico_loss(dev, False), {"brute_force": 1}),
+             ("K3", box_loss, {"packet_stream": 2}),
+             ("G1", soup_loss, {"packet_stream": 1, "traverse_grid": 3}))
+    out = {}
+    for name, make, want in cases:
+        grads = []               # the card's, then the plain versions'
+        for dev in (device, cpu):
+            loss, params, fd_key = make(dev)
+            x = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+            reset_counts()
+            loss(x).backward()
+            if dev == device:
+                torch.cuda.synchronize()
+                check_counts(f"diff {name}", counts(), want)
+                d_loss, d_params = loss, params
+            grads.append({k: v.grad.cpu() for k, v in x.items()})
+        card, plain = grads
+        err = 0.0
+        for k, g in card.items():
+            ref = plain[k]
+            if not (bool(torch.isfinite(g).all())
+                    and torch.allclose(g, ref, rtol=DIFF_RTOL,
+                                       atol=DIFF_ATOL)):
+                raise AssertionError(f"diff {name}: the card's gradient of "
+                                     f"{k} differs from the plain versions'")
+            err = max(err, float((g - ref).abs().max()))
+        if fd_key is None:      # the soup: the albedo the loss sees most
+            i = int(card["albedo"][:, 0].abs().argmax())
+            base = d_params["albedo"]
+
+            def fd_loss(x, i=i, base=base, loss=d_loss):
+                a = base.clone()
+                a[i, 0] = x
+                return loss({"albedo": a})
+            fd = fd_grad(fd_loss, base[i, 0].clone())
+            got = card["albedo"][i, 0]
+        else:
+            fd = fd_grad(lambda v: d_loss({**d_params, fd_key: v}),
+                         d_params[fd_key])
+            got = card[fd_key]
+        fd_ok = torch.allclose(got.double(), fd, rtol=FD_RTOL, atol=FD_ATOL)
+        say("diff small", f"{name}: the card's gradients against the CPU's "
+            f"plain versions: max abs difference {err:.3g} (rtol "
+            f"{DIFF_RTOL}, atol {DIFF_ATOL}); {fd_key or 'albedo[i, 0]'} "
+            f"against fd_grad: {got.tolist()} / {fd.tolist()} "
+            f"({'ok' if fd_ok else 'FAIL'})")
+        if not fd_ok:
+            raise AssertionError(f"diff {name}: gradient differs from fd_grad")
+        out[name] = {"max_abs_err": err,
+                     "fd_max_abs_err": float((got.double() - fd).abs().max())}
+    return out
 
 
 if __name__ == "__main__":

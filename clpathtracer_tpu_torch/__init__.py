@@ -35,6 +35,15 @@ engine (K1's kcap form, then the DDA); a walk-tuned shadow tree
 the rope walk. Without a structure the flat scan (ops/intersect.py,
 ops/csrc/brute_force.cu) traces every wave. The kernels run as CUDA on
 the GPU and as their plain torch versions on the CPU.
+
+Differentiable rendering (RenderOptions.differentiable; diff/grad.py):
+the same kernels find each wave's hits with no autograd graph, on the
+tree, the grid or the flat scan, and one differentiable Moller-Trumbore
+per ray against the winner carries gradients to the camera, the vertices,
+normals and materials; RenderOptions.edge_aware adds the silhouette term
+(diff/edges.py). diff/fd.py checks gradients by finite differences,
+diff/checkpoint.py saves and restores a run, and parallel/train.py's
+make_train_step takes inverse-rendering steps on one device.
 """
 
 from clpathtracer_tpu_torch.core.camera import Camera

@@ -52,6 +52,16 @@ def vmax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.maximum(a, b)
 
 
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along the first axis, through index_select: the same values
+    as advanced indexing, but its backward adds into x's rows with
+    index_add_ (atomics on the GPU), where advanced indexing sorts its
+    indices first (112.6 of a 120.5 ms train-step backward on the 1M
+    terrain on an H100, PERF.md)."""
+    return x.index_select(0, idx.reshape(-1).long()).reshape(
+        *idx.shape, *x.shape[1:])
+
+
 def reflect(d: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Mirror reflection of direction d about normal n."""
     return normalize(d - 2.0 * dot(d, n)[..., None] * n)

@@ -123,6 +123,14 @@ def kd_tree_from_numpy(node_min, node_max, is_leaf, split_axis, split_value,
                             device=device)
 
 
+def params_from_numpy(params: dict, *, device) -> dict:
+    """The port's parameter tensors from the JAX TrainState.params dict
+    (field name -> array): float32 leaves on `device` with requires_grad,
+    for parallel/train.py::make_train_step's init(params)."""
+    return {k: torch.as_tensor(np.array(v, np.float32), device=device)
+            .requires_grad_(True) for k, v in params.items()}
+
+
 def camera_from_numpy(position, forward, fov, near, far, *,
                       device) -> Camera:
     """Camera from clpathtracer_tpu.core.camera.Camera's fields, taken as

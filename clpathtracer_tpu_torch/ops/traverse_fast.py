@@ -83,6 +83,23 @@ def pack_node_table(arrays: dict, tri_block: int = QBLOCK) -> np.ndarray:
     return t
 
 
+def pack_quads(tri_slots: torch.Tensor, v0, v1, v2) -> torch.Tensor:
+    """The [T, 16] records (v0, e1, e2, tri_id, pad 6) of a tree's slots
+    from the scene's corner positions v0/v1/v2 [F, 3], on their device:
+    accel/sah.py::pack_quads_host's layout (JAX ops/traverse_fast.py::
+    pack_quads, which folds four records into a [T/4, 64] row). A slot of
+    -1 gives a pad record of triangle 0's geometry with tri_id -1. The
+    differentiable route packs the live, detached vertices each call, so
+    the walks honour a vertex update."""
+    safe = tri_slots.clamp(min=0).long()
+    a = v0[safe]
+    t = tri_slots.shape[0]
+    pad = torch.zeros((t, 6), dtype=a.dtype, device=a.device)
+    return torch.cat([a, v1[safe] - a, v2[safe] - a,
+                      tri_slots.to(a.dtype)[:, None], pad],
+                     dim=1).contiguous()
+
+
 def _check(tree, orig, dir, t_max, active, block):
     n = orig.shape[0]
     if tree is None or tree.node_table is None:

@@ -45,8 +45,22 @@ tri_block 4 tree, else a scattered wave through intersect_scene. Every
 walk stops a ray after MAX_ITERS steps. Random numbers come from the
 caller or from a torch.Generator (torch cannot reproduce jax.random's
 streams).
-Differentiable and edge-aware rendering raise NotImplementedError (ROADMAP
-queue 1 item 4); nothing quietly takes another route.
+
+opts.differentiable (JAX diff/grad.py): every wave's topology comes from
+diff/grad.py::intersect_diff, the walks' kernels under no_grad on
+detached rays and records, then one differentiable Moller-Trumbore per
+ray against the winner; shading resolves from the scene's tensors, not
+the baked rows; the shadow query carries no gradient; NEE's light table
+is built from the live scene on every call. Its routes are the plain
+frame's (_intersect_tris) without the windows and the shadow tree, as
+in the JAX function: the tree (W1, or K3 with intersector="packet"),
+the grid (G1) for scattered waves with opts.bounce_grid, the flat scan
+(W2) without a tree; a frame whose only structure is windows raises
+ValueError.
+opts.edge_aware (normal and path modes): shade_edgeaware blends a
+one-pixel band at the winners' triangle boundaries toward the
+continuation ray's shading, the silhouette term of the gradient.
+Nothing quietly takes another route.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ import torch
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.camera import (cam_matrix, generate_rays,
                                                 generate_rays_jittered)
+from clpathtracer_tpu_torch.diff.grad import intersect_diff
 from clpathtracer_tpu_torch.ops.grid_walk import traverse_grid
 from clpathtracer_tpu_torch.ops.intersect import (flat_scan, merge_spheres,
                                                   miss_record, nearest_sphere)
@@ -99,8 +114,11 @@ class RenderOptions:
     intersector: str = "wavefront"  # tree route: "wavefront" (the per-ray
     #   rope walk W1, the JAX default) or "packet" (the stream engine K3)
     nee: bool = False          # path mode: next-event estimation
-    differentiable: bool = False
-    edge_aware: bool = False
+    differentiable: bool = False  # detached-topology hits (diff/grad.py):
+    #   backward() reaches the camera, verts, normals and materials
+    edge_aware: bool = False   # normal and path modes: blend a one-pixel
+    #   band at triangle boundaries toward the continuation ray's shading,
+    #   so the gradient carries the silhouette term (shade_edgeaware)
     packet_tile: int = 1024    # packet route: rays per packet tile
     packet_strips: bool = True   # packet route: the strip-mask prepass on
     packet_frustum: bool = True  # unjittered primaries, else the corner
@@ -151,10 +169,18 @@ def _check_supported(scene, opts: RenderOptions, mwin, tree=None,
             f"a {opts.width}x{opts.height} frame is not a multiple of "
             f"{GW}x{GH} gates: the windows route needs whole gates; pass its "
             "kd-tree as tree= (the rope walk takes such frames)")
-    if opts.differentiable or opts.edge_aware:
-        raise NotImplementedError(
-            "not ported yet: differentiable / edge-aware rendering is "
-            "ROADMAP queue 1 item 4")
+    if opts.edge_aware and opts.mode == "mirror":
+        raise ValueError("edge_aware has a normal and a path form only "
+                         "(the JAX package ignores it in mirror mode)")
+    if opts.differentiable:
+        if mwin is not None and tree is None:
+            raise ValueError(
+                "differentiable: the windows carry no differentiable wave "
+                "(the JAX package's intersect_diff has no windows route); "
+                "pass the scene's kd-tree as tree=")
+        if opts.precision != "f32":
+            raise ValueError(f"precision {opts.precision!r}: the "
+                             "differentiable forward computes in f32 only")
 
 
 _REC_KEYS = ("hit", "t", "tri", "u", "v", "snormal", "salbedo", "semission")
@@ -234,8 +260,12 @@ def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
     K3 with opts.intersector="packet"), the grid (G1) and the shadow tree
     (W1) for scattered waves, the flat scan (W2) without a structure.
     grid with opts.plist_kcap > 0: the primary gates' two-phase engine
-    (traverse_plist)."""
-    if scene.num_tris:
+    (traverse_plist). opts.differentiable: diff/grad.py::intersect_diff's
+    record, t/u/v differentiable, on its routes (the module docstring)."""
+    if scene.num_tris and opts.differentiable:
+        rec = intersect_diff(scene, tree, orig, dir, opts, coherent=coherent,
+                             active=active, jitter_px=jitter_px, grid=grid)
+    elif scene.num_tris:
         rec = _intersect_tris(scene, mwin, orig, dir, opts, coherent, active,
                               jitter_px, tree, grid, shadow)
     else:
@@ -254,11 +284,12 @@ def sort_wave(orig, dir, active=None):
             None if active is None else active[perm])
 
 
-def _surface(scene, rec, orig, dir):
+def _surface(scene, rec, orig, dir, allow_baked: bool = True):
     """Hit point and surface attributes (normal, albedo, emission) of a
     hit record: the shade attributes the fused resolve carried out of the
-    winner gather, else resolve_tri_hits on the winner (tri, u, v); a
-    sphere hit's from resolve_sphere_hits."""
+    winner gather, else resolve_tri_hits on the winner (tri, u, v; the
+    baked shade rows with allow_baked, which the differentiable route
+    turns off); a sphere hit's from resolve_sphere_hits."""
     point = orig + rec["t"][:, None] * dir
     if "snormal" in rec:
         at = (rec["snormal"], rec["salbedo"], rec["semission"])
@@ -266,7 +297,8 @@ def _surface(scene, rec, orig, dir):
         z = torch.zeros_like(point)
         at = (z, z, z)
     else:
-        r = resolve_tri_hits(scene, rec["tri"], rec["u"], rec["v"])
+        r = resolve_tri_hits(scene, rec["tri"], rec["u"], rec["v"],
+                             allow_baked)
         at = (r["normal"], r["albedo"], r["emission"])
     if scene.num_spheres:
         sph = resolve_sphere_hits(scene, rec["sphere"], point)
@@ -277,21 +309,30 @@ def _surface(scene, rec, orig, dir):
 
 
 def shade_normal(scene, mwin, orig, dir, opts: RenderOptions, tree=None,
-                 grid=None, shadow=None):
-    """Reference parity: hit -> (normal + 1) / 2, miss -> background."""
-    rec = intersect_scene(scene, mwin, orig, dir, opts, tree=tree, grid=grid,
-                          shadow=shadow)
-    _, normal, _, _ = _surface(scene, rec, orig, dir)
+                 grid=None, shadow=None, first_rec=None,
+                 first_coherent: bool = True, first_active=None):
+    """Reference parity: hit -> (normal + 1) / 2, miss -> background.
+    first_rec: the rays' record when the caller has traced them (the
+    edge-aware pass traces once and shades twice); else they are traced
+    as a coherent wave or, first_coherent False, a scattered one with the
+    live mask first_active."""
+    rec = first_rec
+    if rec is None:
+        rec = intersect_scene(scene, mwin, orig, dir, opts,
+                              coherent=first_coherent, active=first_active,
+                              tree=tree, grid=grid, shadow=shadow)
+    _, normal, _, _ = _surface(scene, rec, orig, dir,
+                               not opts.differentiable)
     return torch.where(rec["hit"][:, None], normal_color(normal),
                        opts.background)
 
 
-def mirror_wave(scene, rec, orig, dir, alive):
+def mirror_wave(scene, rec, orig, dir, alive, allow_baked: bool = True):
     """The next wave of a mirror bounce: (hit, orig, dir, normal). Lanes
     that were alive and hit reflect about the shading normal from the hit
     point offset by BOUNCE_EPS along the new direction; the others keep
     their ray. hit is the next wave's live mask."""
-    point, normal, _, _ = _surface(scene, rec, orig, dir)
+    point, normal, _, _ = _surface(scene, rec, orig, dir, allow_baked)
     hit = rec["hit"] & alive
     newdir = vm.reflect(dir, normal)
     return (hit,
@@ -314,7 +355,8 @@ def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions, tree=None,
         rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
                               active=None if b == 0 else alive, tree=tree,
                               grid=grid, shadow=shadow)
-        hit, o, d, normal = mirror_wave(scene, rec, o, d, alive)
+        hit, o, d, normal = mirror_wave(scene, rec, o, d, alive,
+                                        not opts.differentiable)
         st = strength[:, None]
         col = torch.where(hit[:, None], (1.0 - st) * col
                           + st * normal_color(normal), col)
@@ -335,18 +377,52 @@ def light_cdf(scene):
     scene only; build it beside the grid and pass it to render_image as
     `lights`): a dict of the triangles' cross products [F, 3] (twice the
     area-weighted normals), areas [F], probabilities [F] (luminance x area
-    over the total) and their running sum cdf [F], and `any`, whether any
-    light is lit: a host bool, one read of the total (the JAX package
-    decides it on the device with lax.cond; the port skips NEE's whole
-    shadow wave on the host)."""
+    over the total) and their running sum cdf [F]; `any`, whether any
+    light is lit (the JAX package decides it on the device with lax.cond;
+    the port skips NEE's whole shadow wave on the host), and `sorted`,
+    whether no probability is negative (an emission below 0) or NaN, so
+    that the cdf is sorted: host bools, one read. Differentiable frames
+    build it from the live scene on every call (render_image refuses a
+    given table), so that the light's pdf and normal carry gradients, as
+    the JAX package's _sample_light computes them inside the
+    differentiated function."""
     v0, v1, v2 = scene.tri_verts()
     cross = vm.cross(v1 - v0, v2 - v0)
     area = 0.5 * vm.length(cross)
     w = scene.emission.amax(dim=-1) * area
     total = w.sum()
     probs = w / torch.clamp(total, min=1e-30)
+    lit, ordered = torch.stack([total > 0.0, (probs >= 0.0).all()]).tolist()
     return {"cross": cross, "area": area, "probs": probs,
-            "cdf": torch.cumsum(probs, dim=0), "any": bool(total > 0.0)}
+            "cdf": torch.cumsum(probs, dim=0), "any": lit, "sorted": ordered}
+
+
+def _float_keys(x):
+    """int32 keys of f32 values in IEEE total order (-inf < ... < +inf <
+    NaN), -0 made +0 and every NaN the positive quiet NaN: the order of
+    jax.lax's sort comparators (lax.py::_canonicalize_float_for_sort)."""
+    x = torch.where(x == 0.0, torch.zeros_like(x), x)
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    i = x.contiguous().view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
+def searchsorted_scan(a, v):
+    """jnp.searchsorted(a, v) (side "left", its "scan" method) on any 1-D
+    f32 a, sorted or not: ceil(log2(len(a) + 1)) halvings of [0, len(a)),
+    each going left where v <= a[mid] in the total order of _float_keys.
+    On a sorted a it is torch.searchsorted's result; on an unsorted one
+    (a light cdf over a negative emission) torch.searchsorted's is its
+    own."""
+    ka, kv = _float_keys(a), _float_keys(v)
+    n = a.shape[0]
+    low = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    high = torch.full_like(low, n)
+    for _ in range(math.ceil(math.log2(n + 1))):
+        mid = (low + high) // 2
+        left = kv <= ka[mid]
+        low, high = torch.where(left, low, mid), torch.where(left, mid, high)
+    return high
 
 
 def _sample_light(scene, light_u, n: int, stride: int = 1, lights=None):
@@ -366,16 +442,20 @@ def _sample_light(scene, light_u, n: int, stride: int = 1, lights=None):
         raise ValueError(f"light uniforms {tuple(light_u.shape)}, want "
                          f"{(m, 3)}")
     cdf = lights["cdf"]
-    f = torch.searchsorted(cdf, (light_u[:, 0] * cdf[-1]).contiguous())
+    u = (light_u[:, 0] * cdf[-1]).contiguous()
+    f = (torch.searchsorted(cdf, u) if lights["sorted"]
+         else searchsorted_scan(cdf, u))
     f = f.clamp(0, cdf.shape[0] - 1)
     su = torch.sqrt(light_u[:, 1])
     bu = 1.0 - su
     bv = light_u[:, 2] * su
-    v0, v1, v2 = (c[f] for c in scene.tri_verts())
-    p = bu[:, None] * v0 + bv[:, None] * v1 + (1.0 - bu - bv)[:, None] * v2
-    nrm = vm.normalize(lights["cross"][f], eps=1e-30)
-    pdf_area = lights["probs"][f] / torch.clamp(lights["area"][f], min=1e-30)
-    out = (p, nrm, scene.emission[f], pdf_area)
+    c = vm.take_rows(scene.verts, vm.take_rows(scene.faces, f)[:, :, 0])
+    p = (bu[:, None] * c[:, 0] + bv[:, None] * c[:, 1]
+         + (1.0 - bu - bv)[:, None] * c[:, 2])
+    nrm = vm.normalize(vm.take_rows(lights["cross"], f), eps=1e-30)
+    pdf_area = vm.take_rows(lights["probs"], f) / torch.clamp(
+        vm.take_rows(lights["area"], f), min=1e-30)
+    out = (p, nrm, vm.take_rows(scene.emission, f), pdf_area)
     if stride > 1:
         out = tuple(x.repeat_interleave(stride, dim=0)[:n] for x in out)
     return out
@@ -415,7 +495,8 @@ def _occluded(scene, orig, dir, dist, opts: RenderOptions, active=None, *,
 
 def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
                jitter_px: float = 0.0, tree=None, grid=None, light_u=None,
-               lights=None, shadow=None):
+               lights=None, shadow=None, first_rec=None,
+               first_coherent: bool = True, first_active=None):
     """Lambertian path tracing with emissive surfaces: radiance +=
     throughput * emission at each front-face hit and throughput *
     background on a miss; throughput *= albedo; the next direction is
@@ -428,21 +509,30 @@ def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
     lights: light_cdf(scene)) lights the hit through a shadow ray
     (_occluded) when both cosines are positive; emission then
     counts on the primary hit only. Without a lit emitter the shadow wave
-    is not traced."""
+    is not traced.
+
+    first_rec, first_coherent, first_active: the first wave as
+    shade_normal takes it; first_active also starts the live mask."""
     n = orig.shape[0]
     dev = orig.device
     radiance = torch.zeros((n, 3), device=dev)
     throughput = torch.ones((n, 3), device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    alive = (torch.ones((n,), dtype=torch.bool, device=dev)
+             if first_active is None else first_active)
     if opts.nee and lights is None:
         lights = light_cdf(scene)
     o, d = orig, dir
     for b in range(opts.bounces):
-        rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
-                              active=None if b == 0 else alive,
-                              jitter_px=jitter_px if b == 0 else 0.0,
-                              tree=tree, grid=grid, shadow=shadow)
-        point, normal, albedo, emission = _surface(scene, rec, o, d)
+        if b == 0 and first_rec is not None:
+            rec = first_rec
+        else:
+            rec = intersect_scene(
+                scene, mwin, o, d, opts, coherent=b == 0 and first_coherent,
+                active=first_active if b == 0 else alive,
+                jitter_px=jitter_px if b == 0 else 0.0, tree=tree, grid=grid,
+                shadow=shadow)
+        point, normal, albedo, emission = _surface(scene, rec, o, d,
+                                                   not opts.differentiable)
         # one-sided emitters: front faces only
         cos_in = vm.dot(normal, d)
         front = cos_in < 0.0
@@ -500,15 +590,78 @@ def _direct_light(scene, point, normal, albedo, throughput, hit, light_u,
     """NEE's contribution at one vertex (JAX render/integrator.py:656-691):
     throughput * albedo / pi * emission * cos_s * cos_l / dist^2 / pdf
     where the hit sees the sampled light point unoccluded (nee_wave,
-    _occluded)."""
+    _occluded, traced on detached rays with no graph)."""
     w = nee_wave(scene, point, normal, hit, light_u, opts.nee_light_stride,
                  lights)
-    occ = _occluded(scene, w["orig"], w["dir"], w["dist"], opts,
-                    active=w["live"], **structures)
+    with torch.no_grad():   # visibility is discrete: no gradient
+        occ = _occluded(scene, w["orig"].detach(), w["dir"].detach(),
+                        w["dist"].detach(), opts, active=w["live"],
+                        **structures)
     g = w["cos_s"] * w["cos_l"] / w["dist2"]
     contrib = (throughput * (albedo / math.pi) * w["emission"]
                * (g / torch.clamp(w["pdf"], min=1e-30))[:, None])
     return torch.where((w["live"] & ~occ)[:, None], contrib, 0.0)
+
+
+def _clip01(x):
+    """clip(x, 0, 1) as jnp.clip computes it, maximum then minimum: at a
+    bound each side takes half the gradient."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_ones(()))
+
+
+def _edge_band(m, rows: int, cols: int):
+    """Per-pixel blend band of the [rows * cols] min-barycentrics m: the
+    largest absolute difference to the 4 neighbours (wrapping at the
+    image's borders), at least 1e-4 (JAX render/integrator.py:707-718).
+    Not detached: the band moves with the scene, and a finite-difference
+    probe of the smoothed render sees that motion."""
+    mi = m.reshape(rows, cols)
+    d = [(mi - torch.roll(mi, s, dims=a)).abs() for a in (0, 1)
+         for s in (1, -1)]
+    g = torch.maximum(torch.maximum(d[0], d[1]), torch.maximum(d[2], d[3]))
+    return torch.maximum(g, g.new_full((), 1e-4)).reshape(-1)
+
+
+def shade_edgeaware(scene, mwin, orig, dir, opts: RenderOptions,
+                    bounce_u=None, jitter_px: float = 0.0, tree=None,
+                    grid=None, light_u=None, lights=None, shadow=None):
+    """Silhouette-reparameterized shading, normal and path modes (JAX
+    render/integrator.py:721-772). The winner's min-barycentric m is a
+    differentiable distance to its triangle's boundary; a hit pixel
+    blends its shading c1 toward the continuation ray's c2 (the surface
+    the boundary occludes, or the background) with alpha = clip(m / band,
+    0, 1), the band _edge_band's. The continuation starts past the hit at
+    the detached t plus t * 1e-3 + BOUNCE_EPS and is a scattered wave of
+    the hit lanes. Path mode shades both with the same draws (bounce_u,
+    light_u: common random numbers, as the JAX package passes one key).
+    The wave is whole image rows (N a multiple of opts.width); the band
+    wraps at the image's borders."""
+    n = orig.shape[0]
+    if n % opts.width:
+        raise ValueError(f"edge_aware: a wave of {n} rays is not whole rows "
+                         f"of {opts.width} pixels")
+    kw = dict(tree=tree, grid=grid, shadow=shadow)
+    rec1 = intersect_scene(scene, mwin, orig, dir, opts, jitter_px=jitter_px,
+                           **kw)
+    u, v = rec1["u"], rec1["v"]
+    m = torch.where(rec1["tri"] >= 0,
+                    torch.minimum(torch.minimum(u, v), 1.0 - u - v), 1.0)
+    alpha = _clip01(m / _edge_band(m, n // opts.width, opts.width))
+    t_det = rec1["t"].detach()
+    step = torch.where(rec1["hit"], t_det * 1e-3 + BOUNCE_EPS, 0.0)
+    o2 = orig + (t_det + step)[:, None] * dir
+    if opts.mode == "path":
+        c1 = shade_path(scene, mwin, orig, dir, opts, bounce_u, jitter_px,
+                        light_u=light_u, lights=lights, first_rec=rec1, **kw)
+        c2 = shade_path(scene, mwin, o2, dir, opts, bounce_u,
+                        light_u=light_u, lights=lights, first_coherent=False,
+                        first_active=rec1["hit"], **kw)
+    else:
+        c1 = shade_normal(scene, mwin, orig, dir, opts, first_rec=rec1, **kw)
+        c2 = shade_normal(scene, mwin, o2, dir, opts, first_coherent=False,
+                          first_active=rec1["hit"], **kw)
+    a = alpha[:, None]
+    return torch.where(rec1["hit"][:, None], a * c1 + (1.0 - a) * c2, c1)
 
 
 def render_rays(scene, mwin, orig, dir, opts: RenderOptions, bounce_u=None,
@@ -518,20 +671,24 @@ def render_rays(scene, mwin, orig, dir, opts: RenderOptions, bounce_u=None,
     [bounces, N, 2] uniforms; light_u: with NEE, its [bounces,
     ceil(N / stride), 3] light uniforms; lights: light_cdf(scene), computed
     when not given; jitter_px: the primaries' jitter bound; tree, grid,
-    shadow: as render_image's."""
+    shadow: as render_image's. opts.edge_aware: shade_edgeaware."""
     _check_supported(scene, opts, mwin, tree, grid)
-    if opts.mode == "normal":
-        return shade_normal(scene, mwin, orig, dir, opts, tree=tree,
-                            grid=grid, shadow=shadow)
-    if opts.mode == "mirror":
-        return shade_mirror(scene, mwin, orig, dir, opts, tree=tree,
-                            grid=grid, shadow=shadow)
-    if bounce_u is None or (opts.nee and light_u is None):
+    kw = dict(tree=tree, grid=grid, shadow=shadow)
+    if opts.mode == "path" and (bounce_u is None
+                                or (opts.nee and light_u is None)):
         raise ValueError("path mode needs its bounce uniforms (bounce_u) "
                          "and, with NEE, its light uniforms (light_u)")
+    if opts.edge_aware:
+        return shade_edgeaware(scene, mwin, orig, dir, opts, bounce_u,
+                               jitter_px, light_u=light_u, lights=lights,
+                               **kw)
+    if opts.mode == "normal":
+        return shade_normal(scene, mwin, orig, dir, opts, **kw)
+    if opts.mode == "mirror":
+        return shade_mirror(scene, mwin, orig, dir, opts, **kw)
     return shade_path(scene, mwin, orig, dir, opts, bounce_u,
-                      jitter_px=jitter_px, tree=tree, grid=grid,
-                      light_u=light_u, lights=lights, shadow=shadow)
+                      jitter_px=jitter_px, light_u=light_u, lights=lights,
+                      **kw)
 
 
 def path_draws(opts: RenderOptions, generator: torch.Generator, device):
@@ -570,15 +727,24 @@ def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
     shadow: the walk-tuned tree (accel/sah.py::build_shadow_tree), the
     counterpart of attach_shadow_tree, for NEE without a grid and the
     bounce waves (opts.bounce_walk); lights: NEE's light_cdf(scene), built
-    once per scene (computed each call when not given).
+    once per scene (computed each call when not given; a differentiable
+    frame always builds it from the live scene and refuses a given one).
 
     Path mode draws its random numbers from `generator` (default: a
     generator on the camera's device seeded 0), or takes them as given:
     jitter [spp, H*W, 2] (spp > 1 only), bounce [S, bounces, H*W, 2] and,
     with NEE, light [S, bounces, ceil(H*W / nee_light_stride), 3]
     (path_draws). spp > 1 averages that many jittered samples; other modes
-    render one pixel-grid sample whatever spp is."""
+    render one pixel-grid sample whatever spp is.
+
+    opts.differentiable: backward() of the image reaches the camera's
+    tensors, scene.verts, normals, albedo and emission (intersect_diff);
+    opts.edge_aware adds the silhouette term (shade_edgeaware)."""
     _check_supported(scene, opts, mwin, tree, grid)
+    if opts.differentiable and lights is not None:
+        raise ValueError("differentiable: lights= is a table of the scene as "
+                         "it was built; the frame builds it from the live "
+                         "scene: pass lights=None")
     device = camera.position.device
     cam_inv = cam_matrix(camera, opts.height)
     shape = (opts.height, opts.width, 3)

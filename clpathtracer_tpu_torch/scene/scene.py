@@ -11,6 +11,7 @@ import functools
 import numpy as np
 import torch
 
+from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.core.struct import TensorStruct
 
 
@@ -85,9 +86,14 @@ class Scene(TensorStruct):
     def num_spheres(self) -> int:
         return self.sphere_pos.shape[0]
 
+    def with_verts(self, verts: torch.Tensor) -> "Scene":
+        """The scene with new vertex positions (a new object, so that
+        tri_records is built again from them)."""
+        return self.replace(verts=verts)
+
     def tri_verts(self):
         """Gathered corner positions (v0, v1, v2), each [F, 3]."""
-        v = self.verts[self.faces[:, :, 0].long()]                # [F, 3, 3]
+        v = vm.take_rows(self.verts, self.faces[:, :, 0])         # [F, 3, 3]
         return v[:, 0, :], v[:, 1, :], v[:, 2, :]
 
     @functools.cached_property

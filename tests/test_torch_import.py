@@ -1,7 +1,8 @@
 """The port stands alone: it imports and renders (windows and kd-tree
 routes; the legacy, wide, stream2 and mxu engines, accel/wide.py and
 ops/packet_mxu.py; the window, gathered and sub-gate schedules; path
-tracing with NEE over the uniform grid, the two-phase primaries) with jax
+tracing with NEE over the uniform grid, the two-phase primaries,
+differentiable rendering and a train step) with jax
 and flax blocked, no file of it or of
 chip_smoke.py
 imports either or the JAX package, and its kernel loader fails clearly
@@ -92,6 +93,18 @@ two = plist.traverse_plist(bwin, o, d, (32, 32), kcap=1, grid=grid)
 assert torch.equal(two["hit"], plist.traverse_plist(bwin, o, d,
                                                     (32, 32))["hit"])
 assert packet_mxu.mxu_rows_from_quads(wtree.tris).shape[1] == 512
+# a differentiable edge-aware frame's gradient and a train step on the tree
+from clpathtracer_tpu_torch.parallel.train import make_train_step
+d_opts = RenderOptions(width=32, height=32, differentiable=True,
+                       edge_aware=True)
+verts = scene.verts.clone().requires_grad_(True)
+render_image(scene.with_verts(verts), cam, d_opts,
+             tree=tree).mean().backward()
+assert bool(torch.isfinite(verts.grad).all()) and bool(verts.grad.any())
+step, init = make_train_step(scene, d_opts, lambda p: torch.optim.SGD(
+    p.values(), lr=1e-3), tree=tree)
+state, loss = step(init(), cam, img)
+assert float(loss) > 0.0
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
                                    "clpathtracer_tpu")
                for m in sys.modules if sys.modules[m] is not None)

@@ -25,6 +25,8 @@ from clpathtracer_tpu_torch.ops import intersect as tisx
 from clpathtracer_tpu_torch.ops import plist as tpl
 from clpathtracer_tpu_torch.render import integrator as tint
 from clpathtracer_tpu_torch.scene import procedural as tproc
+from torch_jax_draws import jax_nee_draws as _jax_nee_draws
+from torch_jax_draws import light_draws as _light_draws
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -60,15 +62,6 @@ def pair(request):
                 grid=build_grid(ts.tri_corners(), device=CPU), tv=tv,
                 jcam=jcam.Camera.create(position=pos, forward=fwd),
                 tcam=tcam.Camera.create(pos, fwd, device=CPU))
-
-
-def _light_draws(key, m):
-    """JAX _sample_light's uniforms from its key: (kf, kb) = split(key),
-    the face uniform from kf, the two barycentric ones from kb."""
-    kf, kb = jax.random.split(key)
-    return np.concatenate([np.asarray(jax.random.uniform(kf, (m,)))[:, None],
-                           np.asarray(jax.random.uniform(kb, (m, 2)))],
-                          axis=1)
 
 
 @pytest.mark.parametrize("stride", [1, 4])
@@ -119,33 +112,6 @@ def test_occluded_matches_jax(pair):
                            grid=pair["grid"]).numpy()
     np.testing.assert_array_equal(occ_t, occ_j)
     assert occ_t.any() and not occ_t[~act].any()
-
-
-def _jax_nee_draws(spp, bounces, n, stride):
-    """The draws of JAX's render_image (path, NEE) from PRNGKey(0): with
-    spp > 1, split(key, spp) and per sample (kj, ks) = split, jitter from
-    kj; per bounce (key, kl) = split(key), the light uniforms from kl
-    (_light_draws), (key, sub) = split(key), the bounce uniforms from
-    sub."""
-    keys = (jax.random.split(jax.random.PRNGKey(0), spp) if spp > 1
-            else [None])
-    jit, bnc, lgt = [], [], []
-    for k in keys:
-        if k is None:
-            ks = jax.random.PRNGKey(0)
-        else:
-            kj, ks = jax.random.split(k)
-            jit.append(np.asarray(jax.random.uniform(kj, (1, n, 2)))[0])
-        b_draws, l_draws = [], []
-        for _ in range(bounces):
-            ks, kl = jax.random.split(ks)
-            l_draws.append(_light_draws(kl, -(-n // stride)))
-            ks, sub = jax.random.split(ks)
-            b_draws.append(np.asarray(jax.random.uniform(sub, (n, 2))))
-        bnc.append(np.stack(b_draws))
-        lgt.append(np.stack(l_draws))
-    return (torch.as_tensor(np.stack(jit)) if jit else None,
-            torch.as_tensor(np.stack(bnc)), torch.as_tensor(np.stack(lgt)))
 
 
 @pytest.mark.parametrize("spp", [1, 2])

@@ -4,6 +4,8 @@ against the JAX package's render_image on its plist route (Morton
 windows with shared-origin tables and resolve rows attached to a
 kd-tree, its Pallas kernel in interpret mode on the CPU)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -77,20 +79,34 @@ def _budget(img, ref, px=1e-5, share=1.5e-2, mad=None):
     "mirror", "path", "spp", "differentiable", "edge_aware", "spheres",
     "no_windows", "frame_shape"])
 def test_outside_the_slice_raises(port_scene, case):
-    """What these cases do now. Differentiable and edge-aware rendering
-    still raise (queue 1 item 4). The others render: mirror mode and a
-    frame without windows on the flat scan (W2's plain version), NEE
-    without a grid on the windows' sorted bundles (K1'), spheres merged
-    after the windows route; each held to another route of the port on
-    the same draws. A windows-only frame that is not whole gates raises
-    ValueError naming tree=; with the tree it takes the rope walk."""
+    """What these cases do now: each renders, held to another route of
+    the port on the same draws. Differentiable frames (also edge-aware
+    ones) take the kd-tree: with windows alone they raise ValueError
+    naming tree=; with the tree (the rope walk's plain version) the
+    forward image equals the plain frame's (on the windows; an edge-aware
+    one on the tree).
+    Mirror mode and a frame without windows take the flat scan (W2's
+    plain version), NEE without a grid the windows' sorted bundles (K1'),
+    spheres merge after the windows route. A windows-only frame that is
+    not whole gates raises ValueError naming tree=; with the tree it
+    takes the rope walk."""
     scene, mwin = port_scene
     cam = Camera.create(POS, FWD, device=CPU)
     opts = RenderOptions(width=64, height=64)
     if case in ("differentiable", "edge_aware"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            render_image(scene, cam, RenderOptions(width=64, height=64,
-                                                   **{case: True}), mwin)
+        from clpathtracer_tpu_torch.accel.sah import build_kd_tree
+        opts = RenderOptions(width=64, height=64, differentiable=True,
+                             edge_aware=case == "edge_aware")
+        with pytest.raises(ValueError, match="tree="):
+            render_image(scene, cam, opts, mwin)
+        tree = build_kd_tree(scene.tri_corners(), max_depth=12,
+                             leaf_size=64, device=CPU)
+        # the plain frame: the windows', or for the edge-aware frame (whose
+        # band spreads a tie winner's change to its neighbours) the tree's
+        _budget(render_image(scene, cam, opts, mwin, tree=tree),
+                render_image(scene, cam, dataclasses.replace(
+                    opts, differentiable=False),
+                    None if opts.edge_aware else mwin, tree=tree))
     elif case in ("mirror", "no_windows"):
         opts = RenderOptions(width=32, height=32,
                              mode="mirror" if case == "mirror" else "normal")
