@@ -331,6 +331,36 @@ tree, so their launches are as before (W1 and W2 0):
    (the small emissive soup with a grid and NEE, albedo; K3 1, G1 3) on
    the card against the same on the CPU through the plain versions
    (rtol 1e-4, atol 1e-6), and against fd_grad (rtol 0.05, atol 2e-4).
+44. the command line (cli_route; cli/main.py's main() in this process, the
+   launch counts set to 0 just before each command and read just after),
+   in a temporary directory that it deletes, the card line first: (a) the
+   1M emissive terrain written as an OBJ (vertex normals, `f v//vn`, an
+   MTL with a ground and a light material in usemtl runs, every float
+   %.9g); (c) `render` of the headline frame (512x512, --intersector
+   auto): the parsed scene's verts, faces, normals, albedo and emission
+   equal to the procedural scene's exactly; packet, windows at win_rows
+   16, K1 1 and every other kernel 0, the PNG's bytes equal to
+   encode_png(tonemap(render_image())) with windows built again from the
+   loaded scene; its stages (parse with the native scanner, the cached
+   tree's kd build, the cache write, the depth-15 kd rebuild, the windows,
+   the first frame, the PNG) and the frame alone (median of 5, CUDA
+   events); (b) `info --json` from that cache: the stats, its scene equal
+   to the procedural one too; (d) `render` again: a hit of the
+   .torch.kd.npz cache, no .kd.npz written, the same PNG bytes; (e)
+   `render --mode path --nee --bounces 2 --spp 1`: the shadow tree, the
+   launches equal to render_image's with the same structures (K1 1, W1
+   3), the image finite with mean in (0, 1]; (f) `render --intersector
+   wavefront` (W1 1) and `render --no-tree` of icosphere(5) with three
+   --sphere (W2 1), PNGs equal to render_image's; (g) a 100k emissive
+   soup (fog-like: the grid, win_rows 8): `render --mode path --nee` at
+   256x256 (K1 1, G1 3, equal to render_image's), `--mode mirror` (K1,
+   K1') and a 512x520 `--intersector packet --packet-tile 256` frame (not
+   whole gates: K3 1), PNGs equal to render_image's; (h) `orbit --frames 2` and `fly`
+   (two segments, 4 frames) at 256x256 on the terrain: K1 1 a frame; (i)
+   render/debug.py on the CLI's tree: traversal_report (W1 1; its steps
+   W1's) and packet_tile_image(stat="chunks") at tile 1024 (K3 1; K3's
+   tile_stats[:, 1]); (j) save_reference_kd of icosphere(5)'s compact
+   tree; `render` of the .kd writes the OBJ's PNG bytes.
 
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
@@ -344,7 +374,8 @@ terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
 frames, K1's kcap form the two-phase calls, W1 the default kd normal
 frames of phase 42a, W2 the flat-scan frames), with every path's own
 count beside them (phase 43's as "diff step W1", "diff step K3" and
-"diff edge-aware"; W1's entry also holds phase 43's steps, peak memory
+"diff edge-aware", phase 44's as "cli ..."; K1's entry also holds phase
+44's stage seconds, "cli_seconds"; W1's entry also holds phase 43's steps, peak memory
 and crop check, and W1's, W2's, K3's and G1's their gradient checks);
 the cluster walks (K1, K1', K1's kcap form, K2, K3, K4) also give their
 blocks per cluster ("cluster"), G1 its tail calls, W1 each wave of phase
@@ -357,6 +388,7 @@ import contextlib
 import ctypes
 import dataclasses
 import importlib.util
+import io
 import json
 import subprocess
 import sys
@@ -1055,7 +1087,7 @@ def path_leg_parent(parent, frame):
 
 
 def smoke(device, parent=None):
-    """Phases 3-43 on `device`; returns the kernels line's entries. parent:
+    """Phases 3-44 on `device`; returns the kernels line's entries. parent:
     parent_library's entries, timed beside this tree's W1 and W2."""
     # 3. scene at full size
     t = time.perf_counter()
@@ -1318,6 +1350,7 @@ def smoke(device, parent=None):
     tail_phase(tails)
     walk_entries = walk_route(device, ctx, launches, parent)
     diff = diff_route(device, ctx, launches)
+    cli = cli_route(device, launches)
     entries = [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -1339,9 +1372,11 @@ def smoke(device, parent=None):
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
         k3, k4, k5, *v1, *k7_k8, *sched, *grid_entries, *walk_entries,
     ]
-    # phase 43 runs after the entries' own phases: add its paths' launches
+    # phases 43-44 run after the entries' own phases: add their paths'
+    # launches
     for e in entries:
-        for p in ("diff step W1", "diff step K3", "diff edge-aware"):
+        for p in ("diff step W1", "diff step K3", "diff edge-aware",
+                  *(p for p in launches if p.startswith("cli "))):
             e["launches_by_path"][p] = launches[p].get(e["name"], 0)
     by_name = {e["name"]: e for e in entries}
     for name, kernel in (("W1", "ray_walk"), ("W2", "brute_force"),
@@ -1350,6 +1385,7 @@ def smoke(device, parent=None):
     by_name["ray_walk"]["diff_steps"] = diff["steps"]
     by_name["ray_walk"]["diff_crop"] = diff["crop"]
     by_name["ray_walk"]["diff_peak_bytes"] = diff["peak_bytes"]
+    by_name["plist_super"]["cli_seconds"] = cli
     return entries
 
 
@@ -1380,7 +1416,7 @@ def kd_route(device, scene, soup, cam, scam, launches):
             f"{so_s:.2f} s; {st['nodes']} nodes, "
             f"{st['leaves']} leaves, largest leaf "
             f"{st['max_tris_per_leaf']}, {st['leaf_tris']} leaf slots, "
-            f"{st['windows']} windows, {wt.shape[0]} supernodes (wide table "
+            f"{tree.num_windows} windows, {wt.shape[0]} supernodes (wide table "
             f"{wide_s:.3f} s on the host), {tree.nbytes()} device bytes")
         return tree
     tree = build_tree(scene, TERRAIN_KD)
@@ -4100,6 +4136,417 @@ def diff_small_cases(device):
             raise AssertionError(f"diff {name}: gradient differs from fd_grad")
         out[name] = {"max_abs_err": err,
                      "fd_max_abs_err": float((got.double() - fd).abs().max())}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 44. the command line on the card
+# ---------------------------------------------------------------------------
+
+CLI_SMALL = 256            # the fog-like soup's, orbit's and fly's frames
+CLI_SOUP_TRIS = 100_000    # the fog-like model, cut from phase 34's 1M
+CLI_FLY = [{"duration": 0.25, "move": [0, 0, 1], "look": [0.5, 0.0]},
+           {"duration": 0.25, "move": [1, 0, 0], "sprint": True,
+            "zoom": 1.0}]
+
+
+def vertex_normals(verts, tris):
+    """Area-weighted vertex normals [V, 3] f32 of a mesh (host numpy)."""
+    v = verts.astype(np.float64)
+    fn = np.cross(v[tris[:, 1]] - v[tris[:, 0]], v[tris[:, 2]] - v[tris[:, 0]])
+    n = np.zeros_like(v)
+    for k in range(3):
+        for c in range(3):
+            n[:, c] += np.bincount(tris[:, k], fn[:, c], minlength=len(v))
+    n /= np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
+    return n.astype(np.float32)
+
+
+def write_obj(path, verts, tris, normals=None, materials=None, face_mat=None):
+    """Write a Wavefront OBJ (and its MTL beside it): `v` records, `vn`
+    records (one a vertex, faces `f v//vn`) when normals are given, and
+    `usemtl` runs of face_mat [F] (indices into materials, a list of
+    (name, Kd, Ke)). Every float as %.9g, so that each f32 reads back
+    exactly. Returns the bytes written."""
+    mtl = None
+    if materials:
+        mtl = Path(path).with_suffix(".mtl")
+        mtl.write_text("".join(
+            f"newmtl {name}\nKd {kd[0]:.9g} {kd[1]:.9g} {kd[2]:.9g}\n"
+            f"Ke {ke[0]:.9g} {ke[1]:.9g} {ke[2]:.9g}\n"
+            for name, kd, ke in materials))
+    idx = tris.astype(np.int64) + 1
+    if normals is not None:
+        fmt, vals = "f %d//%d %d//%d %d//%d\n", np.repeat(idx, 2, axis=1)
+    else:
+        fmt, vals = "f %d %d %d\n", idx
+    if face_mat is None:
+        face_mat = np.zeros(len(tris), np.int64)
+    cuts = np.concatenate([[0], np.flatnonzero(np.diff(face_mat)) + 1,
+                           [len(tris)]])
+    with open(path, "w") as fh:
+        if mtl is not None:
+            fh.write(f"mtllib {mtl.name}\n")
+        fh.write(("v %.9g %.9g %.9g\n" * len(verts))
+                 % tuple(verts.ravel().tolist()))
+        if normals is not None:
+            fh.write(("vn %.9g %.9g %.9g\n" * len(normals))
+                     % tuple(normals.ravel().tolist()))
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            if materials:
+                fh.write(f"usemtl {materials[face_mat[a]][0]}\n")
+            fh.write((fmt * int(b - a)) % tuple(vals[a:b].ravel().tolist()))
+    return Path(path).stat().st_size + (mtl.stat().st_size if mtl else 0)
+
+
+def cli_run(argv, device):
+    """cli.main.main(argv) in this process on `device` (--cpu on the host)
+    with the launch counts set to 0 just before and read just after: (its
+    Session, the counts, the seconds, what it printed to stdout)."""
+    from clpathtracer_tpu_torch.cli import main as cli
+    if device.type == "cpu":
+        argv = [*argv, "--cpu"]
+    out = io.StringIO()
+    reset_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        s = cli.main(argv)
+    if torch.device(s.device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, counts(), time.perf_counter() - t, out.getvalue()
+
+
+def counted(fn):
+    """fn()'s result and the launch counts of that call alone."""
+    reset_counts()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, counts()
+
+
+def nz(got):
+    """The launch counts that are not 0."""
+    return {k: v for k, v in got.items() if v}
+
+
+def stages(s):
+    return ", ".join(f"{k} {v:.3f} s" for k, v in s.times.items())
+
+
+def cli_route(device, launches):
+    """Phase 44: the command line (cli/main.py) on the card, in this
+    process and in a temporary directory that it deletes. (a) writes the
+    1M emissive terrain as an OBJ (vertex normals, two materials); (c)
+    render, its parsed scene held to the procedural one exactly; (b) `info
+    --json` from the cache; (d) render from the cache, (e) the NEE path
+    leg, (f) the wavefront and
+    --no-tree routes, (g) the fog-like soup (its grid; mirror and a frame
+    that is not whole gates on it), (h) orbit and fly, (i) render/debug.py,
+    (j) the reference .kd round trip: the CLI's PNGs against encode_png(
+    tonemap(render_image())) with the same structures, its launches
+    against render_image's. Adds the CLI paths' launches to `launches`;
+    returns the timings."""
+    import shutil
+    import tempfile
+
+    from clpathtracer_tpu_torch.render import debug
+    from clpathtracer_tpu_torch.scene.kdformat import save_reference_kd
+    from clpathtracer_tpu_torch.utils.png import encode_png, tonemap
+    card = card_line()
+    say("cli", f"card: {card}")
+    build_s = load_kernels().build_seconds
+    cpu = torch.device("cpu")
+    tmp = Path(tempfile.mkdtemp(prefix="clpt_cli_"))
+    out = {}
+
+    def png_of(img, gamma=1.0):
+        return encode_png(tonemap(img.cpu().numpy(), gamma=gamma))
+
+    def same_png(name, s, img, gamma=1.0):
+        if Path(s.outputs[-1]).read_bytes() != png_of(img, gamma):
+            raise AssertionError(f"cli {name}: the PNG differs from "
+                                 "encode_png(tonemap(render_image()))")
+
+    def same_counts(name, got, ref, want=None):
+        check_counts(f"cli {name}", got, want if want is not None else {
+            k: v for k, v in ref.items() if v})
+        check_counts(f"cli {name} (render_image)", ref, {
+            k: v for k, v in got.items() if v})
+        launches[f"cli {name}"] = got
+
+    def cam_of(pos, fwd):
+        return Camera.create(pos, fwd, device=device,
+                             fov=float(np.deg2rad(60.0)))
+
+    try:
+        # (a) the model file
+        t = time.perf_counter()
+        proc = terrain_mesh(N_TRIS, seed=0, extent=10.0,
+                            emissive_frac=EMISSIVE_FRAC, device=cpu)
+        tris = proc.faces[:, :, 0].numpy()
+        nrm = vertex_normals(proc.verts.numpy(), tris)
+        lit = (proc.emission.numpy() > 0).any(axis=1).astype(np.int64)
+        ground = (0.75, 0.75, 0.75)
+        mats = [("ground", ground, (0.0, 0.0, 0.0)),
+                ("light", ground, tuple(float(x) for x in
+                                        proc.emission.numpy()[lit.argmax()]))]
+        obj = tmp / "terrain.obj"
+        nbytes = write_obj(obj, proc.verts.numpy(), tris, nrm, mats, lit)
+        faces = proc.faces.clone()
+        faces[:, :, 1] = faces[:, :, 0]
+        want = Scene.create(proc.verts.numpy(), faces.numpy(), nrm,
+                            proc.albedo.numpy(), proc.emission.numpy(),
+                            device=cpu)
+        say("cli model", f"{obj.name}: {proc.num_tris} triangles, "
+            f"{int(lit.sum())} emitters, {nbytes} bytes (OBJ + MTL) written "
+            f"in {time.perf_counter() - t:.3f} s")
+
+        # (c) render, the headline frame
+        common = ["--width", str(SIZE), "--height", str(SIZE)]
+        headline = ["--position", *map(str, POS), "--forward",
+                    *map(str, FWD)]
+        png = str(tmp / "render.png")
+        s, got, sec, _ = cli_run(["render", str(obj), *common, *headline,
+                                  "--intersector", "auto", "--out", png],
+                                 device)
+        check_counts("cli render", got, {"plist_super": 1})
+        bad = [f for f in ("verts", "faces", "normals", "albedo", "emission")
+               if not torch.equal(getattr(s.scene, f).cpu(),
+                                  getattr(want, f))]
+        if bad:
+            raise AssertionError(f"cli render: the parsed {bad} differ from "
+                                 "the procedural scene's")
+        launches["cli render"] = got
+        if s.intersector != "packet" or s.win_rows != WIN_ROWS:
+            raise AssertionError(f"cli render: intersector {s.intersector}, "
+                                 f"win_rows {s.win_rows}")
+        cam = cam_of(POS, FWD)
+        mwin = build_windows(s.scene, WIN_ROWS, device)
+        tree = s.structures["tree"]
+        img = render_image(s.scene, cam, s.opts, mwin, tree=tree)
+        same_png("render", s, img)
+        frame = cuda_times_ms(lambda: render_image(s.scene, cam, s.opts,
+                                                   **s.structures), 5)
+        out["render"] = dict(s.times, frame_ms=float(np.median(frame)),
+                             seconds=sec)
+        say("cli render", f"{SIZE}x{SIZE} auto -> {s.intersector}, windows "
+            f"at win_rows {s.win_rows}: {sec:.3f} s in all; {stages(s)} "
+            f"(the kernels were built in phase 2: nvcc {build_s:.2f} s); "
+            f"the frame alone, median of 5 (CUDA events): "
+            f"{float(np.median(frame)):.4f} ms; launches {nz(got)}; PNG equal "
+            f"to render_image's; card {card}")
+        del mwin, img
+
+        # (b) info --json, from the cache (c) wrote
+        si, got, sec, text = cli_run(["info", str(obj), "--json"], device)
+        say("cli info", text.strip())
+        bad = [f for f in ("verts", "faces", "normals", "albedo", "emission")
+               if not torch.equal(getattr(si.scene, f).cpu(),
+                                  getattr(want, f))]
+        say("cli info", f"{sec:.3f} s; the scenes of `render` (parsed) and "
+            f"`info` (cached) against the procedural one: "
+            f"{'equal' if not bad else bad}")
+        if bad or any(got.values()):
+            raise AssertionError(f"cli info: {bad} differ, launches {got}")
+        del si, want, proc
+
+        # (d) render again: the port's cache
+        s2, got, sec, _ = cli_run(["render", str(obj), *common, *headline,
+                                   "--out", str(tmp / "render2.png")], device)
+        check_counts("cli render cached", got, {"plist_super": 1})
+        launches["cli render cached"] = got
+        cache = tmp / "terrain.torch.kd.npz"
+        if ("cache load" not in s2.times or "parse" in s2.times
+                or (tmp / "terrain.kd.npz").exists()):
+            raise AssertionError(f"cli render cached: stages {s2.times}")
+        if Path(png).read_bytes() != (tmp / "render2.png").read_bytes():
+            raise AssertionError("cli render cached: another PNG")
+        out["render cached"] = dict(s2.times, seconds=sec)
+        say("cli render cached", f"{sec:.3f} s in all; {stages(s2)}; cache "
+            f"{cache.stat().st_size} bytes; the same PNG bytes")
+        del s, s2
+
+        # (e) the path leg: NEE through the shadow tree
+        s, got, sec, _ = cli_run(["render", str(obj), *common, *headline,
+                                  "--mode", "path", "--nee", "--bounces",
+                                  "2", "--spp", "1", "--out", png], device)
+        if s.structures["shadow"] is None or s.structures["grid"] is not None:
+            raise AssertionError("cli path: no shadow tree")
+        img, ref = counted(lambda: render_image(
+            s.scene, cam, s.opts, generator=torch.Generator(
+                device=device).manual_seed(0), **s.structures))
+        same_counts("path nee", got, ref)
+        mean = float(s.image.mean())
+        if not bool(torch.isfinite(s.image).all()) or not 0.0 < mean <= 1.0:
+            raise AssertionError(f"cli path: finite "
+                                 f"{bool(torch.isfinite(s.image).all())}, "
+                                 f"mean {mean}")
+        out["path nee"] = dict(s.times, seconds=sec)
+        say("cli path", f"{SIZE}x{SIZE} path NEE, bounces 2, spp 1: {sec:.3f}"
+            f" s in all; {stages(s)}; image mean {mean:.6f}; launches "
+            f"{nz(got)} (render_image's with the same structures: equal)")
+        del s, img
+
+        # (f) the wavefront route (W1) and the flat scan (W2)
+        s, got, sec, _ = cli_run(["render", str(obj), *common, *headline,
+                                  "--intersector", "wavefront", "--out",
+                                  png], device)
+        img, ref = counted(lambda: render_image(
+            s.scene, cam, s.opts, tree=s.structures["tree"]))
+        same_counts("wavefront", got, ref, {"ray_walk": 1})
+        same_png("wavefront", s, img)
+        out["wavefront"] = dict(s.times, seconds=sec)
+        say("cli wavefront", f"{sec:.3f} s in all; {stages(s)}; launches "
+            f"{nz(got)}; PNG equal to render_image's")
+        tree = s.structures["tree"]
+        del s, img
+
+        ico = icosphere(5, device=cpu)
+        ico_obj = tmp / "ico.obj"
+        write_obj(ico_obj, ico.verts.numpy(), ico.faces[:, :, 0].numpy(),
+                  ico.normals.numpy())
+        spheres = []
+        for p_, r_ in zip(FLAT_SPHERES["sphere_pos"],
+                          FLAT_SPHERES["sphere_radius"]):
+            spheres += ["--sphere", *map(str, p_), str(r_)]
+        view = ["--position", "0", "0", "-1.5", "--forward", "0", "0", "1"]
+        s, got, sec, _ = cli_run(["render", str(ico_obj), *common, *view,
+                                  *spheres, "--no-tree", "--out",
+                                  str(tmp / "flat.png")], device)
+        fcam = cam_of([0.0, 0.0, -1.5], [0.0, 0.0, 1.0])
+        img, ref = counted(lambda: render_image(s.scene, fcam, s.opts))
+        same_counts("no-tree", got, ref, {"brute_force": 1})
+        same_png("no-tree", s, img)
+        say("cli no-tree", f"icosphere(5) ({s.scene.num_tris} triangles) and "
+            f"{s.scene.num_spheres} spheres: {sec:.3f} s in all; "
+            f"{stages(s)}; launches {nz(got)}; PNG equal to render_image's")
+        del s, img
+
+        # (g) a fog-like model: the grid; mirror; not whole gates (K3)
+        soup = random_tri_soup(CLI_SOUP_TRIS, seed=0, extent=10.0,
+                               tri_size=0.01, emissive_frac=EMISSIVE_FRAC,
+                               device=cpu)
+        s_lit = (soup.emission.numpy() > 0).any(axis=1).astype(np.int64)
+        soup_obj = tmp / "soup.obj"
+        write_obj(soup_obj, soup.verts.numpy(), soup.faces[:, :, 0].numpy(),
+                  None, mats, s_lit)
+        small = ["--width", str(CLI_SMALL), "--height", str(CLI_SMALL)]
+        sview = ["--position", *map(str, SOUP_POS), "--forward",
+                 *map(str, SOUP_FWD)]
+        scam = cam_of(SOUP_POS, SOUP_FWD)
+        s, got, sec, _ = cli_run(["render", str(soup_obj), *small, *sview,
+                                  "--mode", "path", "--nee", "--out",
+                                  str(tmp / "soup.png")], device)
+        if s.structures["grid"] is None or s.win_rows != SOUP_WIN_ROWS:
+            raise AssertionError(f"cli soup: grid {s.structures['grid']}, "
+                                 f"win_rows {s.win_rows}")
+        img, ref = counted(lambda: render_image(
+            s.scene, scam, s.opts, generator=torch.Generator(
+                device=device).manual_seed(0), **s.structures))
+        same_counts("fog nee", got, ref)
+        st = s.structures["grid"].stats()
+        say("cli soup", f"{soup_obj.name}: {soup.num_tris} triangles, fog "
+            f"likeness {fog_likeness(s.scene.tri_corners()):.4f}, grid "
+            f"{st}: {CLI_SMALL}x{CLI_SMALL} path NEE {sec:.3f} s in all; "
+            f"{stages(s)}; launches {nz(got)} (render_image's: equal)")
+        del s, img
+        for name, argv, want_k in (
+                ("mirror", [*small, "--mode", "mirror"],
+                 {"plist_super": 1, "plist_super_mt": 1}),
+                ("packet tiles", ["--width", str(SIZE), "--height",
+                                  str(SIZE + 8), "--packet-tile", "256",
+                                  "--intersector", "packet"],
+                 {"packet_stream": 1})):
+            s, got, sec, _ = cli_run(["render", str(soup_obj), *argv, *sview,
+                                      "--out", str(tmp / "soup2.png")], device)
+            img, ref = counted(lambda: render_image(s.scene, scam, s.opts,
+                                                    **s.structures))
+            same_counts(name, got, ref, want_k)
+            same_png(name, s, img)
+            say(f"cli {name}", f"soup {s.opts.width}x{s.opts.height} "
+                f"{s.opts.mode}: {sec:.3f} s in all; launches {nz(got)}; PNG "
+                "equal to render_image's")
+            del s, img
+
+        # (h) orbit and fly on the terrain
+        d = tmp / "orbit"
+        s, got, sec, _ = cli_run(["orbit", str(obj), *small, "--frames", "2",
+                                  "--out-dir", str(d)], device)
+        check_counts("cli orbit", got, {"plist_super": 2})
+        launches["cli orbit"] = got
+        if sorted(p_.name for p_ in d.iterdir()) != ["frame_0000.png",
+                                                     "frame_0001.png"]:
+            raise AssertionError("cli orbit: frame files")
+        say("cli orbit", f"2 frames {CLI_SMALL}x{CLI_SMALL}: {sec:.3f} s in "
+            f"all; {stages(s)}; launches {nz(got)}")
+        del s
+        script = tmp / "fly.json"
+        script.write_text(json.dumps(CLI_FLY))
+        d = tmp / "fly"
+        s, got, sec, _ = cli_run(["fly", str(obj), *small, "--script",
+                                  str(script), "--fps", "8", "--out-dir",
+                                  str(d), "--position", "0", "8", "-12"],
+                                 device)
+        n_fly = len(list(d.iterdir()))
+        check_counts("cli fly", got, {"plist_super": n_fly})
+        launches["cli fly"] = got
+        if n_fly != 4:
+            raise AssertionError(f"cli fly: {n_fly} frames")
+        say("cli fly", f"{n_fly} frames {CLI_SMALL}x{CLI_SMALL}: {sec:.3f} s "
+            f"in all; {stages(s)}; launches {nz(got)}")
+        del s
+
+        # (i) render/debug.py on the CLI's tree
+        d_opts = RenderOptions(width=SIZE, height=SIZE)
+        rep, got = counted(lambda: debug.traversal_report(None, cam, d_opts,
+                                                          tree))
+        o, dd = generate_rays(cam_matrix(cam, SIZE), SIZE, SIZE)
+        steps = traverse_fast(tree, o, dd)["steps"]
+        img = debug.traversal_steps_image(None, cam, d_opts, tree)
+        if not torch.equal(img.reshape(-1), steps):
+            raise AssertionError("cli debug: steps differ from W1's")
+        chunks, got_k3 = counted(lambda: debug.packet_tile_image(
+            None, cam, d_opts, tree, stat="chunks"))
+        ts = packet.traverse_packet(tree, o, dd, (SIZE, SIZE),
+                                    tile=1024)["tile_stats"]
+        if not torch.equal(chunks.reshape(-1), ts[:, 1]):
+            raise AssertionError("cli debug: chunks differ from K3's")
+        check_counts("cli debug report", got, {"ray_walk": 1})
+        check_counts("cli debug tiles", got_k3, {"packet_stream": 1})
+        launches["cli debug"] = {k: got[k] + got_k3[k] for k in got}
+        say("cli debug", f"traversal_report on the CLI's tree (W1): "
+            f"{ {k: v for k, v in rep.items() if 'steps' in k} }, equal to "
+            f"W1's steps; packet_tile_image chunks (K3, tile 1024): mean "
+            f"{float(chunks.float().mean()):.2f}, max {int(chunks.max())}, "
+            f"equal to K3's tile_stats[:, 1]")
+        del tree, img, chunks
+
+        # (j) the reference .kd round trip
+        s, got, _, _ = cli_run(["render", str(ico_obj), *common, *view,
+                                "--out", str(tmp / "ico.png")], device)
+        t = time.perf_counter()
+        ctree = sah.build_kd_tree(s.scene.tri_corners(), tri_block=1,
+                                  device=device)
+        kd = tmp / "ico.obj.kd"
+        save_reference_kd(str(kd), s.scene, ctree)
+        kd_s = time.perf_counter() - t
+        s2, got2, _, _ = cli_run(["render", str(kd), *common, *view, "--out",
+                                  str(tmp / "ico_kd.png")], device)
+        for name, g_ in (("kd obj", got), ("kd", got2)):
+            check_counts(f"cli {name}", g_, {"plist_super": 1})
+        launches["cli kd"] = got2
+        if (tmp / "ico.png").read_bytes() != (tmp / "ico_kd.png").read_bytes():
+            raise AssertionError("cli kd: the .kd's PNG differs from the "
+                                 "OBJ's")
+        say("cli kd", f"save_reference_kd of icosphere(5)'s compact tree "
+            f"({ctree.num_nodes} nodes, {kd.stat().st_size} bytes) "
+            f"{kd_s:.3f} s; render of the .kd: the OBJ's PNG bytes")
+        del s, s2, ctree
+        say("cli", f"phase 44 done; card {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
     return out
 
 

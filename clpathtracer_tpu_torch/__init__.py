@@ -44,6 +44,16 @@ normals and materials; RenderOptions.edge_aware adds the silhouette term
 (diff/edges.py). diff/fd.py checks gradients by finite differences,
 diff/checkpoint.py saves and restores a run, and parallel/train.py's
 make_train_step takes inverse-rendering steps on one device.
+
+Model I/O and the command line: scene/objparser.py parses Wavefront OBJ
+and MTL files (the native scanner scene/native/obj_native.cpp, built with
+g++ at first use); scene/cache.py loads models by extension (.obj, the
+reference's .kd through scene/kdformat.py, the port's .torch.kd.npz cache
+and the JAX package's .kd.npz) and merges several; utils/png.py writes
+frames; core/physics.py steps the fly camera; render/debug.py draws the
+walks' step and tile-cost heatmaps; cli/main.py is the command line
+(python -m clpathtracer_tpu_torch.cli.main render|orbit|fly|view|info),
+on the CUDA device, or the host with --cpu.
 """
 
 from clpathtracer_tpu_torch.core.camera import Camera

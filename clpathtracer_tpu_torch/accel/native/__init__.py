@@ -32,28 +32,37 @@ class NativeBuildError(RuntimeError):
     """g++ is missing, or it failed on the source."""
 
 
-@functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the builder library."""
+def build_library(src: Path, lib_name: str, build_dir: Path,
+                  what: str) -> Path:
+    """Compile `src` with g++ and CXX_FLAGS into build_dir/<hash>/lib_name
+    (the hash of the flags and the source) unless it is there already;
+    return the library's path. `what` names the library in the error."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    out = BUILD_DIR / h.hexdigest()[:16] / LIB_NAME
+    h.update(src.read_bytes())
+    out = build_dir / h.hexdigest()[:16] / lib_name
     if not out.is_file():
         cxx = shutil.which("g++")
         if cxx is None:
             raise NativeBuildError(
-                "g++ not found on PATH: the port's kd-tree builder is "
-                f"compiled from {SRC} at first use")
+                f"g++ not found on PATH: the port's {what} is compiled from "
+                f"{src} at first use")
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-        cmd = [cxx, *CXX_FLAGS, str(SRC), "-o", str(tmp)]
+        tmp = out.with_name(f"{lib_name}.{os.getpid()}.tmp")
+        cmd = [cxx, *CXX_FLAGS, str(src), "-o", str(tmp)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise NativeBuildError(
                 f"g++ exited with {proc.returncode}:\n{' '.join(cmd)}\n"
                 f"{proc.stderr[-4000:]}")
         os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the builder library."""
+    lib = ctypes.CDLL(str(build_library(SRC, LIB_NAME, BUILD_DIR,
+                                        "kd-tree builder")))
     lib.kd_build.restype = ctypes.c_void_p
     lib.kd_build.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
                              ctypes.c_int32, ctypes.c_int32]

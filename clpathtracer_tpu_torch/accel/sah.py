@@ -105,13 +105,16 @@ class FlatKdTree(TensorStruct):
         return 0 if self.chunk_bnd is None else self.chunk_bnd.shape[0]
 
     def stats(self) -> dict:
-        """Tree-quality stats (the reference printf, src/kd_tree.c:232-235)."""
+        """Tree-quality stats (the reference printf, src/kd_tree.c:232-235),
+        the JAX package's FlatKdTree.stats() keys."""
         is_leaf = self.is_leaf.cpu().numpy()
         counts = self.leaf_count.cpu().numpy()[is_leaf]
-        return {"nodes": self.num_nodes, "leaves": int(is_leaf.sum()),
-                "leaf_tris": int(counts.sum()),
+        leaves = int(is_leaf.sum())
+        leaf_tris = int(counts.sum())
+        return {"leaf_tris": leaf_tris, "leaves": leaves,
+                "avg_tris_per_leaf": leaf_tris / max(leaves, 1),
                 "max_tris_per_leaf": int(counts.max(initial=0)),
-                "windows": self.num_windows}
+                "nodes": self.num_nodes}
 
 
 def pack_quads_host(tri_indices: np.ndarray,

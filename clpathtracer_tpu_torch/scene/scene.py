@@ -1,6 +1,7 @@
 """Scene container: flat SoA tensors.
 
-Port of clpathtracer_tpu/scene/scene.py: triangles and spheres.
+Port of clpathtracer_tpu/scene/scene.py: triangles and spheres, built
+from arrays or an OBJ file (from_obj).
 """
 
 from __future__ import annotations
@@ -78,6 +79,19 @@ class Scene(TensorStruct):
                    sphere_radius=sphere_radius, sphere_albedo=sphere_albedo,
                    sphere_emission=sphere_emission)
 
+    @classmethod
+    def from_obj(cls, path: str, *, device, **material_kwargs) -> "Scene":
+        """Load a Wavefront OBJ (reference: src/model.c:147-176, .obj
+        branch; objparser.load_obj, the native scanner) onto `device`.
+        MTL Kd/Ke resolve to per-face albedo and emission unless
+        overridden in material_kwargs."""
+        from clpathtracer_tpu_torch.scene.objparser import load_obj
+        d = load_obj(path)
+        material_kwargs.setdefault("albedo", d["albedo"])
+        material_kwargs.setdefault("emission", d["emission"])
+        return cls.create(d["verts"], d["faces"], d["normals"],
+                          **material_kwargs, device=device)
+
     @property
     def num_tris(self) -> int:
         return self.faces.shape[0]
@@ -114,6 +128,17 @@ class Scene(TensorStruct):
         array the window builder expects."""
         v = self.verts.cpu().numpy()
         return v[self.faces[:, :, 0].cpu().numpy()]
+
+    def bounds(self):
+        """World AABB (lo [3], hi [3]) over triangle vertices and
+        spheres."""
+        lo = self.verts.min(dim=0).values
+        hi = self.verts.max(dim=0).values
+        if self.num_spheres:
+            r = self.sphere_radius[:, None]
+            lo = torch.minimum(lo, (self.sphere_pos - r).min(dim=0).values)
+            hi = torch.maximum(hi, (self.sphere_pos + r).max(dim=0).values)
+        return lo, hi
 
     def bake_shading(self) -> "Scene":
         """Precompute [F, 16] per-triangle shading rows on the host.

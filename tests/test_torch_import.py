@@ -2,7 +2,9 @@
 routes; the legacy, wide, stream2 and mxu engines, accel/wide.py and
 ops/packet_mxu.py; the window, gathered and sub-gate schedules; path
 tracing with NEE over the uniform grid, the two-phase primaries,
-differentiable rendering and a train step) with jax
+differentiable rendering and a train step; the command line on an OBJ
+file, the reference .kd writer and its loader, the I/O and utility
+modules) with jax
 and flax blocked, no file of it or of
 chip_smoke.py
 imports either or the JAX package, and its kernel loader fails clearly
@@ -105,6 +107,29 @@ step, init = make_train_step(scene, d_opts, lambda p: torch.optim.SGD(
     p.values(), lr=1e-3), tree=tree)
 state, loss = step(init(), cam, img)
 assert float(loss) > 0.0
+# model I/O, the utilities and the command line (render --cpu, info)
+import contextlib, io, os, tempfile
+from clpathtracer_tpu_torch.cli import main as cli, viewer
+from clpathtracer_tpu_torch.core import physics
+from clpathtracer_tpu_torch.render import debug
+from clpathtracer_tpu_torch.scene import cache, kdformat, native, objparser
+from clpathtracer_tpu_torch.utils import device, errors, png, profiling
+with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(
+        io.StringIO()):
+    obj = os.path.join(d, "tri.obj")
+    with open(obj, "w") as fh:
+        fh.write("v -1 -1 2\nv 0 1 2\nv 1 -1 2\nf 1 2 3\n")
+    run = cli.main(["render", obj, "--cpu", "--width", "32", "--height",
+                    "16", "--position", "0", "0", "-1.5", "--tri-block", "1",
+                    "--out",
+                    os.path.join(d, "tri.png")])
+    assert run.image.shape == (16, 32, 3) and os.path.exists(run.outputs[0])
+    assert sorted(os.listdir(d)) == ["tri.obj", "tri.png", "tri.torch.kd.npz"]
+    kdformat.save_reference_kd(os.path.join(d, "tri.kd"), run.scene,
+                               run.structures["tree"])
+    assert cli.main(["info", os.path.join(d, "tri.kd"), "--cpu"]).stats[
+        "num_tris"] == 1
+assert physics.FlyCamera(position=[0.0, 0.0, 0.0]).camera(device=cpu)
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
                                    "clpathtracer_tpu")
                for m in sys.modules if sys.modules[m] is not None)
