@@ -361,6 +361,32 @@ tree, so their launches are as before (W1 and W2 0):
    W1's) and packet_tile_image(stat="chunks") at tile 1024 (K3 1; K3's
    tile_stats[:, 1]); (j) save_reference_kd of icosphere(5)'s compact
    tree; `render` of the .kd writes the OBJ's PNG bytes.
+45. the parallel layer (parallel_route; the last phase, on a world of 1:
+   init_distributed() forms an NCCL group through a file store, and
+   default_mesh() a ("rows", "scene") mesh of 1 x 1; the group is
+   destroyed at the end), the card line first: (1) the terrain's windows
+   frame through render_image_sharded (K1 1) and render_frame_chunked
+   with 4 chunks of 128 rows (K1 4), both equal to render_image's
+   exactly, timed in turns with it, K1 on a chunk's gates beside the
+   frame's; a RuntimeError on chunk 1's first attempt retried (2
+   attempts, the same image), a ValueError re-raised; (2) build_sharded_tree
+   of the terrain into 4 Morton blocks (depth 22, leaf 4) and the single
+   tree of the same settings, timed; intersect_ring on the primaries (W1
+   4): each block's W1 exact against its plain version on every 256th
+   lane with the t_max it was given; 4096 pixels against the brute force
+   (W2) as phase 40 holds W1 (hit mismatch < 1e-3 off the lanes with a
+   zero direction component, t rtol 1e-5, no hit gained on those lanes
+   and the lost ones counted); hit and t against W1 on the single tree
+   (mismatches counted; at most 1e-3 of the lanes, t allclose); the ring
+   frame (W1 4) beside the single tree's frame and phase 42a's, in turns,
+   and each block's W1 alone, with its t_max and without; (3) the emissive terrain's NEE path frame
+   (spp 1, 2 bounces) through the ring, its shadow rays too (W1 16 a
+   frame), finite with mean in (0, 1]; (4) two of phase 43a's W1 train
+   steps on one device, twice, and under torch.use_deterministic_algorithms
+   on one device and on the mesh (W1 4 a step): the deterministic pair's
+   losses bit-equal;
+   a ShardedTree step (4 blocks, W1 4) on icosphere(2) at 24x24: loss
+   finite, vertex gradient finite and nonzero.
 
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
@@ -374,8 +400,10 @@ terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
 frames, K1's kcap form the two-phase calls, W1 the default kd normal
 frames of phase 42a, W2 the flat-scan frames), with every path's own
 count beside them (phase 43's as "diff step W1", "diff step K3" and
-"diff edge-aware", phase 44's as "cli ..."; K1's entry also holds phase
-44's stage seconds, "cli_seconds"; W1's entry also holds phase 43's steps, peak memory
+"diff edge-aware", phase 44's as "cli ...", phase 45's as "parallel
+..."; K1's entry also holds phase 44's stage seconds, "cli_seconds", and
+phase 45's row frames, "parallel"; W1's entry phase 45's ring,
+"parallel"; W1's entry also holds phase 43's steps, peak memory
 and crop check, and W1's, W2's, K3's and G1's their gradient checks);
 the cluster walks (K1, K1', K1's kcap form, K2, K3, K4) also give their
 blocks per cluster ("cluster"), G1 its tail calls, W1 each wave of phase
@@ -1087,7 +1115,7 @@ def path_leg_parent(parent, frame):
 
 
 def smoke(device, parent=None):
-    """Phases 3-44 on `device`; returns the kernels line's entries. parent:
+    """Phases 3-45 on `device`; returns the kernels line's entries. parent:
     parent_library's entries, timed beside this tree's W1 and W2."""
     # 3. scene at full size
     t = time.perf_counter()
@@ -1351,6 +1379,7 @@ def smoke(device, parent=None):
     walk_entries = walk_route(device, ctx, launches, parent)
     diff = diff_route(device, ctx, launches)
     cli = cli_route(device, launches)
+    par = parallel_route(device, ctx, launches)
     entries = [
         {"name": "plist_super", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/plist_super.cu",
@@ -1372,11 +1401,12 @@ def smoke(device, parent=None):
          "bound_ms": mt_bound, "bound_by": mt_by, "library_ms": None},
         k3, k4, k5, *v1, *k7_k8, *sched, *grid_entries, *walk_entries,
     ]
-    # phases 43-44 run after the entries' own phases: add their paths'
+    # phases 43-45 run after the entries' own phases: add their paths'
     # launches
     for e in entries:
         for p in ("diff step W1", "diff step K3", "diff edge-aware",
-                  *(p for p in launches if p.startswith("cli "))):
+                  *(p for p in launches
+                    if p.startswith(("cli ", "parallel ")))):
             e["launches_by_path"][p] = launches[p].get(e["name"], 0)
     by_name = {e["name"]: e for e in entries}
     for name, kernel in (("W1", "ray_walk"), ("W2", "brute_force"),
@@ -1386,6 +1416,9 @@ def smoke(device, parent=None):
     by_name["ray_walk"]["diff_crop"] = diff["crop"]
     by_name["ray_walk"]["diff_peak_bytes"] = diff["peak_bytes"]
     by_name["plist_super"]["cli_seconds"] = cli
+    by_name["plist_super"]["parallel"] = par["k1"]
+    by_name["ray_walk"]["parallel"] = dict(par["w1"],
+                                           phase_seconds=par["seconds"])
     return entries
 
 
@@ -4546,6 +4579,364 @@ def cli_route(device, launches):
         say("cli", f"phase 44 done; card {card}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 45: the parallel layer on the card
+RING_BLOCKS = 4                                # treelet blocks (S)
+TREELET_KD = dict(max_depth=22, leaf_size=4)   # build_sharded_tree's
+RING_EVERY = 256     # the plain walk of each block on every 256th lane
+CHUNKS = 4           # render_frame_chunked's row chunks: 128 rows, whole gates
+
+
+def k1_block_args(mwin, orig, dirs, rows):
+    """K1's launch arguments (phase 4's prepass) for a block of `rows`
+    frame rows of the wave orig/dirs."""
+    dir_b = _blockify(dirs, rows, SIZE, plist.GH, plist.GW)
+    o = orig[0]
+    t0 = torch.full((rows * SIZE,), BIG, device=orig.device)
+    return (*plist.gate_lists_super(mwin.win_bnd, dir_b, o),
+            so_combine(mwin.so_base, o), dir_b.T.contiguous(), t0)
+
+
+def parallel_route(device, ctx, launches):
+    """Phase 45: the parallel layer on a world of 1 (NCCL) on the card.
+    (1) rows: the 1M terrain's windows frame (phase 6's) through
+    render_image_sharded (K1 1) and render_frame_chunked with 4 chunks of
+    128 rows (K1 4), both bit-equal to render_image; a chunk's K1 alone
+    beside the frame's; a RuntimeError on chunk 1's first attempt retried
+    (2 attempts, the same image), a ValueError re-raised. (2) treelets:
+    build_sharded_tree of the terrain (S = 4, depth 22, leaf 4) timed;
+    intersect_ring on the 262,144 primaries (W1 4), each block's W1
+    against its plain version on every 256th lane with the t_max it was
+    given, exactly; 4096 pixels against the brute force (W2) as phase 40
+    holds W1, lanes with a zero direction component apart (no hit gained,
+    the lost ones counted); hit and t against W1 on the single depth-22
+    leaf-4 tree of the same triangles; the ring frame (W1 4) beside the
+    single tree's and phase 42a's, in turns, and each block's W1 alone.
+    (3) the emissive terrain's NEE path frame (spp 1, 2 bounces) with its
+    shadow rays through the ring (W1 16). (4) make_train_step on the
+    default mesh: two of phase 43a's W1 steps, under deterministic
+    algorithms their losses bit-equal to the one-device step's (the
+    default forward and backward are not bit-reproducible from call to
+    call: two one-device runs show it); one ShardedTree step (S = 4) on icosphere(2)
+    at 24x24 (43c's), loss finite and a nonzero vertex gradient. Adds the
+    paths' launches to `launches` as "parallel ..."; returns K1's and
+    W1's numbers for the kernels line."""
+    import torch.distributed as dist
+
+    from clpathtracer_tpu_torch.parallel.elastic import render_frame_chunked
+    from clpathtracer_tpu_torch.parallel.mesh import (default_mesh,
+                                                      render_image_sharded)
+    from clpathtracer_tpu_torch.parallel.multihost import init_distributed
+    from clpathtracer_tpu_torch.parallel.train import make_train_step
+    from clpathtracer_tpu_torch.parallel.treelet import (build_sharded_tree,
+                                                         intersect_ring)
+    card = card_line()
+    t_phase = time.perf_counter()
+    topo = init_distributed()
+    mesh = default_mesh()
+    say("parallel", f"process group {dist.get_backend()}, {topo}; mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}; card {card}")
+    scene, cam, orig, dirs = ctx["scene"], ctx["cam"], ctx["orig"], ctx["dirs"]
+    n = SIZE * SIZE
+    out = {"k1": {}, "w1": {}}
+    try:
+        # (1) rows
+        mwin = build_windows(scene, WIN_ROWS, device)
+        opts = RenderOptions(SIZE, SIZE)
+        ref = render_image(scene, cam, opts, mwin)
+        frames = {
+            "frame": lambda: render_image(scene, cam, opts, mwin),
+            "sharded": lambda: render_image_sharded(scene, cam, opts, mwin,
+                                                    mesh=mesh),
+            "chunked": lambda: render_frame_chunked(
+                scene, cam, opts, mwin, row_chunks=CHUNKS)[0]}
+        for name, k1 in (("sharded", 1), ("chunked", CHUNKS)):
+            reset_counts()
+            img = frames[name]()
+            torch.cuda.synchronize()
+            got = counts()
+            check_counts(f"parallel {name}", got, {"plist_super": k1})
+            launches[f"parallel {name}"] = got
+            bad = int((img != ref).sum())
+            say(f"parallel {name}", f"{SIZE}x{SIZE} terrain windows frame: "
+                f"launches {got}; against render_image (tolerance: exact) "
+                f"{bad} values differ")
+            if bad:
+                raise AssertionError(f"parallel {name}: the frame differs "
+                                     "from render_image's")
+        ms = dict(zip(frames, turns_ms(list(frames.values()), 10)))
+        rows = SIZE // CHUNKS
+        blk = slice(0, rows * SIZE)
+        full_args = k1_block_args(mwin, orig, dirs, SIZE)
+        blk_args = k1_block_args(mwin, orig[blk], dirs[blk], rows)
+        k1_ms = turns_ms([
+            lambda: plist.plist_super(*full_args, win_rows=WIN_ROWS),
+            lambda: plist.plist_super(*blk_args, win_rows=WIN_ROWS)], 10)
+        say("parallel rows", f"in turns, median of 10 (ms): render_image "
+            f"{ms['frame']:.4f}, render_image_sharded {ms['sharded']:.4f}, "
+            f"render_frame_chunked ({CHUNKS} chunks) {ms['chunked']:.4f}; K1 "
+            f"on the frame's {n // plist.GATE} gates {k1_ms[0]:.4f}, on a "
+            f"chunk's {rows * SIZE // plist.GATE} {k1_ms[1]:.4f}; card {card}")
+        out["k1"].update(frame_ms=ms["frame"], sharded_ms=ms["sharded"],
+                         chunked_ms=ms["chunked"], gates_ms=k1_ms[0],
+                         chunk_gates_ms=k1_ms[1])
+
+        def once(c, attempt):
+            if c == 1 and attempt == 0:
+                raise RuntimeError("injected launch failure")
+        with contextlib.redirect_stderr(io.StringIO()):
+            img, rep = render_frame_chunked(scene, cam, opts, mwin,
+                                            row_chunks=CHUNKS,
+                                            fault_hook=once)
+        if rep["attempts"][1] != 2 or rep["failed"] or not torch.equal(img,
+                                                                       ref):
+            raise AssertionError(f"parallel retry: {rep}")
+
+        def wrong(c, attempt):
+            raise ValueError("injected caller error")
+        try:
+            render_frame_chunked(scene, cam, opts, mwin, row_chunks=CHUNKS,
+                                 fault_hook=wrong)
+            raise AssertionError("parallel: a ValueError was not re-raised")
+        except ValueError:
+            pass
+        say("parallel chunked", f"a RuntimeError on chunk 1's first attempt:"
+            f" attempts {rep['attempts']}, the same image; a ValueError "
+            "re-raised on its first attempt")
+        del mwin, img, ref, full_args, blk_args
+
+        # (2) treelets at full width
+        tv = scene.tri_corners()
+        t = time.perf_counter()
+        stree = build_sharded_tree(tv, RING_BLOCKS, device=device,
+                                   **TREELET_KD)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        t = time.perf_counter()
+        single = sah.build_shadow_tree(tv, device=device, **TREELET_KD)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t
+        say("parallel treelets", f"build_sharded_tree of {scene.num_tris} "
+            f"triangles into {RING_BLOCKS} Morton blocks (depth "
+            f"{TREELET_KD['max_depth']}, leaf {TREELET_KD['leaf_size']}): "
+            f"{build_s:.3f} s (host, threads), {stree.node_table.shape[1]} "
+            f"node rows and {stree.tris.shape[1]} records a block (padded), "
+            f"{stree.nbytes()} device bytes; the single tree of the same "
+            f"settings {single_s:.3f} s, {single.num_nodes} nodes, "
+            f"{single.tris.shape[0]} records")
+        reset_counts()
+        rec = intersect_ring(stree, orig, dirs)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts("parallel ring wave", got, {"ray_walk": RING_BLOCKS})
+        launches["parallel ring wave"] = got
+        # each block's W1 against its plain version, with its t_max
+        lanes = torch.arange(0, n, RING_EVERY, device=device)
+        best = torch.full((n,), BIG, device=device)
+        t_maxes, w1_err = [], 0.0
+        for i in range(RING_BLOCKS):
+            b = stree.block(i)
+            t_maxes.append(best.clone())
+            r = traverse_fast(b, orig, dirs, t_max=best)
+            ref_b = traverse_fast_reference(b, orig[lanes], dirs[lanes],
+                                            t_max=best[lanes])
+            w1_err = max(w1_err, same_walk(f"parallel block {i}", r, lanes,
+                                           ref_b))
+            best = torch.where(r["hit"], r["t"], best)
+        if not torch.equal(best, rec["t"]):
+            raise AssertionError("parallel ring: the blocks' walks do not "
+                                 "give the ring's t")
+        # the brute force (W2) on 4096 pixels, as phase 40 holds W1
+        pix = torch.as_tensor(np.random.default_rng(7).choice(
+            n, ORACLE_PIXELS, replace=False), device=device)
+        recs = scene.tri_records
+        bf_hit, bf_t, _, _, _ = brute_force(recs, orig[pix], dirs[pix])
+        axial = (dirs[pix] == 0).any(dim=1)
+        hit = rec["hit"][pix]
+        off = hit != bf_hit
+        mismatch = float((off & ~axial).float().mean())
+        both = hit & bf_hit
+        t_ok = bool(torch.allclose(rec["t"][pix][both], bf_t[both],
+                                   rtol=1e-5, atol=1e-6))
+        zero = torch.nonzero((dirs == 0).any(dim=1)).squeeze(1)
+        z_hit = brute_force(recs, orig[zero], dirs[zero])[0]
+        lost = int((z_hit & ~rec["hit"][zero]).sum())
+        extra = int((~z_hit & rec["hit"][zero]).sum())
+        say("parallel ring oracle", f"{ORACLE_PIXELS} pixels against the "
+            f"brute force (W2) over {scene.num_tris} triangles: hit mismatch "
+            f"{mismatch} (< 1e-3) off the lanes with a zero direction "
+            f"component, {int((off & axial).sum())} more of "
+            f"{int(axial.sum())} on them; t rtol 1e-5 on {int(both.sum())} "
+            f"common hits: {t_ok}; all {zero.numel()} zero-direction lanes "
+            f"of the frame: {lost} hits of W2 lost (at most {zero.numel()}; "
+            f"phase 40's single tree {ZERO_DIR_LOST['primary']}), {extra} "
+            "gained (0)")
+        if mismatch >= 1e-3 or not t_ok or extra:
+            raise AssertionError("parallel ring: disagrees with the brute "
+                                 "force")
+        # against the single depth-22 leaf-4 tree
+        srec = traverse_fast(single, orig, dirs)
+        plain_lanes = ~(dirs == 0).any(dim=1)
+        h_bad = int(((srec["hit"] != rec["hit"]) & plain_lanes).sum())
+        common = srec["hit"] & rec["hit"] & plain_lanes
+        t_bad = int((srec["t"] != rec["t"])[common].sum())
+        tri_bad = int((srec["tri"] != rec["tri"])[common].sum())
+        n_plain = int(plain_lanes.sum())
+        say("parallel ring", f"against W1 on the single tree, {n_plain} "
+            "lanes without a zero direction component: "
+            f"hit mismatches {h_bad}, t mismatches {t_bad} and tri "
+            f"mismatches {tri_bad} (exact) on {int(common.sum())} common "
+            "hits")
+        if h_bad > 1e-3 * n or not torch.allclose(
+                srec["t"][common], rec["t"][common], rtol=1e-5, atol=1e-6):
+            raise AssertionError("parallel ring: differs from the single "
+                                 "tree's walk")
+        # the frames and each block's W1, in turns
+        r_frames = {
+            "ring": lambda: render_image(scene, cam, opts, tree=stree),
+            "single": lambda: render_image(scene, cam, opts, tree=single),
+            "42a": lambda: render_image(scene, cam, opts, tree=ctx["tree"])}
+        reset_counts()
+        img = r_frames["ring"]()
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts("parallel ring frame", got, {"ray_walk": RING_BLOCKS})
+        launches["parallel ring frame"] = got
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError("parallel ring frame: non-finite pixels")
+        f_ms = dict(zip(r_frames, turns_ms(list(r_frames.values()), 10)))
+        blocks = [stree.block(i) for i in range(RING_BLOCKS)]
+        b_ms = turns_ms([
+            (lambda b=b, tm=tm: ray_walk(b, orig, dirs, t_max=tm))
+            for b, tm in zip(blocks, t_maxes)]
+            + [lambda: ray_walk(single, orig, dirs)]
+            + [(lambda b=b: ray_walk(b, orig, dirs)) for b in blocks], 10)
+        free_ms = b_ms[RING_BLOCKS + 1:]
+        say("parallel ring frame", f"{SIZE}x{SIZE} normal terrain, in turns, "
+            f"median of 10 (ms): through the ring of {RING_BLOCKS} blocks "
+            f"{f_ms['ring']:.4f}, the single depth-22 leaf-4 tree "
+            f"{f_ms['single']:.4f}, phase 42a's packet tree "
+            f"{f_ms['42a']:.4f}; W1 alone on each block with its t_max "
+            f"{[round(x, 4) for x in b_ms[:RING_BLOCKS]]} (sum "
+            f"{sum(b_ms[:RING_BLOCKS]):.4f}), without it (t_max none) "
+            f"{[round(x, 4) for x in free_ms]} (sum {sum(free_ms):.4f}), on "
+            f"the single tree {b_ms[RING_BLOCKS]:.4f}; launches {got}; card "
+            f"{card}")
+        out["w1"].update(
+            build_s=build_s, single_build_s=single_s, frame_ms=f_ms["ring"],
+            single_frame_ms=f_ms["single"], packet_tree_frame_ms=f_ms["42a"],
+            block_ms=b_ms[:RING_BLOCKS], unbounded_block_ms=free_ms,
+            single_ms=b_ms[RING_BLOCKS], max_abs_err=w1_err,
+            plain_lanes=f"every {RING_EVERY}th", oracle_mismatch=mismatch,
+            zero_dir_lost=lost, single_tree_hit_mismatches=h_bad,
+            single_tree_t_mismatches=t_bad)
+        del rec, srec, single, img
+
+        # (3) the NEE path frame through the ring
+        terrain = ctx["terrain"]
+        if not (torch.equal(terrain.verts, scene.verts)
+                and torch.equal(terrain.faces, scene.faces)):
+            raise AssertionError("parallel: the emissive terrain's geometry "
+                                 "is not the terrain's")
+        lights = light_cdf(terrain)
+        p_opts = RenderOptions(SIZE, SIZE, mode="path", bounces=2, nee=True,
+                               background=0.0)
+        p_ms, _, got, p_img = run_frames(
+            lambda: render_image(terrain, cam, p_opts, tree=stree,
+                                 lights=lights,
+                                 generator=torch.Generator(device=device)
+                                 .manual_seed(0)), 1, 3)
+        # a frame's rings: the primaries, the bounce wave, two shadow waves
+        per_frame = 4 * RING_BLOCKS
+        check_counts("parallel ring path", got, {"ray_walk": 4 * per_frame})
+        launches["parallel ring path"] = {k: v // 4 for k, v in got.items()}
+        mean = float(p_img.mean())
+        if not bool(torch.isfinite(p_img).all()) or not 0.0 < mean <= 1.0:
+            raise AssertionError(f"parallel ring path: mean {mean}")
+        say("parallel ring path", f"{SIZE}x{SIZE} emissive terrain, spp 1, 2 "
+            f"bounces, NEE, the shadow rays through the ring: median "
+            f"{float(np.median(p_ms)):.4f} ms over 3 frames, image mean "
+            f"{mean:.6f}, launches a frame {launches['parallel ring path']}")
+        out["w1"]["path_frame_ms"] = float(np.median(p_ms))
+        del p_img
+
+        # (4) train steps: rows on the world of 1, and a ShardedTree step
+        tree, shadow = ctx["tree"], ctx["shadow"]
+        d_opts = RenderOptions(SIZE, SIZE, mode="path", bounces=2, nee=True,
+                               background=0.0, differentiable=True)
+        draws = path_draws(d_opts, torch.Generator(device=device)
+                           .manual_seed(0), device)
+        with torch.no_grad():
+            target = render_image(terrain.replace(albedo=terrain.albedo * 1.2),
+                                  cam, d_opts, tree=tree, shadow=shadow,
+                                  bounce=draws[1], light=draws[2])
+        # the default forward's light table (a CUDA cumsum) and backward
+        # (index_add_'s atomics) are not bit-reproducible from call to
+        # call: the two one-device runs show it; deterministic algorithms
+        # make the one-device and the mesh steps comparable bit for bit
+        losses = {}
+        for name, m, det in (("one device", None, False),
+                             ("one device again", None, False),
+                             ("one device, deterministic", None, True),
+                             ("mesh, deterministic", mesh, True)):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            try:
+                step, init = make_train_step(terrain, d_opts, adam_groups,
+                                             tree=tree, shadow=shadow, mesh=m)
+                state = init()
+                losses[name] = []
+                for _ in range(2):
+                    reset_counts()
+                    state, loss = step(state, cam, target, draws)
+                    torch.cuda.synchronize()
+                    losses[name].append(float(loss))
+            finally:
+                torch.use_deterministic_algorithms(False)
+            if m is not None:
+                check_counts("parallel train rows", counts(), {"ray_walk": 4})
+                launches["parallel train rows"] = counts()
+        del state, step
+        say("parallel train", "phase 43a's W1 steps (two each), losses: " +
+            "; ".join(f"{k} {v}" for k, v in losses.items()) +
+            " (the deterministic pair bit-equal)")
+        if losses["one device, deterministic"] != losses["mesh, deterministic"]:
+            raise AssertionError("parallel train: the mesh step's losses "
+                                 "differ from the one-device step's")
+        ico = icosphere(2, device=device)
+        i_tree = build_sharded_tree(ico.tri_corners(), RING_BLOCKS,
+                                    device=device)
+        i_opts = RenderOptions(DIFF_SMALL, DIFF_SMALL, differentiable=True)
+        i_cam = Camera.create(DIFF_POS, [0.0, 0.0, 1.0], device=device)
+        with torch.no_grad():
+            i_target = render_image(ico.with_verts(ico.verts * 1.01), i_cam,
+                                    i_opts, tree=i_tree)
+        step, init = make_train_step(
+            ico, i_opts, lambda p: torch.optim.SGD(p.values(), lr=1e-3),
+            tree=i_tree, mesh=mesh)
+        reset_counts()
+        state, loss = step(init({"verts": ico.verts}), i_cam, i_target)
+        torch.cuda.synchronize()
+        got = counts()
+        check_counts("parallel train ring", got, {"ray_walk": RING_BLOCKS})
+        launches["parallel train ring"] = got
+        g = state.params["verts"].grad
+        ok = (bool(np.isfinite(float(loss))) and bool(torch.isfinite(g).all())
+              and bool(g.abs().max() > 0))
+        say("parallel train ring", f"a ShardedTree step ({RING_BLOCKS} "
+            f"blocks) on icosphere(2) at {DIFF_SMALL}x{DIFF_SMALL}: loss "
+            f"{float(loss):.9g}, vertex gradient finite and nonzero: {ok}, "
+            f"launches {got}")
+        if not ok:
+            raise AssertionError("parallel train ring: no finite nonzero "
+                                 "vertex gradient")
+        out["w1"]["train_losses"] = losses
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    say("parallel", f"phase 45 done in {out['seconds']:.1f} s; card {card}")
     torch.cuda.empty_cache()
     return out
 

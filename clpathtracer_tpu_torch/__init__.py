@@ -43,7 +43,19 @@ per ray against the winner carries gradients to the camera, the vertices,
 normals and materials; RenderOptions.edge_aware adds the silhouette term
 (diff/edges.py). diff/fd.py checks gradients by finite differences,
 diff/checkpoint.py saves and restores a run, and parallel/train.py's
-make_train_step takes inverse-rendering steps on one device.
+make_train_step takes inverse-rendering steps, on one device or over a
+mesh.
+
+The parallel layer (parallel/): one process per device in a
+torch.distributed group (multihost.py: NCCL on the cards, gloo on the
+host; torchrun's variables or a world of 1) and a DeviceMesh with the
+axes ("rows", "scene"); mesh.py splits a frame's rows over the ranks
+(render_image_sharded, each block render_image's rows, all-gathered);
+elastic.py renders a frame as row chunks with retry; treelet.py splits
+the triangles into Morton treelets whose kd-trees a ring of ranks
+rotates (send/recv) while each rank walks its rays through the block it
+holds (W1 with the running best t as its bound), or one device walks
+in turn; a ShardedTree passed as tree= carries every wave.
 
 Model I/O and the command line: scene/objparser.py parses Wavefront OBJ
 and MTL files (the native scanner scene/native/obj_native.cpp, built with
@@ -53,7 +65,7 @@ and the JAX package's .kd.npz) and merges several; utils/png.py writes
 frames; core/physics.py steps the fly camera; render/debug.py draws the
 walks' step and tile-cost heatmaps; cli/main.py is the command line
 (python -m clpathtracer_tpu_torch.cli.main render|orbit|fly|view|info),
-on the CUDA device, or the host with --cpu.
+on the CUDA device, or the host with --cpu; --sharded over the ranks.
 """
 
 from clpathtracer_tpu_torch.core.camera import Camera

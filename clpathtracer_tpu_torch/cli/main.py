@@ -20,7 +20,11 @@ structures:
 Frames run on the first CUDA device; --cpu runs them on the host with
 the kernels' plain versions. Without --cpu and without CUDA the command
 exits with an error that names CUDA: it never carries on on the host on
-its own. main() returns the subcommand's Session (the loaded scene, its
+its own. --sharded renders through parallel/mesh.py::
+make_sharded_renderer over the process group (init_distributed: a world
+of 1 on its own, or one rank a card under `torchrun --nproc-per-node N`,
+each on the card LOCAL_RANK; gloo with --cpu); only rank 0 writes files.
+main() returns the subcommand's Session (the loaded scene, its
 structures and the outputs) to a Python caller.
 """
 
@@ -35,6 +39,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from clpathtracer_tpu_torch.accel.grid import build_grid, fog_likeness
 from clpathtracer_tpu_torch.accel.sah import build_shadow_tree
@@ -42,6 +47,9 @@ from clpathtracer_tpu_torch.cli.viewer import run_viewer
 from clpathtracer_tpu_torch.core.camera import Camera
 from clpathtracer_tpu_torch.core.physics import FlyCamera
 from clpathtracer_tpu_torch.ops import plist
+from clpathtracer_tpu_torch.parallel.mesh import (axis_size, default_mesh,
+                                                  make_sharded_renderer)
+from clpathtracer_tpu_torch.parallel.multihost import init_distributed
 from clpathtracer_tpu_torch.render.integrator import (RenderOptions,
                                                       light_cdf, render_image)
 from clpathtracer_tpu_torch.scene.cache import load_models
@@ -91,8 +99,10 @@ def _build_parser() -> argparse.ArgumentParser:
                              " code; here it renders)")
         sp.add_argument("--seed", type=int, default=0)
         sp.add_argument("--sharded", action="store_true",
-                        help="shard pixel rows over all local devices (not "
-                             "ported yet: raises)")
+                        help="split the frame's rows over the process "
+                             "group's ranks (a world of 1 without "
+                             "torchrun's variables; one card a rank); "
+                             "rank 0 writes the files")
         sp.add_argument("--cpu", action="store_true",
                         help="run on the host CPU (the kernels' plain "
                              "versions)")
@@ -162,6 +172,7 @@ class Session:
     outputs: list = dataclasses.field(default_factory=list)
     image: torch.Tensor = None
     stats: dict = None
+    renderer: object = None   # --sharded: make_sharded_renderer's render
 
 
 def _resolved_intersector(args, device) -> str:
@@ -249,8 +260,24 @@ def _opts(args, intersector):
 
 
 def _render(session, camera, generator):
+    if session.renderer is not None:
+        return session.renderer(session.scene, camera, generator=generator,
+                                **session.structures)
     return render_image(session.scene, camera, session.opts,
                         generator=generator, **session.structures)
+
+
+def _sharded_renderer(args, opts, device):
+    """The row-sharded renderer over the process group (formed here when
+    none is: a world of 1, or torchrun's), on a ("rows", "scene") mesh of
+    scene axis 1. Exits when the height does not split over the rows."""
+    init_distributed(device=device)
+    mesh = default_mesh(device_type=device.type)
+    n_rows = axis_size(mesh, "rows")
+    if opts.height % n_rows:
+        raise SystemExit(
+            f"--height must be divisible by {n_rows} with --sharded")
+    return make_sharded_renderer(opts, mesh)
 
 
 def _postprocess(img, args):
@@ -268,24 +295,26 @@ def _camera_from_args(args, device):
 def _start(args, device):
     """StageTimer, loaded Session with its options, and the path mode's
     generator (one torch.Generator on the render device seeded with
-    --seed, drawn from frame after frame)."""
-    if args.sharded:
-        raise NotImplementedError(
-            "--sharded: the port has no device mesh yet (ROADMAP queue 1 "
-            "item 6, the parallel layer); one card holds the frame whole")
+    --seed, drawn from frame after frame). --sharded: the Session's
+    renderer is make_sharded_renderer's (the view subcommand renders on
+    one device, as the JAX package's does)."""
     timer = StageTimer()
     s = _load(args, device, timer)
     s.opts = _opts(args, s.intersector)
+    if args.sharded and args.cmd != "view":
+        s.renderer = _sharded_renderer(args, s.opts, device)
     s.times = timer.times
     gen = torch.Generator(device=device).manual_seed(args.seed)
     return s, timer, gen
 
 
 def _write_frame(s, timer, img, args, out):
+    s.image = img
+    if s.renderer is not None and dist.get_rank() != 0:
+        return
     with timer.stage("png"):
         write_png(out, _postprocess(img, args))
     s.outputs.append(out)
-    s.image = img
     print(out)
 
 
@@ -386,12 +415,20 @@ def cmd_info(args, device):
 
 def main(argv=None):
     args = _build_parser().parse_args(argv)
+    sharded = getattr(args, "sharded", False) and args.cmd != "view"
+    index = int(os.environ.get("LOCAL_RANK", 0)) if sharded else 0
     try:
-        device = pick_device("cpu" if args.cpu else "gpu")
+        device = pick_device("cpu" if args.cpu else "gpu", 0 if args.cpu
+                             else index)
     except RuntimeError as e:   # no CUDA device: exit, naming it
         raise SystemExit(f"error: {e}") from e
-    return {"render": cmd_render, "orbit": cmd_orbit, "fly": cmd_fly,
-            "view": cmd_view, "info": cmd_info}[args.cmd](args, device)
+    formed = sharded and not dist.is_initialized()
+    try:
+        return {"render": cmd_render, "orbit": cmd_orbit, "fly": cmd_fly,
+                "view": cmd_view, "info": cmd_info}[args.cmd](args, device)
+    finally:   # a group this command formed ends with it
+        if formed and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

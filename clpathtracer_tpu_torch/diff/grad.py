@@ -22,6 +22,7 @@ import torch
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.ops.intersect import moller_trumbore
 from clpathtracer_tpu_torch.ops.traverse_fast import pack_quads
+from clpathtracer_tpu_torch.parallel.treelet import ShardedTree
 
 BIG = 3.4e38
 
@@ -40,7 +41,9 @@ def intersect_diff(scene, tree, orig, dir, opts=None, *, coherent=False,
     scattered with the active [N] mask (optional); the tree's records are
     packed from the detached vertices (its other tables stay as built, so
     the topology may lag a vertex update by one build, JAX :89-95), the
-    flat scan's from a scene of them.
+    flat scan's from a scene of them. A parallel/treelet.py::ShardedTree
+    gives the topology through its ring (intersect_ring) on its records as
+    built (JAX :60-65), and the re-resolve below on the live vertices.
 
     A miss re-resolves against triangle 0 on detached inputs, so that no
     value of its masked branch (an inverse determinant near 0) reaches
@@ -50,7 +53,7 @@ def intersect_diff(scene, tree, orig, dir, opts=None, *, coherent=False,
                                                           _intersect_tris)
     with torch.no_grad():
         frozen = scene.with_verts(scene.verts.detach())
-        if tree is not None:
+        if tree is not None and not isinstance(tree, ShardedTree):
             tree = tree.replace(tris=pack_quads(tree.tri_indices,
                                                 *frozen.tri_verts()))
         rec = _intersect_tris(frozen, None, orig.detach(), dir.detach(),

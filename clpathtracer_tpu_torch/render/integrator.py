@@ -36,6 +36,11 @@ intersect_scene routes each wave as the JAX package does
   sorted (intersector="packet") or W1;
 * a tree of another tri_block takes the walk in its ops/traverse.py::
   traverse form, W1 with the tree's block size;
+* a parallel/treelet.py::ShardedTree takes intersect_ring for every wave
+  that the windows do not carry, primary or bounce (W1 on each treelet
+  block, t_max the running best; the blocks rotate over the ranks of its
+  "scene" group), and carries NEE's shadow rays the same way (hit and t
+  below the bound, JAX render/integrator.py:477-481);
 * no structure: the flat scan (ops/intersect.py::flat_scan, kernel W2).
 
 Spheres merge after every route with a strict < (ops/intersect.py::
@@ -83,6 +88,7 @@ from clpathtracer_tpu_torch.ops.plist import (GH, GW, traverse_plist,
 from clpathtracer_tpu_torch.ops.sort import sort_rays
 from clpathtracer_tpu_torch.ops.traverse import traverse
 from clpathtracer_tpu_torch.ops.traverse_fast import traverse_fast
+from clpathtracer_tpu_torch.parallel.treelet import ShardedTree, intersect_ring
 from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
                                                    normal_color,
                                                    resolve_sphere_hits,
@@ -145,7 +151,7 @@ def _whole_gates(opts: RenderOptions) -> bool:
 
 
 def _check_supported(scene, opts: RenderOptions, mwin, tree=None,
-                     grid=None) -> None:
+                     grid=None, shadow=None) -> None:
     """Raise for options and structures that no route carries."""
     if opts.mode not in MODES:
         raise ValueError(f"unknown mode {opts.mode!r}")
@@ -169,6 +175,16 @@ def _check_supported(scene, opts: RenderOptions, mwin, tree=None,
             f"a {opts.width}x{opts.height} frame is not a multiple of "
             f"{GW}x{GH} gates: the windows route needs whole gates; pass its "
             "kd-tree as tree= (the rope walk takes such frames)")
+    if isinstance(tree, ShardedTree):
+        if opts.intersector == "packet" or opts.precision != "f32":
+            raise ValueError(
+                "a ShardedTree has the rope walk's route only (the JAX "
+                "package has no packet route for it): intersector "
+                f"{opts.intersector!r}, precision {opts.precision!r}")
+        if grid is not None or shadow is not None:
+            raise ValueError("a ShardedTree's ring carries every wave: a "
+                             "grid or shadow tree of the whole scene has no "
+                             "place beside it")
     if opts.edge_aware and opts.mode == "mirror":
         raise ValueError("edge_aware has a normal and a path form only "
                          "(the JAX package ignores it in mirror mode)")
@@ -212,6 +228,10 @@ def _intersect_tris(scene, mwin, orig, dir, opts, coherent, active,
                              gathered=opts.plist_schedule == "gathered",
                              kcap=opts.plist_kcap, grid=grid)
         return {k: rec[k] for k in _REC_KEYS}
+    if isinstance(tree, ShardedTree):
+        rec = intersect_ring(tree, orig, dir, active=active,
+                             max_iters=MAX_ITERS)
+        return {k: rec[k] for k in keys}
     if not coherent:
         if grid is not None and opts.bounce_grid:
             rec = traverse_grid(grid, orig, dir, active=active,
@@ -464,7 +484,8 @@ def _sample_light(scene, light_u, n: int, stride: int = 1, lights=None):
 def _occluded(scene, orig, dir, dist, opts: RenderOptions, active=None, *,
               mwin=None, tree=None, grid=None, shadow=None):
     """Shadow query: is anything closer than dist - SHADOW_EPS along dir?
-    (JAX render/integrator.py:466-557.) With a grid, its any-hit DDA (G1)
+    (JAX render/integrator.py:466-557.) With a ShardedTree, its ring's
+    nearest hit below the bound; with a grid, its any-hit DDA (G1)
     with that bound and the active mask; else with the shadow tree, or a
     tri_block 4 tree, the rope walk's any-hit form (W1) with that t_max;
     else a scattered wave through intersect_scene
@@ -474,7 +495,11 @@ def _occluded(scene, orig, dir, dist, opts: RenderOptions, active=None, *,
     last). The sorted-bundle route behind CLPT_SHADOW_BUNDLE is a measured
     negative and is not ported."""
     t_max = dist - SHADOW_EPS
-    if grid is not None:
+    if isinstance(tree, ShardedTree):
+        rec = intersect_ring(tree, orig, dir, active=active,
+                             max_iters=MAX_ITERS)
+        occ = rec["hit"] & (rec["t"] < t_max)
+    elif grid is not None:
         occ = traverse_grid(grid, orig, dir, t_max=t_max, active=active,
                             any_hit=True, max_iters=MAX_ITERS)["hit"]
     elif shadow is not None or (tree is not None and tree.tri_block == 4):
@@ -672,7 +697,7 @@ def render_rays(scene, mwin, orig, dir, opts: RenderOptions, bounce_u=None,
     ceil(N / stride), 3] light uniforms; lights: light_cdf(scene), computed
     when not given; jitter_px: the primaries' jitter bound; tree, grid,
     shadow: as render_image's. opts.edge_aware: shade_edgeaware."""
-    _check_supported(scene, opts, mwin, tree, grid)
+    _check_supported(scene, opts, mwin, tree, grid, shadow)
     kw = dict(tree=tree, grid=grid, shadow=shadow)
     if opts.mode == "path" and (bounce_u is None
                                 or (opts.nee and light_u is None)):
@@ -720,7 +745,10 @@ def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
     build_morton_windows, attach_so, attach_resolve); tree: its kd-tree
     (accel/sah.py::build_kd_tree; with SO tables, attach_so_tables, for
     intersector="packet"), the route of frames that are not whole gates
-    and, without windows, of every wave; grid: a uniform grid of the same
+    and, without windows, of every wave; or a parallel/treelet.py::
+    ShardedTree, whose ring (intersect_ring, W1 on each block) then
+    carries every wave the windows do not, shadow rays included; grid: a
+    uniform grid of the same
     triangles (accel/grid.py::build_grid), the counterpart of the JAX
     package's accel/sah.py::attach_grid, for NEE, the bounce waves
     (opts.bounce_grid) and the two-phase primaries (opts.plist_kcap);
@@ -740,23 +768,56 @@ def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
     opts.differentiable: backward() of the image reaches the camera's
     tensors, scene.verts, normals, albedo and emission (intersect_diff);
     opts.edge_aware adds the silhouette term (shade_edgeaware)."""
-    _check_supported(scene, opts, mwin, tree, grid)
+    return render_rows(scene, camera, opts, 0, opts.height, mwin, tree=tree,
+                       grid=grid, shadow=shadow, lights=lights,
+                       generator=generator, jitter=jitter, bounce=bounce,
+                       light=light)
+
+
+def render_rows(scene, camera, opts: RenderOptions, row0: int, rows: int,
+                mwin=None, *, tree=None, grid=None, shadow=None, lights=None,
+                generator: torch.Generator = None, jitter=None, bounce=None,
+                light=None, rays=None):
+    """Rows [row0, row0 + rows) of render_image's frame, [rows, W, 3]: the
+    full frame's rays (generate_rays of the H x W frame, or its jittered
+    samples) cut to those rows and shaded by render_rays under height
+    `rows`, the block of a row-sharded frame (parallel/mesh.py,
+    parallel/elastic.py). Structures and draws as render_image's, the
+    draws the block's own: path_draws of the options at height `rows`
+    (bounce [S, bounces, rows*W, 2], ...). The windows route takes the
+    block's whole gates (a row0 and rows that are multiples of GH give
+    exactly the full frame's gates); on a block of other rows it raises
+    without a tree, as render_image does at that height. Normal and
+    mirror blocks are bit-equal to the same rows of render_image's frame;
+    edge_aware's band wraps at the block's borders. rays: the full frame's
+    pixel-grid rays (generate_rays(cam_matrix(camera, H), W, H)) when the
+    caller already has them; jittered samples are generated here."""
+    if rows < 1 or row0 < 0 or row0 + rows > opts.height:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) of a frame of "
+                         f"{opts.height}")
+    block = dataclasses.replace(opts, height=rows)
+    _check_supported(scene, block, mwin, tree, grid, shadow)
     if opts.differentiable and lights is not None:
         raise ValueError("differentiable: lights= is a table of the scene as "
                          "it was built; the frame builds it from the live "
                          "scene: pass lights=None")
     device = camera.position.device
     cam_inv = cam_matrix(camera, opts.height)
-    shape = (opts.height, opts.width, 3)
+    width, height = opts.width, opts.height
+    lanes = slice(row0 * width, (row0 + rows) * width)
+    shape = (rows, width, 3)
+    kw = dict(tree=tree, grid=grid, shadow=shadow)
+    if rays is None and (opts.mode != "path" or opts.spp <= 1):
+        rays = generate_rays(cam_inv, width, height)
     if opts.mode != "path":
-        orig, dir = generate_rays(cam_inv, opts.width, opts.height)
-        return render_rays(scene, mwin, orig, dir, opts, tree=tree,
-                           grid=grid, shadow=shadow).reshape(shape)
+        orig, dir = rays
+        return render_rays(scene, mwin, orig[lanes], dir[lanes], block,
+                           **kw).reshape(shape)
     if bounce is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
-        jitter, bounce, light = path_draws(opts, generator, device)
-    n = opts.width * opts.height
+        jitter, bounce, light = path_draws(block, generator, device)
+    n = width * rows
     s = opts.spp if opts.spp > 1 else 1
     m = -(-n // opts.nee_light_stride)
     if tuple(bounce.shape) != (s, opts.bounces, n, 2) or (
@@ -774,15 +835,18 @@ def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
     samples = []
     for i in range(s):
         if s == 1:
-            o, d = generate_rays(cam_inv, opts.width, opts.height)
+            o, d = rays
         else:
-            o, d = generate_rays_jittered(cam_inv, opts.width, opts.height,
-                                          jitter[i:i + 1])
+            jit = jitter[i:i + 1]
+            if rows < height:   # the block's jitter in the full frame
+                jit = jit.new_zeros((1, width * height, 2))
+                jit[0, lanes] = jitter[i]
+            o, d = generate_rays_jittered(cam_inv, width, height, jit)
             o, d = o[0], d[0]
         samples.append(render_rays(
-            scene, mwin, o, d, opts, bounce[i],
-            jitter_px=JITTER_PX if s > 1 else 0.0, tree=tree, grid=grid,
+            scene, mwin, o[lanes], d[lanes], block, bounce[i],
+            jitter_px=JITTER_PX if s > 1 else 0.0,
             light_u=None if light is None else light[i], lights=lights,
-            shadow=shadow))
+            **kw))
     img = samples[0] if s == 1 else torch.stack(samples).mean(dim=0)
     return img.reshape(shape)

@@ -2,7 +2,8 @@
 albedo from a target image by gradient descent through the
 differentiable renderer (the port's counterpart of
 examples/inverse_rendering.py, on one device: the port's make_train_step;
-the JAX example's row-sharded mesh is ROADMAP queue 1 item 6).
+make_train_step(mesh=...) splits the rows over ranks, as
+examples/torch_silhouette_fitting.py does on a world of 1).
 
 Usage: python examples/torch_inverse_rendering.py [--cpu] [--steps N]
 

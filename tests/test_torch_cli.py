@@ -189,9 +189,18 @@ def test_orbit_and_fly_write_frames(cube_obj, tmp_path):
 
 
 def test_sharded_raises_naming_the_queue_item(cube_obj, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        main(["render", cube_obj, "--cpu", "--sharded", "--out",
-              str(tmp_path / "s.png")])
+    """--sharded no longer raises: on its own the command forms a world of
+    1 (gloo with --cpu), renders through make_sharded_renderer and writes
+    the unsharded command's PNG bytes, then ends the group it formed."""
+    out = {}
+    for flag in ((), ("--sharded",)):
+        out[flag] = str(tmp_path / f"s{len(flag)}.png")
+        s = main(["render", cube_obj, "--cpu", "--width", "32", "--height",
+                  "16", *flag, "--out", out[flag]])
+        assert (s.renderer is not None) == bool(flag)
+    with open(out[()], "rb") as a, open(out[("--sharded",)], "rb") as b:
+        assert a.read() == b.read()
+    assert not torch.distributed.is_initialized()
 
 
 def test_without_cuda_exits_naming_cuda(cube_obj, tmp_path):

@@ -37,6 +37,7 @@ from clpathtracer_tpu_torch.diff.grad import intersect_diff
 from clpathtracer_tpu_torch.ops import intersect as tisx
 from clpathtracer_tpu_torch.ops import traverse_fast as ttf
 from clpathtracer_tpu_torch.parallel.train import make_train_step
+from clpathtracer_tpu_torch.parallel.treelet import build_sharded_tree
 from clpathtracer_tpu_torch.render import integrator as tint
 from clpathtracer_tpu_torch.render.integrator import (RenderOptions,
                                                       render_image)
@@ -497,7 +498,7 @@ def test_checkpoint_roundtrip(tmp_path):
 def test_differentiable_options_raise(cornell):
     """What the differentiable route refuses: a light table built before
     the call, the bf16 preview, edge-aware mirror frames, training
-    without differentiable, and the mesh-sharded train step."""
+    without differentiable, and a treelet tree on the packet route."""
     ts, tree = cornell["ts"], cornell["tt"]
     cam = Camera.create(POS0, FWD, device=CPU)
     opts = RenderOptions(16, 16, mode="path", nee=True, differentiable=True)
@@ -512,8 +513,10 @@ def test_differentiable_options_raise(cornell):
     sgd = lambda p: torch.optim.SGD(p.values(), lr=0.1)  # noqa: E731
     with pytest.raises(ValueError, match="differentiable"):
         make_train_step(ts, RenderOptions(16, 16), sgd, tree=tree)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        make_train_step(ts, opts, sgd, tree=tree, mesh=object())
+    stree = build_sharded_tree(ts.tri_corners(), 2, device=CPU)
+    with pytest.raises(ValueError, match="ShardedTree"):
+        make_train_step(ts, dataclasses.replace(opts, intersector="packet"),
+                        sgd, tree=stree)
 
 
 @pytest.mark.parametrize("route", ["kd", "flat"])

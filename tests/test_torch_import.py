@@ -4,9 +4,10 @@ ops/packet_mxu.py; the window, gathered and sub-gate schedules; path
 tracing with NEE over the uniform grid, the two-phase primaries,
 differentiable rendering and a train step; the command line on an OBJ
 file, the reference .kd writer and its loader, the I/O and utility
-modules) with jax
+modules; the parallel layer on a world of 1: the row-sharded and chunked
+frames, the treelet ring) with jax
 and flax blocked, no file of it or of
-chip_smoke.py
+chip_smoke.py, the port's examples or tests/torch_dist_worker.py
 imports either or the JAX package, and its kernel loader fails clearly
 where there is no CUDA toolkit."""
 
@@ -130,6 +131,23 @@ with tempfile.TemporaryDirectory() as d, contextlib.redirect_stdout(
     assert cli.main(["info", os.path.join(d, "tri.kd"), "--cpu"]).stats[
         "num_tris"] == 1
 assert physics.FlyCamera(position=[0.0, 0.0, 0.0]).camera(device=cpu)
+# the parallel layer on a world of 1 (gloo): rows, chunks, the treelet ring
+import torch.distributed as dist
+from clpathtracer_tpu_torch.parallel import elastic, mesh, multihost, treelet
+assert multihost.init_distributed(device="cpu")["process_count"] == 1
+sharded = mesh.render_image_sharded(
+    scene, cam, RenderOptions(width=32, height=32), mwin,
+    mesh=mesh.default_mesh(device_type="cpu"))
+assert torch.equal(sharded, img)
+chunked, report = elastic.render_frame_chunked(
+    scene, cam, RenderOptions(width=32, height=32), mwin, tree=tree,
+    row_chunks=2)
+assert torch.equal(chunked, img) and report["failed"] == []
+stree = treelet.build_sharded_tree(scene.tri_corners(), 2, device=cpu)
+ring = treelet.intersect_ring(stree, *generate_rays(cam_matrix(cam, 32), 32,
+                                                    32))
+assert torch.equal(ring["hit"].reshape(32, 32), hit)
+dist.destroy_process_group()
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "flax",
                                    "clpathtracer_tpu")
                for m in sys.modules if sys.modules[m] is not None)
@@ -161,7 +179,8 @@ def test_no_file_imports_the_jax_package():
         r"^\s*(import|from)\s+clpathtracer_tpu(\.|\s|$)", re.M)
     files = sorted(f for f in PKG.rglob("*.py")
                    if "_build" not in f.relative_to(PKG).parts)
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py",
+              *sorted((ROOT / "examples").glob("torch_*.py"))]
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())
                  or re.search(r"^\s*(import|from)\s+(jax|flax)\b",
