@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py [--parent DIR]
 
---parent DIR: a tree of the parent commit (a git archive); its W1 and W2
-are built beside this tree's and timed in turns with them in phases 40-42.
+--parent DIR: a tree of the parent commit (a git archive); the kernels of
+its sources named in PARENT_STEMS (packet_v1.cu: K6a, K6b and K9) are
+built beside this tree's and timed in turns with them in phases 23 and 38
+(with ray_walk.cu and brute_force.cu there, W1 and W2 in phases 40-42).
 
 Phases, one line or more each (any failure raises and the exit code is
 not 0):
@@ -14,8 +16,11 @@ not 0):
 2. build: compile clpathtracer_tpu_torch/ops/csrc/*.cu with nvcc (sm_90a),
    one nvcc per source, all started together, and load the libraries;
    print the cluster launch shape of K1, K1', K1's kcap form, K2 (SO and
-   MT), K3 and K4 (blocks per cluster, threads, registers, shared memory,
-   the clusters resident at once: cudaOccupancyMaxActiveClusters) and G1's,
+   MT), K3, K4, K6b and K9 (blocks per cluster, threads, registers, shared
+   memory, the clusters resident at once: cudaOccupancyMaxActiveClusters;
+   K6b's and K9's at the terrain's tile 2048 and the soup's 512, and
+   their blocks and threads at four tiles held to the launch rule, a
+   tile that no launch takes refused) and G1's,
    W1's and W2's launch shapes (threads a block, threads a ray or rays a
    thread, blocks resident on an SM, registers, shared memory, spill
    bytes; W1's and W2's `-Xptxas -v` lines also go to the kernels line);
@@ -132,8 +137,10 @@ The v1 walks (kernels K6a, K6b and K9, ops/csrc/packet_v1.cu):
    exits for the bounds;
 23. K3 (its MT form with the AABB cull: the same records, the same rays,
    the same active mask on the mirror wave) and the three v1 kernels timed
-   in turns on each input, with node pops and windows (K6a: leaves) per
-   tile, mean and max, and each v1 kernel's bound.
+   in turns on each input (with --parent also the parent's K6b and K9, in
+   the same turns), with node pops and windows (K6a: leaves) per tile,
+   mean and max, and each v1 kernel's bound; K6b's and K9's heaviest
+   mirror tiles go to phase 38.
 
 The half-split walk K7 (ops/csrc/packet_stream2.cu) and the plane-form
 walk K8 (ops/csrc/packet_mxu.cu):
@@ -241,12 +248,14 @@ emissive_frac 0.001), windows at win_rows 8, camera [0, 0, -25] looking
 The tail of the two cluster walks:
 
 38. the heaviest unit of each mirror wave alone: K1''s heaviest bundle of
-   phase 10 and K3's (MT form) heaviest tile of phase 13, each cut out as a
-   one-unit call; its result equal to the full launch's lanes and stats
-   row and to its plain version's (exact); its time beside the full
-   launch's and beside its own FP32 bound (its pairs weighted by their
-   exits, counted by the plain run) on one SM and on the SMs of its
-   cluster, and what its warps issue.
+   phase 10, K3's (MT form) heaviest tile of phase 13 and K6b's and K9's
+   heaviest tiles of phase 21, each cut out as a one-unit call; its result
+   equal to the full launch's lanes and stats row and to its plain
+   version's (exact); its time beside the full launch's and beside its own
+   FP32 bound (its pairs weighted by their exits, counted by the plain
+   run) on one SM and on the SMs of its cluster, and what its warps issue;
+   with --parent, K6b's and K9's tiles alone on the parent's kernels and
+   on this tree's, in turns.
 
 The JAX package's default kd route (intersector "wavefront"): the per-ray
 rope walk W1 (ops/csrc/ray_walk.cu) and the brute force W2
@@ -405,9 +414,13 @@ count beside them (phase 43's as "diff step W1", "diff step K3" and
 phase 45's row frames, "parallel"; W1's entry phase 45's ring,
 "parallel"; W1's entry also holds phase 43's steps, peak memory
 and crop check, and W1's, W2's, K3's and G1's their gradient checks);
-the cluster walks (K1, K1', K1's kcap form, K2, K3, K4) also give their
-blocks per cluster ("cluster"), G1 its tail calls, W1 each wave of phase
-40.
+the cluster walks (K1, K1', K1's kcap form, K2, K3, K4, K6b, K9) also give
+their blocks per cluster ("cluster"), G1 its tail calls, W1 each
+wave of phase 40; K6b and K9 also "redesigned" (the schedule that
+replaced their first one), their heaviest mirror tile alone
+("mirror_tail") and, with
+--parent, the parent's times on the three calls ("parent_ms",
+"soup_parent_ms", "mirror_wave_parent_ms"; null without --parent).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -832,13 +845,17 @@ def k3_tail(args, kw, out, full_ms):
         shape=("packet_stream_shape", tile, int(kw["so"]), 0))
 
 
-def tail_phase(tails):
+def tail_phase(tails, parent=None):
     """Phase 38: the heaviest unit of each mirror wave alone (K1' bundle,
-    K3 MT tile), held exactly against the full launch's lanes and against
-    its plain version, timed beside the full launch and its own FP32
-    bound on one SM and on the SMs of its cluster."""
+    K3, K6b and K9 MT tiles), held exactly against the full launch's lanes
+    and against its plain version, timed beside the full launch and its own
+    FP32 bound on one SM and on the SMs of its cluster; a unit whose launch
+    entry `parent` holds is also timed on the parent's kernel, in turns.
+    Returns {name: {"alone_ms", "full_ms", "windows", "cluster",
+    "bound_one_sm_ms", "parent_alone_ms"}}."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sm_rate = PEAK_FP32_OPS / n_sm
+    res = {}
     for name, t in tails.items():
         out = t.call()
         torch.cuda.synchronize()
@@ -864,6 +881,15 @@ def tail_phase(tails):
             f"ms on one SM ({n_sm} on the card), {one_sm / c:.4f} ms on the "
             f"{c} SMs of its cluster; warp-issued {wops} ({wops / ops:.3f}x):"
             f" {wops / sm_rate * 1e3:.4f} ms on one SM")
+        res[name] = {"alone_ms": ms, "full_ms": t.full_ms,
+                     "windows": int(t.full[2][0, 1]), "cluster": c,
+                     "bound_one_sm_ms": one_sm, "parent_alone_ms": None}
+        if parent and getattr(t, "entry", None) in parent:
+            p_ms, c_ms = parent_turns(parent, t.call, 3)
+            res[name]["parent_alone_ms"] = p_ms
+            say("tail", f"{name}, {t.unit} alone: the parent's kernel / this "
+                f"tree's, in turns: {p_ms:.4f} / {c_ms:.4f} ms")
+    return res
 
 
 def tile_stats_line(stats, tile):
@@ -879,8 +905,8 @@ def main():
     ap = argparse.ArgumentParser(description="Run the port's paths once on "
                                  "one CUDA card and check them.")
     ap.add_argument("--parent", default=None, help="a tree of the parent "
-                    "commit (git archive): its W1 and W2 are built and timed "
-                    "in turns beside this tree's in phases 40-42")
+                    "commit (git archive): its kernels of PARENT_STEMS are "
+                    "built and timed in turns beside this tree's")
     args = ap.parse_args()
     # 1. device
     if not torch.cuda.is_available():
@@ -911,6 +937,7 @@ def main():
             f"{sh['static_smem']} + {sh['dynamic_smem']} bytes of shared "
             f"memory a block, at most {sh['max_active_clusters']} clusters "
             "resident")
+    v1_shapes()
     walk_shapes = {}
     for name, g, kernel in (
             ("traverse_grid", grid_shape(), None),
@@ -964,15 +991,47 @@ def cluster_shapes():
                                              WIN_ROWS),
             "packet_stream": cluster_shape("packet_stream_shape", tile, 1, 0),
             "packet_stream_bf16": cluster_shape("packet_stream_shape", tile,
-                                                0, 1)}
+                                                0, 1),
+            "packet_legacy": cluster_shape("packet_v1_shape", tile, 1),
+            "packet_wide": cluster_shape("packet_v1_shape", tile, 2),
+            "packet_legacy soup": cluster_shape("packet_v1_shape",
+                                                SOUP_KD["tile"], 1),
+            "packet_wide soup": cluster_shape("packet_v1_shape",
+                                              SOUP_KD["tile"], 2)}
 
 
-PARENT_STEMS = ("ray_walk", "brute_force")
+def v1_shapes():
+    """Phase 2's check of K6b's and K9's launch rule on the card
+    (packet_v1_shape): a tile of a multiple of 256 rays, as the main
+    path's 2048 and 512, runs on a cluster of 8 blocks with 2 threads a
+    lane, a smaller tile on one block with one thread a lane, and a tile
+    that no launch takes (544) is refused."""
+    seen = []
+    for tile, want in ((224, (1, 224)), (512, (8, 128)), (2048, (8, 512)),
+                       (4096, (8, 1024))):
+        for engine in (1, 2):
+            sh = cluster_shape("packet_v1_shape", tile, engine)
+            if (sh["cluster"], sh["threads"]) != want:
+                raise AssertionError(f"v1 shape: tile {tile} engine {engine}"
+                                     f": {sh}, not {want}")
+        seen.append(f"{tile}: {want[0]} x {want[1]}")
+    try:
+        cluster_shape("packet_v1_shape", 544, 1)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("v1 shape: tile 544 was not refused")
+    say("build", "K6b/K9 launches (tile: blocks a tile x threads a block): "
+        f"{', '.join(seen)}; tile 544 refused: {refused}")
+
+
+# the parent tree's sources whose kernels --parent builds and times
+PARENT_STEMS = ("packet_v1",)
 
 
 def parent_library(parent_dir):
-    """W1's and W2's launch entries of the parent tree `parent_dir` (a git
-    archive): its ops/csrc sources built with this tree's nvcc flags into
+    """The launch entries of the PARENT_STEMS sources of the parent tree
+    `parent_dir` (a git archive): built with this tree's nvcc flags into
     the git-ignored build directory, bound with the parent's own
     signatures. Returns {entry: function}, each called with this tree's
     arguments (a W1 without the persistent grid's ray counter is called
@@ -1369,14 +1428,17 @@ def smoke(device, parent=None):
     k3, ctx = kd_route(device, scene, soup, cam, scam, launches)
     k4 = preview_route(ctx, launches)
     k5 = queue_engine(ctx, launches)
-    v1 = v1_engines(ctx, launches)
+    v1 = v1_engines(ctx, launches, parent)
     k7_k8 = stream2_mxu_engines(ctx, launches)
     sched = plist_schedules(device, scene, soup, cam, scam, launches)
     del soup
     grid_entries = nee_grid(device, scene, launches)
     tails["K3 MT"] = ctx["tail"]
-    tail_phase(tails)
-    walk_entries = walk_route(device, ctx, launches, parent)
+    tails.update(ctx["v1_tails"])
+    tail_res = tail_phase(tails, parent)
+    walk_entries = walk_route(
+        device, ctx, launches,
+        parent if parent and "ray_walk_launch" in parent else None)
     diff = diff_route(device, ctx, launches)
     cli = cli_route(device, launches)
     par = parallel_route(device, ctx, launches)
@@ -1415,6 +1477,8 @@ def smoke(device, parent=None):
     by_name["ray_walk"]["diff_steps"] = diff["steps"]
     by_name["ray_walk"]["diff_crop"] = diff["crop"]
     by_name["ray_walk"]["diff_peak_bytes"] = diff["peak_bytes"]
+    by_name["packet_legacy"]["mirror_tail"] = tail_res["K6b MT"]
+    by_name["packet_wide"]["mirror_tail"] = tail_res["K9 MT"]
     by_name["plist_super"]["cli_seconds"] = cli
     by_name["plist_super"]["parallel"] = par["k1"]
     by_name["ray_walk"]["parallel"] = dict(par["w1"],
@@ -1911,18 +1975,21 @@ def chain_tables(depth, wide_depth, device):
 
 
 def stack_guard(recs, orig_t, dir_t, tile):
-    """Phase 20's first part: the v1 kernels' stack guard on the card."""
+    """Phase 20's first part: the v1 kernels' stack guard on the card, on
+    both launch forms of K6b and K9 (`tile`: a cluster a tile; 32: one
+    block)."""
     ok = chain_tables(100, 10, recs.device)
     bad = chain_tables(200, 30, recs.device)
-    for engine, pops in (("K6b", 201), ("K9", 81)):
+    for engine, pops, t in (("K6b", 201, tile), ("K9", 81, tile),
+                            ("K6b", 201, 32), ("K9", 81, 32)):
         if engine == "K6b":
-            def call(tabs):
+            def call(tabs, t=t):
                 return packet.packet_legacy(tabs[0], recs, orig_t, dir_t,
-                                            tile=tile, resident=False)
+                                            tile=t, resident=False)
         else:
-            def call(tabs):
+            def call(tabs, t=t):
                 return packet.packet_wide(tabs[1], recs, orig_t, dir_t,
-                                          tile=tile)
+                                          tile=t)
         st = call(ok)[2]
         if not (bool((st[:, 0] == pops).all())
                 and bool((st[:, 1] == 0).all())):
@@ -1933,8 +2000,8 @@ def stack_guard(recs, orig_t, dir_t, tile):
         except RuntimeError as e:
             if "overflowed" not in str(e):
                 raise
-            say("stack guard", f"{engine}: {pops} pops inside the stack; "
-                f"the deeper chain raised: {e}")
+            say("stack guard", f"{engine} at tile {t}: {pops} pops inside the"
+                f" stack; the deeper chain raised: {e}")
         else:
             raise AssertionError(f"stack guard: {engine} did not raise")
         torch.cuda.synchronize()
@@ -1966,9 +2033,18 @@ def v1_line(stats, tile, lane1):
             f"(max {int(st[:, 1].max())}); {stats.shape[0]} tiles of {tile}")
 
 
-def v1_engines(ctx, launches):
+# K6b's and K9's schedule on the card, for the kernels line (blocks a
+# cluster: the entry's "cluster", read from packet_v1_shape)
+V1_SCHEDULE = ("a cluster a tile of 256k rays, 2 threads a lane, a ring of "
+               "4 windows")
+
+
+def v1_engines(ctx, launches, parent=None):
     """Phases 20-23: the v1 walks K6a, K6b and K9, beside K3. Returns
-    their kernels entries."""
+    their kernels entries; K6b's and K9's heaviest mirror tiles go to
+    ctx["v1_tails"] for phase 38. parent: the parent tree's packet_v1
+    entry (parent_library), whose K6b and K9 are timed in turns beside
+    this tree's."""
     n = SIZE * SIZE
     t_tile, s_tile = TERRAIN_KD["tile"], SOUP_KD["tile"]
     tree, stree = ctx["tree"], ctx["stree"]
@@ -2059,11 +2135,13 @@ def v1_engines(ctx, launches):
 
     # 22. each kernel against its plain version; 23. beside K3, in turns
     res, err = {}, {k: 0.0 for k in kernels}
+    ctx["v1_tails"] = {}
     for name, (tr, o, d, shape, tile, act) in calls.items():
         every = 16 if name == "mirror wave" else EVERY
         k3_args, k3_kw, _ = packet.stream_kernel_args(
             tr, o, d, shape, tile, act, strips=False, frustum=False)
         fns = [lambda: packet.packet_stream(*k3_args, **k3_kw)]
+        redesigned = []   # the parent's K6b and K9, timed in the same turns
         for kernel in kernels:
             args, kw, _, fn, plain = v1_call(name, kernel)
             out = outs[name, kernel]
@@ -2074,22 +2152,60 @@ def v1_engines(ctx, launches):
             bnd, by, tests, ops = v1_bound(args, out, tile, tally, ref_stats,
                                            kernel == "K6a")
             res[name, kernel] = dict(plain_ms=plain_ms, bound=bnd, by=by,
-                                     tests=tests, ops=ops)
+                                     tests=tests, ops=ops, parent_ms=None)
             fns.append(lambda args=args, kw=kw, fn=fn: fn(*args, **kw))
-        ms = turns_ms(fns, 2 if name == "mirror wave" else 5)
+            if kernel != "K6a":
+                redesigned.append((kernel, fns[-1]))
+        if parent:
+            for kernel, call in redesigned:
+                def with_parent(call=call):
+                    with swapped(parent):
+                        call()
+                fns.append(with_parent)
+        ms = turns_ms(fns, 3 if name == "mirror wave" else 5)
         k3_out = packet.packet_stream(*k3_args, **k3_kw)
         torch.cuda.synchronize()
         say(f"v1 vs K3 {name}", f"K3 (MT, AABB cull) {ms[0]:.4f} ms; "
             + tile_stats_line(k3_out[2], tile))
+        if parent:
+            for (kernel, _), pms in zip(redesigned, ms[1 + len(kernels):]):
+                res[name, kernel]["parent_ms"] = pms
         for (kernel, (_, _, lane1)), kms in zip(kernels.items(), ms[1:]):
             r = res[name, kernel]
             r.update(ms=kms, k3_ms=ms[0])
+            was = ("" if r["parent_ms"] is None else
+                   f"; the parent's {r['parent_ms']:.4f} ms in the same turns"
+                   f" ({kms / r['parent_ms']:.3f} x)")
             say(f"v1 vs K3 {name}", f"{kernel} {kms:.4f} ms ({kms / ms[0]:.3f}"
-                f" x K3), plain {r['plain_ms']:.1f} ms on every {every}th "
-                f"tile, bound {r['bound']:.4f} ms ({r['by']}; {r['tests']} MT "
+                f" x K3{was}), plain {r['plain_ms']:.1f} ms on every {every}th"
+                f" tile, bound {r['bound']:.4f} ms ({r['by']}; {r['tests']} MT "
                 f"pairs, {r['ops'] / max(r['tests'], 1):.3f} FP32 operations "
                 f"each by early exit); " + v1_line(outs[name, kernel][2],
                                                   tile, lane1))
+        if name == "mirror wave":
+            for kernel in ("K6b", "K9"):
+                args, kw, _, fn, plain = v1_call(name, kernel)
+                ctx["v1_tails"][f"{kernel} MT"] = v1_tail(
+                    args, kw, outs[name, kernel], res[name, kernel]["ms"],
+                    fn, plain, 1 if kernel == "K6b" else 2)
+    # 22, K6b's and K9's other launch forms on the terrain primaries: tile
+    # 4096 (a cluster of blocks of 1024 threads) and 128 (one block a tile)
+    for tile, every in ((4096, 16), (128, 256)):
+        for kernel in ("K6b", "K9"):
+            args, _ = packet.v1_kernel_args(tree, ctx["orig"], ctx["dirs"],
+                                            (SIZE, SIZE), tile,
+                                            kernels[kernel][0])
+            kw = {"tile": tile}
+            fn, plain = packet.packet_wide, packet.packet_wide_reference
+            if kernel == "K6b":
+                kw["resident"] = False
+                fn, plain = (packet.packet_legacy,
+                             packet.packet_legacy_reference)
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            e = compare_v1(f"{kernel} terrain tile {tile}", out, args, kw,
+                           plain, every, None)[0]
+            err[kernel] = max(err[kernel], e)
     entries = []
     for kernel, (mode, cname, _) in kernels.items():
         t, s_, m = (res[c, kernel] for c in calls)
@@ -2109,8 +2225,37 @@ def v1_engines(ctx, launches):
             "k3_ms": t["k3_ms"], "soup_ms": s_["ms"],
             "soup_k3_ms": s_["k3_ms"], "soup_bound_ms": s_["bound"],
             "mirror_wave_ms": m["ms"], "mirror_wave_k3_ms": m["k3_ms"],
-            "mirror_wave_bound_ms": m["bound"]})
+            "mirror_wave_bound_ms": m["bound"],
+            **({} if kernel == "K6a" else {
+                "redesigned": V1_SCHEDULE, "parent_ms": t["parent_ms"],
+                "soup_parent_ms": s_["parent_ms"],
+                "mirror_wave_parent_ms": m["parent_ms"]})})
     return entries
+
+
+def v1_tail(args, kw, out, full_ms, fn, plain, engine):
+    """Phase 38's K6b or K9 unit: the heaviest tile (most windows
+    streamed) of the call (args, kw, out), cut out as a one-tile call, with
+    the full launch's outputs for its lanes and its stats row. Its plain
+    run fills a 7-lane tally as mt_pairs does (the v1 plain versions count
+    the pairs tested in a lane before it)."""
+    tile = kw["tile"]
+    ti = int(torch.argmax(out[2][:, 1]))
+    lanes = slice(ti * tile, (ti + 1) * tile)
+    one = (*args[:2], *(a[:, lanes].contiguous() for a in args[2:]))
+
+    def plain_tally(tally):
+        t8 = torch.zeros(8, dtype=torch.int64, device=tally.device)
+        ref = plain(*one, tally=t8, **kw)
+        tally.copy_(t8[1:])
+        return ref
+    return SimpleNamespace(
+        unit=f"tile {ti}", n_units=out[2].shape[0], full_ms=full_ms,
+        full=(out[0][lanes].clone(), out[1][lanes].clone(),
+              out[2][ti:ti + 1].clone()),
+        call=lambda: fn(*one, **kw), plain=plain_tally,
+        tests=lambda st: int(st[:, 1].sum()) * 128 * tile,
+        shape=("packet_v1_shape", tile, engine), entry="packet_v1_launch")
 
 
 def compare_v1(name, kernel_out, args, kw, plain, every, tally):

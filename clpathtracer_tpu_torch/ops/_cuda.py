@@ -115,6 +115,8 @@ SIGNATURES = {
         # table, recs, orig_t, dir_t, best_t, best_slot, stats, overflow,
         # n_rays, tile, n_recs, engine, stream
         "packet_v1_launch": [_P] * 8 + [_I] * 4 + [_P],
+        # tile, engine, out [6] i32
+        "packet_v1_shape": [_I, _I, _P],
     },
 }
 

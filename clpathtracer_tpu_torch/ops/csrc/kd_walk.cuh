@@ -10,9 +10,10 @@
 // A walk is block-uniform: every thread of the block computes the same
 // pops, interval tests and window decisions from the same reads; thread 0
 // writes the stack in shared memory and barriers order its reads and
-// writes. The packet bounds and t_upper are block reductions (K3/K4 run
-// the walk on every block of a cluster and reduce them over the cluster
-// instead: packet_stream.cu, cluster.cuh).
+// writes. The packet bounds and t_upper are block reductions (K3/K4, K6b
+// and K9 run the walk on every block of a cluster and reduce them over the
+// cluster instead: cluster_bounds, cluster_t_upper; packet_stream.cu,
+// packet_v1.cu, cluster.cuh).
 //
 //   packet bounds: per axis the origin range and the clipped inverse-
 //     direction range over the tile's active lanes
@@ -26,10 +27,15 @@
 //     the window's box interval;
 //   dense_window: the dense test of one staged window of 128 records
 //     against a thread's rays, merged with the TPU kernels' tie rule;
+//   precedes, dense_split: the window's tie rule as a total order, and
+//     dense_window with kS threads a lane whose winners merge by it (K3,
+//     K6b, K9);
 //   stream_windows: a run of windows on the clamped grid, double-buffered
 //     with cp.async, each tested by dense_window;
 //   load_rays, push_root, push_children, store_tile: the frame of a
-//     walk around them;
+//     walk around them (kS threads a lane, kC blocks a tile);
+//   cluster_bounds, cluster_t_upper: the packet bounds and t_upper
+//     reduced over a cluster (cluster.cuh::cluster_reduce);
 //   cp_async16, cp_async4, cp_async_commit, cp_async_wait, wait_pending:
 //     cp.async copies into shared memory and their commit groups.
 //
@@ -41,8 +47,10 @@
 
 #pragma once
 
+#include <cmath>
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "pair_tests.cuh"
 
 namespace clpt {
@@ -148,10 +156,11 @@ __device__ __forceinline__ void half_lanes(const bool* on, int tile,
              (((int)(threadIdx.x + k * blockDim.x) >= tile / 2) == right);
 }
 
-// This thread's rays of tile `base` (lane tid + k * blockDim.x) from the
+// This thread's rays of the block's lanes from `base` (lane tid / kS +
+// k * blockDim.x / kS: kS neighbouring threads share a lane) from the
 // [3, n_rays] tile-major arrays, their active flags (all active when act is
 // null), and empty winners.
-template <int RPT>
+template <int RPT, int kS = 1>
 __device__ __forceinline__ void load_rays(const float* orig_t,
                                           const float* dir_t,
                                           const float* act, int n_rays,
@@ -159,7 +168,7 @@ __device__ __forceinline__ void load_rays(const float* orig_t,
                                           float* bt, int* bs) {
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
-    const size_t g = base + threadIdx.x + k * blockDim.x;
+    const size_t g = base + threadIdx.x / kS + k * (blockDim.x / kS);
     ray[k].ox = orig_t[g];
     ray[k].oy = orig_t[n_rays + g];
     ray[k].oz = orig_t[2 * (size_t)n_rays + g];
@@ -172,21 +181,25 @@ __device__ __forceinline__ void load_rays(const float* orig_t,
   }
 }
 
-// The winners (slot -1 on a miss) and the tile's stats row (thread 0).
-template <int RPT>
+// The winners (slot -1 on a miss; the first thread of each lane's kS
+// writes) and the tile's stats row (thread 0 of the first of the tile's
+// kC blocks: 1-D clusters of consecutive blocks).
+template <int RPT, int kS = 1, int kC = 1>
 __device__ __forceinline__ void store_tile(const float* bt, const int* bs,
                                            size_t base, float* best_t,
                                            int* best_slot, int* stats,
                                            int nv, int nl, int n_act, int nc,
                                            int lane4) {
+  if (threadIdx.x % kS == 0) {
 #pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const size_t g = base + threadIdx.x + k * blockDim.x;
-    best_t[g] = bt[k];
-    best_slot[g] = bt[k] < kBig ? bs[k] : -1;
+    for (int k = 0; k < RPT; ++k) {
+      const size_t g = base + threadIdx.x / kS + k * (blockDim.x / kS);
+      best_t[g] = bt[k];
+      best_slot[g] = bt[k] < kBig ? bs[k] : -1;
+    }
   }
-  if (threadIdx.x == 0) {
-    int* st = stats + 5 * (size_t)blockIdx.x;
+  if (threadIdx.x == 0 && blockIdx.x % kC == 0) {
+    int* st = stats + 5 * (size_t)(blockIdx.x / kC);
     st[0] = nv;
     st[1] = nl;
     st[2] = n_act;
@@ -234,6 +247,69 @@ __device__ __forceinline__ int packet_bounds(const Ray* ray, const bool* on,
     }
   }
   return block_sum(n_on, ired);
+}
+
+// The packet bounds of the whole tile over its active lanes
+// (_packet_bounds_masked), reduced over the cluster, into B (thread 0
+// writes); returns the tile's active lanes, counted on the threads where
+// `counts` (one thread of each lane's kS). Its last barrier publishes B.
+template <int RPT>
+__device__ __forceinline__ int cluster_bounds(const Ray* ray, const bool* on,
+                                              bool counts, Bounds& B,
+                                              ClusterSlots<12>& sb,
+                                              int& par_b, ClusterSlots<1>& s1,
+                                              int& par1) {
+  float v[12];  // per axis: ol, -oh, il, -ih; all reduced by min
+  float n_on = 0.f;  // the lanes of this thread that `counts` (one share)
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) n_on += counts && on[k] ? 1.f : 0.f;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    float ol = kBig, oh = -kBig, il = kInvBig, ih = -kInvBig;
+#pragma unroll
+    for (int k = 0; k < RPT; ++k) {
+      if (!on[k]) continue;
+      const float o = ax == 0 ? ray[k].ox : ax == 1 ? ray[k].oy : ray[k].oz;
+      const float d = ax == 0 ? ray[k].dx : ax == 1 ? ray[k].dy : ray[k].dz;
+      const float inv = clip_inv(d);
+      ol = fminf(ol, o);
+      oh = fmaxf(oh, o);
+      il = fminf(il, inv);
+      ih = fmaxf(ih, inv);
+    }
+    v[ax] = ol;
+    v[3 + ax] = -oh;
+    v[6 + ax] = il;
+    v[9 + ax] = -ih;
+  }
+  cluster_reduce<12>(v, sb, par_b, MinOp(), INFINITY);
+  if (threadIdx.x == 0) {
+    for (int ax = 0; ax < 3; ++ax) {
+      B.ol[ax] = v[ax];
+      B.oh[ax] = -v[3 + ax];
+      B.il[ax] = v[6 + ax];
+      B.ih[ax] = -v[9 + ax];
+    }
+  }
+  cluster_reduce<1>(&n_on, s1, par1, SumOp(), 0.f);
+  return (int)n_on;
+}
+
+// t_upper: the largest best t over the tile's active lanes (-kBig when
+// none), reduced over the cluster. Its cluster barrier also orders every
+// thread's reads of the block's shared memory before it against the
+// writes after it.
+template <int RPT>
+__device__ __forceinline__ float cluster_t_upper(const float* bt,
+                                                 const bool* on,
+                                                 ClusterSlots<1>& s1,
+                                                 int& par1) {
+  float m = -kBig;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k)
+    if (on[k]) m = fmaxf(m, bt[k]);
+  cluster_reduce<1>(&m, s1, par1, MaxOp(), -INFINITY);
+  return m;
 }
 
 // min and max of (b - ol) * il, (b - ol) * ih, (b - oh) * il, (b - oh) * ih
@@ -386,6 +462,69 @@ __device__ __forceinline__ void dense_window(const float4* win, const Ray* ray,
       }
     }
     if (ct < kBig && ct <= bt[k]) {  // the later window wins ties
+      bt[k] = ct;
+      bs[k] = (int)(rec0 + cr);
+    }
+  }
+}
+
+// Whether (t2, r2) precedes (t, r) in a window's tie rule: the least t,
+// among equal t the lowest row of 8 records, within it the highest record.
+__device__ __forceinline__ bool precedes(float t2, int r2, float t, int r) {
+  const int row2 = r2 >> 3, row = r >> 3;
+  return t2 < t || (t2 == t && (row2 < row || (row2 == row && r2 > r)));
+}
+
+// dense_window with kS threads a lane: the kS threads of a lane are
+// neighbours in a warp, and share h tests records h, h + kS, ... of the
+// window (neighbouring records for neighbouring threads: distinct
+// shared-memory banks). Each share's winner under the window's rule is the
+// rule's least of its records, so the shares merge by `precedes` (warp
+// shuffles) into the window's winner, which then meets the earlier
+// windows' as in dense_window (the later window wins at equal t); every
+// thread of the lane holds the result. Records staged kUsedF4 float4s
+// apart. lane0: the block's lane of this thread's first ray; lanes k * lpt
+// apart; a lane whose gate bit (gates >> (lane / kGate)) is clear is
+// skipped.
+template <int RPT, int kS, bool kSO, bool kBF16, int kGate>
+__device__ __forceinline__ void dense_split(const float4* win, const Ray* ray,
+                                            const bool* on, unsigned gates,
+                                            int lane0, int lpt,
+                                            long long rec0, float* bt,
+                                            int* bs) {
+  const int h = threadIdx.x % kS;
+#pragma unroll
+  for (int k = 0; k < RPT; ++k) {
+    const bool test =
+        on[k] && ((gates >> ((lane0 + k * lpt) / kGate)) & 1u);
+    float ct = kBig;
+    int cr = -1;  // record of ct within the window
+    if (test) {
+      for (int r = h; r < kWinRecs; r += kS) {
+        const float4 p = win[r * kUsedF4];
+        const float4 q = win[r * kUsedF4 + 1];
+        const float4 w = win[r * kUsedF4 + 2];
+        float t;
+        const bool hit = kSO     ? so_hit(ray[k], p, q, w, &t)
+                         : kBF16 ? mt_hit_bf16(ray[k], p, q, w, &t)
+                                 : mt_hit(ray[k], p, q, w, &t);
+        if (hit && t < kBig &&
+            (t < ct || (t == ct && (r >> 3) == (cr >> 3)))) {
+          ct = t;
+          cr = r;
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < kS; off <<= 1) {
+      const float t2 = __shfl_xor_sync(0xffffffffu, ct, off);
+      const int r2 = __shfl_xor_sync(0xffffffffu, cr, off);
+      if (precedes(t2, r2, ct, cr)) {
+        ct = t2;
+        cr = r2;
+      }
+    }
+    if (test && ct < kBig && ct <= bt[k]) {  // the later window wins ties
       bt[k] = ct;
       bs[k] = (int)(rec0 + cr);
     }

@@ -135,66 +135,6 @@ __device__ bool survives(const Args& a, const Bounds& B, int tile_i, int w,
   return keep;
 }
 
-// The packet bounds of the whole tile over its active lanes
-// (_packet_bounds_masked), reduced over the cluster, into B (thread 0
-// writes); returns the tile's active lanes. Its last barrier publishes B.
-template <int RPT>
-__device__ __forceinline__ int cluster_bounds(const Ray* ray, const bool* on,
-                                              bool counts, Bounds& B,
-                                              ClusterSlots<12>& sb,
-                                              int& par_b, ClusterSlots<1>& s1,
-                                              int& par1) {
-  float v[12];  // per axis: ol, -oh, il, -ih; all reduced by min
-  float n_on = 0.f;  // the lanes of this thread that `counts` (one share)
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) n_on += counts && on[k] ? 1.f : 0.f;
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    float ol = kBig, oh = -kBig, il = kInvBig, ih = -kInvBig;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      if (!on[k]) continue;
-      const float o = ax == 0 ? ray[k].ox : ax == 1 ? ray[k].oy : ray[k].oz;
-      const float d = ax == 0 ? ray[k].dx : ax == 1 ? ray[k].dy : ray[k].dz;
-      const float inv = clip_inv(d);
-      ol = fminf(ol, o);
-      oh = fmaxf(oh, o);
-      il = fminf(il, inv);
-      ih = fmaxf(ih, inv);
-    }
-    v[ax] = ol;
-    v[3 + ax] = -oh;
-    v[6 + ax] = il;
-    v[9 + ax] = -ih;
-  }
-  cluster_reduce<12>(v, sb, par_b, MinOp(), INFINITY);
-  if (threadIdx.x == 0) {
-    for (int ax = 0; ax < 3; ++ax) {
-      B.ol[ax] = v[ax];
-      B.oh[ax] = -v[3 + ax];
-      B.il[ax] = v[6 + ax];
-      B.ih[ax] = -v[9 + ax];
-    }
-  }
-  cluster_reduce<1>(&n_on, s1, par1, SumOp(), 0.f);
-  return (int)n_on;
-}
-
-// t_upper: the largest best t over the tile's active lanes (-kBig when
-// none), reduced over the cluster.
-template <int RPT>
-__device__ __forceinline__ float cluster_t_upper(const float* bt,
-                                                 const bool* on,
-                                                 ClusterSlots<1>& s1,
-                                                 int& par1) {
-  float m = -kBig;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k)
-    if (on[k]) m = fmaxf(m, bt[k]);
-  cluster_reduce<1>(&m, s1, par1, MaxOp(), -INFINITY);
-  return m;
-}
-
 // The first window of the leaf at or after b that the tile streams (nwin
 // when none).
 __device__ __forceinline__ int next_kept(const Args& a, const Bounds& B,
@@ -204,66 +144,6 @@ __device__ __forceinline__ int next_kept(const Args& a, const Bounds& B,
   while (b < nwin && !survives(a, B, tile_i, win0 + b, tlo, thi, t_upper))
     ++b;
   return b;
-}
-
-// Whether (t2, r2) precedes (t, r) in a window's tie rule: the least t,
-// among equal t the lowest row of 8 records, within it the highest record.
-__device__ __forceinline__ bool precedes(float t2, int r2, float t, int r) {
-  const int row2 = r2 >> 3, row = r >> 3;
-  return t2 < t || (t2 == t && (row2 < row || (row2 == row && r2 > r)));
-}
-
-// dense_window (kd_walk.cuh) with kS threads a lane: the kS threads of a
-// lane are neighbours in a warp, and share h tests records h, h + kS, ...
-// of the window (neighbouring records for neighbouring threads: distinct
-// shared-memory banks). Each share's winner under the window's rule is the
-// rule's least of its records, so the shares merge by `precedes` (warp
-// shuffles) into the window's winner, which then meets the earlier
-// windows' as in dense_window (the later window wins at equal t). lane0:
-// the block's lane of this thread's first ray; lanes k * lpt apart.
-template <int RPT, int kS, bool kSO, bool kBF16>
-__device__ __forceinline__ void dense_split(const float4* win, const Ray* ray,
-                                            const bool* on, unsigned gates,
-                                            int lane0, int lpt,
-                                            long long rec0, float* bt,
-                                            int* bs) {
-  const int h = threadIdx.x % kS;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const bool test =
-        on[k] && ((gates >> ((lane0 + k * lpt) / kGateLanes)) & 1u);
-    float ct = kBig;
-    int cr = -1;  // record of ct within the window
-    if (test) {
-      for (int r = h; r < kWinRecs; r += kS) {
-        const float4 p = win[r * kUsedF4];
-        const float4 q = win[r * kUsedF4 + 1];
-        const float4 w = win[r * kUsedF4 + 2];
-        float t;
-        const bool hit = kSO     ? so_hit(ray[k], p, q, w, &t)
-                         : kBF16 ? mt_hit_bf16(ray[k], p, q, w, &t)
-                                 : mt_hit(ray[k], p, q, w, &t);
-        if (hit && t < kBig &&
-            (t < ct || (t == ct && (r >> 3) == (cr >> 3)))) {
-          ct = t;
-          cr = r;
-        }
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < kS; off <<= 1) {
-      const float t2 = __shfl_xor_sync(0xffffffffu, ct, off);
-      const int r2 = __shfl_xor_sync(0xffffffffu, cr, off);
-      if (precedes(t2, r2, ct, cr)) {
-        ct = t2;
-        cr = r2;
-      }
-    }
-    if (test && ct < kBig && ct <= bt[k]) {  // the later window wins ties
-      bt[k] = ct;
-      bs[k] = (int)(rec0 + cr);
-    }
-  }
 }
 
 // kC blocks per tile (a cluster), each owning tile / kC consecutive lanes,
@@ -306,19 +186,8 @@ packet_stream_kernel(const Args a) {
   bool on[RPT];
   float bt[RPT];
   int bs[RPT];
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    const size_t g = base + lane0 + k * lpt;
-    ray[k].ox = a.orig_t[g];
-    ray[k].oy = a.orig_t[a.n_rays + g];
-    ray[k].oz = a.orig_t[2 * (size_t)a.n_rays + g];
-    ray[k].dx = a.dir_t[g];
-    ray[k].dy = a.dir_t[a.n_rays + g];
-    ray[k].dz = a.dir_t[2 * (size_t)a.n_rays + g];
-    on[k] = a.act == nullptr || a.act[g] > 0.f;
-    bt[k] = kBig;
-    bs[k] = -1;
-  }
+  load_rays<RPT, kS>(a.orig_t, a.dir_t, a.act, a.n_rays, base, ray, on, bt,
+                     bs);
 
   int par_b = 0, par1 = 0;
   const int n_act = cluster_bounds<RPT>(ray, on, tid % kS == 0, B, sb, par_b,
@@ -384,8 +253,8 @@ packet_stream_kernel(const Args a) {
         } else {
           ++nsm;
         }
-        dense_split<RPT, kS, kSO, kBF16>(w, ray, on, gates, lane0, lpt,
-                                         (long long)row * 8, bt, bs);
+        dense_split<RPT, kS, kSO, kBF16, kGateLanes>(
+            w, ray, on, gates, lane0, lpt, (long long)row * 8, bt, bs);
         cur ^= 1;
         ++streamed;
         b = nb;
@@ -404,22 +273,9 @@ packet_stream_kernel(const Args a) {
     }
   }
   if (overflow && rank == 0 && tid == 0) *a.overflow = 1;
-
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    if (tid % kS) break;  // every thread of a group holds its lane's winner
-    const size_t g = base + lane0 + k * lpt;
-    a.best_t[g] = bt[k];
-    a.best_slot[g] = bt[k] < kBig ? bs[k] : -1;
-  }
-  if (rank == 0 && tid == 0) {
-    int* st = a.stats + 5 * (size_t)tile_i;
-    st[0] = nv;
-    st[1] = nl;
-    st[2] = n_act;
-    st[3] = nc;
-    st[4] = kBF16 ? 0 : nsm;
-  }
+  // every thread of a group holds its lane's winner
+  store_tile<RPT, kS, kC>(bt, bs, base, a.best_t, a.best_slot, a.stats, nv,
+                          nl, n_act, nc, kBF16 ? 0 : nsm);
   cluster_end();
 }
 

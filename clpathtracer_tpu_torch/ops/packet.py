@@ -1063,7 +1063,18 @@ def _queue_tile(host, ob, ib, n_act, recs, rays, on, so, n_rows, tally):
 # ---------------------------------------------------------------------------
 
 
-def _check_v1_args(table, width, recs, orig_t, dir_t, tile, padded, name):
+def _v1_takes(tile: int, engine: int) -> bool:
+    """Whether ops/csrc/packet_v1.cu launches `engine` at `tile` rays a
+    tile: a multiple of 32 up to 4096 and of 512 above 512; K6a above 512
+    (tile / 512 rays a thread) only 1024, 2048 or 4096. Which of them take
+    K6b's and K9's cluster is the kernel's choice (packet_v1_shape)."""
+    return (0 < tile <= 4096 and tile % 32 == 0
+            and (tile <= 512 or tile % 512 == 0 and (
+                engine != _V1_RESIDENT or tile // 512 in (2, 4, 8))))
+
+
+def _check_v1_args(table, width, recs, orig_t, dir_t, tile, engine, name):
+    padded = engine != _V1_RESIDENT   # K6b's and K9's windows: 128 rows
     tensors = dict(table=table, recs=recs, orig_t=orig_t, dir_t=dir_t)
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
@@ -1074,11 +1085,11 @@ def _check_v1_args(table, width, recs, orig_t, dir_t, tile, padded, name):
                              f"torch.float32 tensor, got {t.dtype} "
                              f"{tuple(t.shape)}")
     n = orig_t.shape[1] if orig_t.dim() == 2 else -1
-    if tile <= 0 or tile % 32 or tile > 4096 or n % tile \
-            or (tile > 512 and tile % 512):
+    if not _v1_takes(tile, engine) or n % tile:
         raise ValueError(f"{name}: tile {tile} must be a multiple of 32 "
                          "that divides the rays, at most 4096, and a "
-                         f"multiple of 512 above 512 ({n} rays)")
+                         "multiple of 512 above 512 (resident: 1024, 2048 "
+                         f"or 4096) ({n} rays)")
     if table.dim() != 2 or table.shape[1] != width or table.shape[0] == 0:
         raise ValueError(f"{name}: table {tuple(table.shape)} is not "
                          f"[M, {width}]")
@@ -1120,12 +1131,15 @@ def packet_legacy(table16, recs, orig_t, dir_t, *, tile: int,
     (K6b), 0, 0, 0).
 
     A CPU tensor runs the plain version (packet_legacy_reference); a CUDA
-    tensor launches ops/csrc/packet_v1.cu on the current stream or raises,
-    also when the walk's stack overflows. `packet_legacy.resident_launches`
-    counts K6a's launches and `packet_legacy.launches` K6b's."""
+    tensor launches ops/csrc/packet_v1.cu on the current stream (K6b on
+    a cluster of 8 blocks a tile of 256k rays, K6a one block a tile) or
+    raises, also when the walk's stack overflows or the card refuses the
+    launch; a tile that no launch takes raises ValueError on either
+    device. `packet_legacy.resident_launches` counts K6a's launches and
+    `packet_legacy.launches` K6b's."""
     name = "packet_legacy"
-    _check_v1_args(table16, 16, recs, orig_t, dir_t, tile, not resident,
-                   name)
+    engine = _V1_RESIDENT if resident else _V1_STREAM
+    _check_v1_args(table16, 16, recs, orig_t, dir_t, tile, engine, name)
     device = orig_t.device
     if device.type == "cpu":
         return packet_legacy_reference(table16, recs, orig_t, dir_t,
@@ -1135,8 +1149,7 @@ def packet_legacy(table16, recs, orig_t, dir_t, *, tile: int,
     out = _launch_walk(
         "packet_v1_launch", tile, orig_t.shape[1],
         (table16, recs, orig_t, dir_t),
-        (orig_t.shape[1], tile, recs.shape[0],
-         _V1_RESIDENT if resident else _V1_STREAM))
+        (orig_t.shape[1], tile, recs.shape[0], engine))
     if resident:
         packet_legacy.resident_launches += 1
     else:
@@ -1164,11 +1177,12 @@ def packet_wide(wide, recs, orig_t, dir_t, *, tile: int):
     [n_tiles, 5] i32 = supernode pops, windows streamed, 0, 0, 0).
 
     A CPU tensor runs the plain version (packet_wide_reference); a CUDA
-    tensor launches ops/csrc/packet_v1.cu on the current stream or raises,
-    also when the walk's stack overflows. `packet_wide.launches` counts
-    its launches."""
+    tensor launches ops/csrc/packet_v1.cu on the current stream (on a
+    cluster of 8 blocks a tile of 256k rays) or raises, also when the
+    walk's stack overflows or the card refuses the launch.
+    `packet_wide.launches` counts its launches."""
     name = "packet_wide"
-    _check_v1_args(wide, 128, recs, orig_t, dir_t, tile, True, name)
+    _check_v1_args(wide, 128, recs, orig_t, dir_t, tile, _V1_WIDE, name)
     device = orig_t.device
     if device.type == "cpu":
         return packet_wide_reference(wide, recs, orig_t, dir_t, tile=tile)

@@ -87,7 +87,7 @@ def render_frame_chunked(scene, camera, opts, mwin=None, *, tree=None,
                 print(f"warning: chunk {c} attempt {attempt + 1} failed: "
                       f"{e}", file=sys.stderr)
                 continue
-            out[c * rows:(c + 1) * rows] = img
+            out[c * rows:(c + 1) * rows] = img.reshape(rows, opts.width, 3)
             done = True
             break
         if not done:

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from clpathtracer_tpu_torch.render.integrator import render_rows
+from clpathtracer_tpu_torch.render.integrator import render_lanes
 
 AXES = ("rows", "scene")
 # all_gather_single is newer torch's name for all_gather_into_tensor
@@ -67,8 +67,17 @@ def _check_rows(opts, n_blocks: int, what: str):
                          f"{n_blocks}, {what}")
 
 
+def _check_lanes(opts, n_blocks: int, what: str):
+    n = opts.width * opts.height
+    if n % n_blocks:
+        raise ValueError(f"a {opts.width}x{opts.height} frame's {n} pixels "
+                         f"are not divisible by {n_blocks}, {what} (the "
+                         "JAX package asks the same of its rays' split over "
+                         "both mesh axes)")
+
+
 def block_generator(generator, index: int, device) -> torch.Generator:
-    """The generator of row block `index`: seeded from one draw of the
+    """The generator of block `index`: seeded from one draw of the
     caller's generator (a generator seeded 0 when None) and the index, as
     the JAX package folds the shard index into the key. Every rank draws
     the same base seed from equal generators, so the blocks draw distinct
@@ -84,19 +93,22 @@ def block_generator(generator, index: int, device) -> torch.Generator:
 def render_block(scene, camera, opts, index: int, n_blocks: int,
                  mwin=None, *, tree=None, grid=None, shadow=None,
                  lights=None, generator=None, rays=None):
-    """Row block `index` of n_blocks equal blocks of render_image's frame:
-    [H / n_blocks, W, 3]. Path mode draws from block_generator. rays: as
+    """Block `index` of n_blocks equal ranges of render_image's pixels in
+    row-major order, [H * W / n_blocks, 3], shaded by render_lanes: whole
+    rows (render_rows' block) when n_blocks divides H, else the JAX
+    package's flat split of a frame's rays over both mesh axes
+    (P(("rows", "scene"))). Path mode draws from block_generator. rays: as
     render_rows'."""
-    rows = opts.height // n_blocks
+    n = opts.width * opts.height // n_blocks
     gen = (block_generator(generator, index, camera.position.device)
            if opts.mode == "path" else None)
-    return render_rows(scene, camera, opts, index * rows, rows, mwin,
-                       tree=tree, grid=grid, shadow=shadow, lights=lights,
-                       generator=gen, rays=rays)
+    return render_lanes(scene, camera, opts, index * n, n, mwin, tree=tree,
+                        grid=grid, shadow=shadow, lights=lights,
+                        generator=gen, rays=rays)
 
 
 def gather_blocks(block, mesh, over_scene: bool = False):
-    """The frame from every rank's row block, on every rank: all_gather
+    """The frame from every rank's block, on every rank: all_gather
     over "scene" (over_scene: the blocks differ along it) and then over
     "rows", in rank order."""
     for axis in (("scene", "rows") if over_scene else ("rows",)):
@@ -136,7 +148,7 @@ def make_sharded_renderer(opts, mesh):
         blk = render_block(scene, camera, opts, r, n_rows, mwin, tree=tree,
                            grid=grid, shadow=shadow, lights=lights,
                            generator=generator)
-        return gather_blocks(blk, mesh)
+        return gather_blocks(blk, mesh).reshape(opts.height, opts.width, 3)
 
     return render
 

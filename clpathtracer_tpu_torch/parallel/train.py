@@ -5,11 +5,12 @@ Given a target image, optimize scene parameters (vertex positions,
 materials) by gradient descent through the differentiable renderer
 (RenderOptions.differentiable), on one device or over a mesh
 (parallel/mesh.py::default_mesh). On a mesh every rank renders its block
-of rows of the frame (render/integrator.py::render_rows) and takes its
-share of the loss; backward() gives the rank's gradients, all_reduce(SUM)
-over the world makes them the frame's (the JAX package's GSPMD inserts
-that all-reduce), and every rank applies the same update, so the
-parameters stay equal on every rank. With a parallel/treelet.py::
+of the frame's pixels (render/integrator.py::render_lanes: whole rows
+when the ranks divide the height) and takes its share of the loss;
+backward() gives the rank's gradients, all_reduce(SUM) over the world
+makes them the frame's (the JAX package's GSPMD inserts that
+all-reduce), and every rank applies the same update, so the parameters
+stay equal on every rank. With a parallel/treelet.py::
 ShardedTree the blocks split over both mesh axes and the hit topology
 comes through the treelet ring.
 """
@@ -22,12 +23,12 @@ import torch
 
 import torch.distributed as dist
 
-from clpathtracer_tpu_torch.parallel.mesh import (_check_rows, axis_size,
+from clpathtracer_tpu_torch.parallel.mesh import (_check_lanes, axis_size,
                                                   block_generator)
 from clpathtracer_tpu_torch.parallel.treelet import ShardedTree, resident
 from clpathtracer_tpu_torch.render.integrator import (RenderOptions,
                                                       _check_supported,
-                                                      render_rows)
+                                                      render_lanes)
 
 
 class TrainState(NamedTuple):
@@ -60,10 +61,13 @@ def make_train_step(scene, opts: RenderOptions,
     generator. marks (optional): called with "forward", "backward" and
     "update" after each part, for timing.
 
-    mesh (a ("rows", "scene") DeviceMesh over the whole world): the frame
-    splits into blocks of rows, one a rank (rank rows_idx * S + scene_idx
-    takes block rows_idx * S + scene_idx of R * S; H must divide), each
-    rendered by render_rows and held to its rows of the [H, W, 3] target.
+    mesh (a ("rows", "scene") DeviceMesh over the whole world): the
+    frame's H * W pixels split into R * S equal ranges in row-major order,
+    one a rank (rank rows_idx * S + scene_idx takes range rows_idx * S +
+    scene_idx, the JAX package's P(("rows", "scene")); R * S must divide
+    H * W), each rendered by render_lanes (whole rows when R * S divides
+    H, else a row of its own) and held to its pixels of the [H, W, 3]
+    target.
     The rank's loss is its block's mean squared error times its share of
     the pixels, so the ranks' losses sum to the frame's mean (on a world
     of 1 the factor is 1.0 and the step is the one-device step's bit for
@@ -72,10 +76,10 @@ def make_train_step(scene, opts: RenderOptions,
     summed loss on every rank. A ShardedTree as `tree` is placed on the
     mesh (parallel/treelet.py::resident: one block a rank of a "scene"
     axis of S > 1, its hits through the ring). Explicit draws are the full
-    frame's and each rank takes its rows (light uniforms: its rows must be
-    whole runs of nee_light_stride); a generator seeds each block's own
-    (parallel/mesh.py::block_generator), so a generator's step differs
-    from the one-device step's and has the same distribution.
+    frame's and each rank takes its pixels (light uniforms: its range
+    must be whole runs of nee_light_stride); a generator seeds each
+    block's own (parallel/mesh.py::block_generator), so a generator's step
+    differs from the one-device step's and has the same distribution.
 
     Raises ValueError without opts.differentiable (the port's walks and
     scans carry no gradient). Unlike the JAX step, which shades the
@@ -92,14 +96,14 @@ def make_train_step(scene, opts: RenderOptions,
         if n_blocks != dist.get_world_size():
             raise ValueError(f"a mesh of {n_blocks} ranks in a world of "
                              f"{dist.get_world_size()}")
-        _check_rows(opts, n_blocks, "the mesh's ranks")
+        _check_lanes(opts, n_blocks, "the mesh's ranks")
         index = mesh.get_local_rank("rows") * axis_size(mesh, "scene") \
             + mesh.get_local_rank("scene")
         if isinstance(tree, ShardedTree):
             tree = resident(tree, mesh)
-    rows = opts.height // n_blocks
-    row0 = index * rows
     n_pix = opts.width * opts.height
+    n_lanes = n_pix // n_blocks
+    lanes = slice(index * n_lanes, (index + 1) * n_lanes)
 
     def init(params: dict = None) -> TrainState:
         src = params if params is not None else {
@@ -114,12 +118,11 @@ def make_train_step(scene, opts: RenderOptions,
         if isinstance(draws, torch.Generator):
             return block_generator(draws, index, device)
         jitter, bounce, light = draws
-        lanes = slice(row0 * opts.width, (row0 + rows) * opts.width)
         if light is not None:
             stride = opts.nee_light_stride
-            if (row0 * opts.width) % stride or (rows * opts.width) % stride:
-                raise ValueError(f"rows {row0}-{row0 + rows} are not whole "
-                                 f"runs of nee_light_stride {stride}")
+            if lanes.start % stride or n_lanes % stride:
+                raise ValueError(f"pixels {lanes.start}-{lanes.stop} are not "
+                                 f"whole runs of nee_light_stride {stride}")
             light = light[:, :, lanes.start // stride:lanes.stop // stride]
         return (None if jitter is None else jitter[:, lanes],
                 bounce[:, :, lanes], light)
@@ -133,10 +136,10 @@ def make_train_step(scene, opts: RenderOptions,
         elif draws is not None:
             kw["jitter"], kw["bounce"], kw["light"] = draws
         state.optimizer.zero_grad(set_to_none=True)
-        img = render_rows(apply_params(scene, state.params), camera, opts,
-                          row0, rows, tree=tree, grid=grid, shadow=shadow,
-                          **kw)
-        loss = torch.mean((img - target[row0:row0 + rows]) ** 2)
+        img = render_lanes(apply_params(scene, state.params), camera, opts,
+                           lanes.start, n_lanes, tree=tree, grid=grid,
+                           shadow=shadow, **kw)
+        loss = torch.mean((img - target.reshape(-1, 3)[lanes]) ** 2)
         if mesh is not None:
             loss = loss * (img.numel() / (n_pix * 3))
         mark("forward")

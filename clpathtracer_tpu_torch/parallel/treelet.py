@@ -310,31 +310,35 @@ def intersect_sharded(stree: ShardedTree, scene, orig, dir, mesh, *,
 
 
 def make_treelet_renderer(opts, mesh):
-    """Scene-parallel frame renderer: the frame's rows split over both
-    mesh axes (rank rows_idx * S + scene_idx renders the (rows_idx * S +
-    scene_idx)-th block of H / (R * S) rows, N / (R * S) rays), the
-    treelet blocks over "scene" and rotated by intersect_ring on every
-    wave, the scene's materials and vertices replicated.
+    """Scene-parallel frame renderer: the frame's pixel-grid rays split
+    over both mesh axes (rank rows_idx * S + scene_idx renders the
+    (rows_idx * S + scene_idx)-th of R * S equal ranges of the N rays in
+    row-major order, the JAX package's P(("rows", "scene"))), the treelet
+    blocks over "scene" and rotated by intersect_ring on every wave, the
+    scene's materials and vertices replicated.
 
     Returns render(stree, scene, camera, generator=None) -> [H, W, 3] on
-    every rank (the blocks gathered over both axes). A row block is
-    render_image's (render_rows), so edge_aware and spp > 1 work on it;
-    path mode draws its block from a generator seeded from the caller's
-    and the block index (parallel/mesh.py::block_generator). H must be a
-    multiple of R * S (the JAX function asks only N % (R * S) == 0: a
-    block here is whole rows)."""
-    from clpathtracer_tpu_torch.parallel.mesh import (_check_rows,
+    every rank (the blocks gathered over both axes). A block is
+    render_image's frame cut to its range (parallel/mesh.py::render_block):
+    whole rows when R * S divides H, so edge_aware and spp > 1 work on it
+    as on render_rows' blocks, else a row of its own (edge_aware's band
+    over that row, as the JAX shade_edgeaware takes a shard that is not
+    whole rows); path mode draws its block from a generator seeded from
+    the caller's and the block index (parallel/mesh.py::block_generator).
+    N must be a multiple of R * S, as in the JAX function."""
+    from clpathtracer_tpu_torch.parallel.mesh import (_check_lanes,
                                                       axis_size,
                                                       gather_blocks,
                                                       render_block)
     n_blocks = mesh.size()
-    _check_rows(opts, n_blocks, "the mesh's ranks")
+    _check_lanes(opts, n_blocks, "the mesh's ranks")
     k = mesh.get_local_rank("rows") * axis_size(mesh, "scene") \
         + mesh.get_local_rank("scene")
 
     def render(stree, scene, camera, generator=None):
         blk = render_block(scene, camera, opts, k, n_blocks,
                            tree=resident(stree, mesh), generator=generator)
-        return gather_blocks(blk, mesh, over_scene=True)
+        return gather_blocks(blk, mesh, over_scene=True).reshape(
+            opts.height, opts.width, 3)
 
     return render

@@ -795,29 +795,53 @@ def render_rows(scene, camera, opts: RenderOptions, row0: int, rows: int,
     if rows < 1 or row0 < 0 or row0 + rows > opts.height:
         raise ValueError(f"rows [{row0}, {row0 + rows}) of a frame of "
                          f"{opts.height}")
-    block = dataclasses.replace(opts, height=rows)
+    return render_lanes(
+        scene, camera, opts, row0 * opts.width, rows * opts.width, mwin,
+        tree=tree, grid=grid, shadow=shadow, lights=lights,
+        generator=generator, jitter=jitter, bounce=bounce, light=light,
+        rays=rays).reshape(rows, opts.width, 3)
+
+
+def render_lanes(scene, camera, opts: RenderOptions, lane0: int, n: int,
+                 mwin=None, *, tree=None, grid=None, shadow=None,
+                 lights=None, generator: torch.Generator = None, jitter=None,
+                 bounce=None, light=None, rays=None):
+    """Pixels [lane0, lane0 + n) of render_image's frame in row-major order,
+    [n, 3]: the full frame's rays cut to that range and shaded by
+    render_rays as a frame of its own. A range of whole rows is the frame
+    of those rows (render_rows); any other range is a frame of one row of
+    n pixels, as the JAX package shades a flat shard of a frame's rays
+    (its P(("rows", "scene")) split, parallel/treelet.py): no windows
+    (they need whole gates; with a tree the rope walk takes it),
+    edge_aware's band over that one row (the JAX shade_edgeaware's `cols
+    = n`), the draws of n pixels. Structures, draws and rays as
+    render_rows'."""
+    width, height = opts.width, opts.height
+    if n < 1 or lane0 < 0 or lane0 + n > width * height:
+        raise ValueError(f"pixels [{lane0}, {lane0 + n}) of a frame of "
+                         f"{width * height}")
+    if lane0 % width == 0 and n % width == 0:
+        block = dataclasses.replace(opts, height=n // width)
+    else:
+        block = dataclasses.replace(opts, height=1, width=n)
     _check_supported(scene, block, mwin, tree, grid, shadow)
     if opts.differentiable and lights is not None:
         raise ValueError("differentiable: lights= is a table of the scene as "
                          "it was built; the frame builds it from the live "
                          "scene: pass lights=None")
     device = camera.position.device
-    cam_inv = cam_matrix(camera, opts.height)
-    width, height = opts.width, opts.height
-    lanes = slice(row0 * width, (row0 + rows) * width)
-    shape = (rows, width, 3)
+    cam_inv = cam_matrix(camera, height)
+    lanes = slice(lane0, lane0 + n)
     kw = dict(tree=tree, grid=grid, shadow=shadow)
     if rays is None and (opts.mode != "path" or opts.spp <= 1):
         rays = generate_rays(cam_inv, width, height)
     if opts.mode != "path":
         orig, dir = rays
-        return render_rays(scene, mwin, orig[lanes], dir[lanes], block,
-                           **kw).reshape(shape)
+        return render_rays(scene, mwin, orig[lanes], dir[lanes], block, **kw)
     if bounce is None:
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         jitter, bounce, light = path_draws(block, generator, device)
-    n = width * rows
     s = opts.spp if opts.spp > 1 else 1
     m = -(-n // opts.nee_light_stride)
     if tuple(bounce.shape) != (s, opts.bounces, n, 2) or (
@@ -838,7 +862,7 @@ def render_rows(scene, camera, opts: RenderOptions, row0: int, rows: int,
             o, d = rays
         else:
             jit = jitter[i:i + 1]
-            if rows < height:   # the block's jitter in the full frame
+            if n < width * height:   # the block's jitter in the full frame
                 jit = jit.new_zeros((1, width * height, 2))
                 jit[0, lanes] = jitter[i]
             o, d = generate_rays_jittered(cam_inv, width, height, jit)
@@ -848,5 +872,4 @@ def render_rows(scene, camera, opts: RenderOptions, row0: int, rows: int,
             jitter_px=JITTER_PX if s > 1 else 0.0,
             light_u=None if light is None else light[i], lights=lights,
             **kw))
-    img = samples[0] if s == 1 else torch.stack(samples).mean(dim=0)
-    return img.reshape(shape)
+    return samples[0] if s == 1 else torch.stack(samples).mean(dim=0)

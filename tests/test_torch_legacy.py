@@ -288,3 +288,116 @@ def test_v1_wrappers_reject_bad_arguments(fx, bad):
         args[0] = fx["pt"].wide_table
     with pytest.raises(ValueError, match="packet_legacy"):
         tpk.packet_legacy(*args, tile=tile, resident=False)
+
+
+# the tiles the v1 wrappers take: (engine, tile, taken); which of them K6b
+# and K9 run on a cluster of 8 blocks (multiples of 256) is the kernel's
+# choice, read on the card (packet_v1_shape, chip_smoke.py phase 2)
+V1_TILES = ([(tpk._V1_STREAM, t, True)
+             for t in (32, 224, 256, 480, 512, 1536, 4096)]
+            + [(tpk._V1_WIDE, 2048, True)]
+            + [(tpk._V1_RESIDENT, t, True)
+               for t in (32, 512, 1024, 2048, 4096)]
+            + [(tpk._V1_STREAM, t, False)
+               for t in (0, 48, 544, 768, 4352, 8192)]
+            + [(tpk._V1_WIDE, 768, False)]
+            + [(tpk._V1_RESIDENT, t, False) for t in (1536, 3072, 3584)])
+
+
+@pytest.mark.parametrize("engine,tile,taken", V1_TILES)
+def test_v1_tile_rule(engine, tile, taken):
+    """Whole warps up to 4096 and multiples of 512 above 512; K6a (512 rays
+    a thread times 2, 4 or 8 above 512) only 1024, 2048 or 4096 there,
+    which its launch refuses otherwise."""
+    assert tpk._v1_takes(tile, engine) is taken
+
+
+def test_v1_wrappers_refuse_what_no_launch_takes(fx):
+    """The wrappers refuse such a tile on the host as on the card: K6a at
+    tile 1536 (3 rays a thread), which K6b takes."""
+    args, _ = tpk.v1_kernel_args(fx["pt"], fx["o"], fx["d"], tile=256,
+                                 mode="vmem")
+    table, recs, o, d = args
+    o, d = (torch.cat([x, x], dim=1)[:, :1536].contiguous() for x in (o, d))
+    with pytest.raises(ValueError, match="packet_legacy: tile 1536"):
+        tpk.packet_legacy(table, recs, o, d, tile=1536, resident=True)
+
+
+def _split_winner(t, k_s, h0):
+    """kd_walk.cuh::dense_split's window winner for one lane, replayed:
+    share h tests records h, h + k_s, ... in order and keeps a record
+    where its t is less, or equal within the kept record's row of 8; the
+    shares then merge by precedes over the xor butterfly of warp shuffles,
+    seen from share h0 (every share must end with the same winner)."""
+    def precedes(a, b):
+        (t2, r2), (t1, r1) = a, b
+        return t2 < t1 or (t2 == t1 and (r2 >> 3 < r1 >> 3 or (
+            r2 >> 3 == r1 >> 3 and r2 > r1)))
+    won = []
+    for h in range(k_s):
+        ct, cr = tpk.BIG, -1
+        for r in range(h, len(t), k_s):
+            if t[r] < tpk.BIG and (t[r] < ct or (t[r] == ct
+                                                 and r >> 3 == cr >> 3)):
+                ct, cr = t[r], r
+        won.append((ct, cr))
+    off = 1
+    while off < k_s:
+        won = [won[h ^ off] if precedes(won[h ^ off], won[h]) else won[h]
+               for h in range(k_s)]
+        off <<= 1
+    return won[h0]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_split_merge_matches_plain_tie_rule(seed):
+    """Windows of copies of two triangles at t 1 and 2 and of misses, at
+    random positions: exact-t ties at every position of every row. With
+    1, 2 or 4 threads a lane (K3, K6b and K9 take 2) the shares' winners
+    merged by precedes, each window's then meeting the earlier windows'
+    (the later window winning at equal t), give the plain version's slot
+    (ops/packet.py::_dense_windows, _mt_chunk_math's rule) on every
+    lane, whatever share holds the result."""
+    rng = np.random.default_rng(seed)
+    n_win = 3
+    recs = np.zeros((n_win * 128, 16), np.float32)
+    kind = rng.choice(3, size=n_win * 128, p=[0.5, 0.3, 0.2])
+    recs[:, 0:3] = [-10.0, -10.0, 0.0]
+    recs[:, 2] = np.where(kind == 1, 2.0, 1.0)
+    recs[:, 3:6] = [0.0, 20.0, 0.0]   # e1: det > 0 for rays along +z
+    recs[:, 6:9] = [20.0, 0.0, 0.0]
+    recs[:, 9] = np.where(kind == 2, -1.0, np.arange(n_win * 128))
+    if seed == 3:       # a window of misses only, then a tie with window 0
+        recs[128:256, 9] = -1.0
+        recs[256:, 2] = 1.0
+    lanes = 64
+    xy = rng.uniform(-9.0, -1.0, size=(lanes, 2)).astype(np.float32)
+    xy = xy[xy.sum(axis=1) < -10.5][:32]   # inside both triangles
+    rays = [torch.as_tensor(v) for v in (
+        xy[:, 0], xy[:, 1], np.zeros(len(xy), np.float32),
+        np.zeros(len(xy), np.float32), np.zeros(len(xy), np.float32),
+        np.ones(len(xy), np.float32))]
+    rec_t = torch.as_tensor(recs)
+    rows0 = np.arange(n_win) * 16
+    bt = torch.full((len(xy),), tpk.BIG)
+    bs = torch.full((len(xy),), -1, dtype=torch.int32)
+    on = torch.ones((n_win, len(xy)), dtype=torch.bool)
+    p_t, p_s = tpk._dense_windows(rec_t[:, :10], rows0, rays, on, False, bt,
+                                  bs, None)
+    ok, t = tpk.mt_pairs(rec_t[:, None, :10], *(r[None, :] for r in rays))
+    t = torch.where(ok, t, tpk.BIG).numpy()          # [records, lanes]
+    want = np.where(recs[:, 9] >= 0.0, recs[:, 2], np.float32(tpk.BIG))
+    assert (t == want[:, None]).all()   # hits at exactly t 1 and 2
+    for k_s in (1, 2, 4):
+        for lane in range(len(xy)):
+            best_t, best_s = tpk.BIG, -1
+            for w in range(n_win):
+                for h0 in range(k_s):
+                    got = _split_winner(t[w * 128:(w + 1) * 128, lane], k_s,
+                                        h0)
+                    assert got == _split_winner(
+                        t[w * 128:(w + 1) * 128, lane], k_s, 0)
+                ct, cr = got
+                if ct < tpk.BIG and ct <= best_t:
+                    best_t, best_s = ct, w * 128 + cr
+            assert (best_t, best_s) == (float(p_t[lane]), int(p_s[lane]))

@@ -1,10 +1,13 @@
 """The port's treelet layer (parallel/treelet.py) against the JAX
 package's: the Morton order and the blocks' records, the sequential ring
-against JAX intersect_ring (the file's one JAX call) and the port's single
+against JAX intersect_ring (the file's first JAX call) and the port's single
 tree, and, in a spawned world of 4 gloo ranks (rows 2 x scene 2,
 tests/torch_dist_worker.py), the send/recv ring, intersect_sharded, the
 treelet renderer and a ShardedTree train step against the sequential
-ring on the host."""
+ring on the host, on a frame whose height the ranks divide and on one
+(6x8) whose height they do not: there also edge-aware frames against
+JAX shade_edgeaware on the same shards (the file's second JAX call),
+path frames and a path-mode train step on explicit draws."""
 
 import dataclasses
 
@@ -19,9 +22,12 @@ from clpathtracer_tpu_torch.accel.sah import build_kd_tree
 from clpathtracer_tpu_torch.core.camera import Camera
 from clpathtracer_tpu_torch.diff.grad import intersect_diff
 from clpathtracer_tpu_torch.ops.traverse_fast import traverse_fast
+from clpathtracer_tpu_torch.parallel.mesh import render_block
+from clpathtracer_tpu_torch.parallel.train import make_train_step
 from clpathtracer_tpu_torch.parallel.treelet import (
     ShardedTree, build_sharded_tree, intersect_ring, morton_order, shard_of)
 from clpathtracer_tpu_torch.render.integrator import (RenderOptions,
+                                                      path_draws,
                                                       render_image)
 from clpathtracer_tpu_torch.scene.procedural import random_tri_soup
 from torch_dist_worker import WORLD, run_world, soup, soup_rays
@@ -146,6 +152,142 @@ def test_treelet_renderer_matches_render_image(scene, sequential, world):
     ref = render_image(sc, cam, RenderOptions(32, 32), tree=stree).numpy()
     for w in world:
         np.testing.assert_array_equal(w["image"], ref)
+
+
+def test_treelet_flat_blocks_match_single_tree(scene, world):
+    """A 6x8 frame on 4 ranks (H % 4 != 0, N % 4 == 0): each rank's ring
+    on its range of 12 pixels, gathered, equals the sequential ring and
+    the single tree's walk in hit, t and tri; the treelet frame equals
+    render_image through the ring and through the single tree, bit for
+    bit."""
+    sc, tv = scene
+    cam, o, d = soup_rays(8, 6)
+    stree = build_sharded_tree(tv, 2, device=CPU)
+    seq = intersect_ring(stree, o, d)
+    single = build_kd_tree(tv, max_depth=22, leaf_size=4, device=CPU)
+    ref = traverse_fast(single, o, d)
+    hit = np.concatenate([w["ring6_hit"] for w in world])
+    assert 0 < hit.sum() < hit.size
+    for rec in (seq, ref):
+        np.testing.assert_array_equal(hit, rec["hit"].numpy())
+        np.testing.assert_array_equal(
+            np.concatenate([w["ring6_t"] for w in world])[hit],
+            rec["t"].numpy()[hit])
+        np.testing.assert_array_equal(
+            np.concatenate([w["ring6_tri"] for w in world]),
+            torch.where(rec["hit"], rec["tri"], -1).numpy())
+    opts = RenderOptions(8, 6)
+    for tree in (stree, single):
+        img = render_image(sc, cam, opts, tree=tree).numpy()
+        for w in world:
+            np.testing.assert_array_equal(w["image6"], img)
+
+
+def test_sharded_tree_train_step_flat_blocks(world):
+    """A ShardedTree train step on the 6x8 frame over 4 ranks of 12
+    pixels: the loss equals the one-device step's (through the
+    sequential ring) within 1e-6 relative, the ranks' partial means
+    being summed in another order, and is the same on every rank."""
+    small = soup(1000)
+    s_stree = build_sharded_tree(small.tri_corners(), 2, device=CPU)
+    cam, _, _ = soup_rays(8, 6)
+    step, init = make_train_step(
+        small, RenderOptions(8, 6, differentiable=True),
+        lambda p: torch.optim.Adam(p.values(), lr=1e-3), tree=s_stree)
+    _, loss = step(init({"verts": small.verts}), cam,
+                   torch.full((6, 8, 3), 0.5))
+    for w in world:
+        assert w["loss6"] == world[0]["loss6"]
+        np.testing.assert_allclose(w["loss6"], float(loss), rtol=1e-6,
+                                   atol=0.0)
+
+
+@pytest.fixture(scope="module")
+def jax_edge_blocks(scene):
+    """JAX shade_edgeaware on each of the 4 ranges of 12 rays of the 6x8
+    frame, through its sequential ring: the JAX package's treelet frame
+    shades such a shard as one row of 12 pixels (its cols = n). One jit,
+    four calls."""
+    from clpathtracer_tpu.render import integrator as jint
+    from clpathtracer_tpu.scene.procedural import random_tri_soup as jsoup
+    _, tv = scene
+    js = jsoup(4000, seed=2, extent=2.0, tri_size=0.05)
+    np.testing.assert_array_equal(np.asarray(js.tri_corners()), tv)
+    jtree = jtreelet.build_sharded_tree(tv, 2)
+    jopts = jint.RenderOptions(width=8, height=6, edge_aware=True)
+    shade = jax.jit(lambda a, b: jint.shade_edgeaware(js, jtree, a, b, jopts,
+                                                      None))
+    _, o, d = soup_rays(8, 6)
+    return np.concatenate([np.asarray(shade(o[k * 12:(k + 1) * 12].numpy(),
+                                            d[k * 12:(k + 1) * 12].numpy()))
+                           for k in range(WORLD)])
+
+
+def test_treelet_flat_edge_aware_matches_jax(scene, world, jax_edge_blocks):
+    """The edge-aware 6x8 treelet frame on 4 ranks: each range of 12
+    pixels is shaded with the band over one row of 12, as JAX
+    shade_edgeaware shades such a shard, within 1e-4 of it (the band's
+    quotient m / |grad m| carries the float differences of the two
+    packages' u, v), bit for bit the host's render_block through the
+    sequential ring, and the band moves pixels off the plain frame."""
+    sc, tv = scene
+    cam, _, _ = soup_rays(8, 6)
+    stree = build_sharded_tree(tv, 2, device=CPU)
+    opts = RenderOptions(8, 6, edge_aware=True)
+    host = torch.cat([render_block(sc, cam, opts, k, WORLD, tree=stree)
+                      for k in range(WORLD)]).numpy()
+    for w in world:
+        img = w["image6e"].reshape(-1, 3)
+        np.testing.assert_array_equal(img, host)
+        np.testing.assert_allclose(img, jax_edge_blocks, rtol=0.0,
+                                   atol=1e-4)
+        assert (np.abs(img - w["image6"].reshape(-1, 3)).max(axis=-1)
+                > 1e-3).sum() >= 4
+
+
+def test_treelet_flat_path_matches_blocks(scene, world):
+    """The 6x8 path frame (spp 2, NEE with a light stride of 4) on 4
+    ranks of an emitting soup: every rank's range drawn from its
+    block_generator, bit for bit the host's render_block of that range
+    through the sequential ring, and the same frame on every rank."""
+    _, tv = scene
+    lit = soup(emissive_frac=0.3)
+    np.testing.assert_array_equal(lit.tri_corners(), tv)
+    cam, _, _ = soup_rays(8, 6)
+    stree = build_sharded_tree(tv, 2, device=CPU)
+    opts = RenderOptions(8, 6, mode="path", spp=2, bounces=2, nee=True,
+                         nee_light_stride=4)
+    host = torch.cat([render_block(
+        lit, cam, opts, k, WORLD, tree=stree,
+        generator=torch.Generator().manual_seed(5)) for k in range(WORLD)])
+    assert len(torch.unique(host)) > 8
+    for w in world:
+        np.testing.assert_array_equal(w["image6p"].reshape(-1, 3),
+                                      host.numpy())
+
+
+def test_sharded_tree_train_step_flat_path_draws(world):
+    """A path-mode ShardedTree train step (spp 2, NEE, light stride 4) on
+    the 6x8 frame over 4 ranks, on the full frame's explicit draws: each
+    rank takes its 12 pixels' jitter, bounce and light uniforms, and the
+    loss equals the one-device step's on the same draws within 1e-6
+    relative. A light stride of 8, whose runs the ranges split, raises."""
+    lit_small = soup(1000, emissive_frac=0.3)
+    s_stree = build_sharded_tree(lit_small.tri_corners(), 2, device=CPU)
+    cam, _, _ = soup_rays(8, 6)
+    opts = RenderOptions(8, 6, mode="path", spp=2, bounces=2, nee=True,
+                         nee_light_stride=4, differentiable=True)
+    draws = path_draws(opts, torch.Generator().manual_seed(7), CPU)
+    step, init = make_train_step(
+        lit_small, opts, lambda p: torch.optim.Adam(p.values(), lr=1e-3),
+        tree=s_stree)
+    _, loss = step(init({"verts": lit_small.verts}), cam,
+                   torch.full((6, 8, 3), 0.5), draws)
+    for w in world:
+        assert w["loss6p"] == world[0]["loss6p"]
+        np.testing.assert_allclose(w["loss6p"], float(loss), rtol=1e-6,
+                                   atol=0.0)
+        assert "not whole runs of nee_light_stride 8" in str(w["stride8"])
 
 
 def test_sharded_tree_train_step(world):

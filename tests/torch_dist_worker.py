@@ -4,6 +4,7 @@ context), each running one file's checks and saving its arrays for the
 parent test process. Imports torch and the port only, never jax (not a
 test file)."""
 
+import dataclasses
 import os
 import time
 import traceback
@@ -96,10 +97,12 @@ def soup_rays(w=32, h=32, pos=(0.0, 0.0, -4.0)):
     return (cam, *generate_rays(cam_matrix(cam, h), w, h))
 
 
-def soup(n=4000):
-    """tests/test_treelet.py's soup."""
+def soup(n=4000, emissive_frac=0.0):
+    """tests/test_treelet.py's soup (emissive_frac: the same triangles, that
+    share of them emitting)."""
     from clpathtracer_tpu_torch.scene.procedural import random_tri_soup
     return random_tri_soup(n, seed=2, extent=2.0, tri_size=0.05,
+                           emissive_frac=emissive_frac,
                            device=torch.device("cpu"))
 
 
@@ -107,13 +110,19 @@ def treelet_checks(rank, tmp):
     """On a (rows 2, scene 2) mesh: the ring (rank k walks rays block k of
     4, the two blocks rotating over its "scene" pair), intersect_sharded
     (rays split over "rows"), make_treelet_renderer's normal frame and one
-    ShardedTree train step on verts."""
+    ShardedTree train step on verts; then a 6x8 frame, whose height the 4
+    ranks do not divide (its 48 pixels in ranges of 12): the ring on the
+    rank's range, the treelet frame (normal, edge-aware, and path mode
+    with NEE on an emitting soup), a ShardedTree train step in normal
+    mode and one in path mode on explicit draws, and the raise of a light
+    stride (8) whose runs the ranges split."""
     from clpathtracer_tpu_torch.parallel.mesh import default_mesh
     from clpathtracer_tpu_torch.parallel.train import make_train_step
     from clpathtracer_tpu_torch.parallel.treelet import (
         build_sharded_tree, intersect_ring, intersect_sharded,
         make_treelet_renderer, resident)
-    from clpathtracer_tpu_torch.render.integrator import RenderOptions
+    from clpathtracer_tpu_torch.render.integrator import (RenderOptions,
+                                                          path_draws)
     cpu = torch.device("cpu")
     mesh = default_mesh(2, device_type="cpu")
     scene = soup()
@@ -135,10 +144,53 @@ def treelet_checks(rank, tmp):
         small, opts, lambda p: torch.optim.Adam(p.values(), lr=1e-3),
         tree=s_stree, mesh=mesh)
     state, loss = step(init({"verts": small.verts}), cam, target)
+    _, o6, d6 = soup_rays(8, 6)
+    q6 = o6.shape[0] // WORLD
+    flat = slice(rank * q6, (rank + 1) * q6)
+    ring6 = intersect_ring(resident(stree, mesh), o6[flat], d6[flat])
+    img6 = make_treelet_renderer(RenderOptions(8, 6), mesh)(stree, scene,
+                                                            cam)
+    step6, init6 = make_train_step(
+        small, RenderOptions(8, 6, differentiable=True),
+        lambda p: torch.optim.Adam(p.values(), lr=1e-3), tree=s_stree,
+        mesh=mesh)
+    _, loss6 = step6(init6({"verts": small.verts}), cam,
+                     torch.full((6, 8, 3), 0.5))
+    img6e = make_treelet_renderer(RenderOptions(8, 6, edge_aware=True),
+                                  mesh)(stree, scene, cam)
+    lit = soup(emissive_frac=0.3)   # soup()'s triangles, some emitting
+    popts = RenderOptions(8, 6, mode="path", spp=2, bounces=2, nee=True,
+                          nee_light_stride=4)
+    img6p = make_treelet_renderer(popts, mesh)(
+        stree, lit, cam, generator=torch.Generator().manual_seed(5))
+    draws = path_draws(popts, torch.Generator().manual_seed(7), cpu)
+    lit_small = soup(1000, emissive_frac=0.3)
+    step6p, init6p = make_train_step(
+        lit_small, dataclasses.replace(popts, differentiable=True),
+        lambda p: torch.optim.Adam(p.values(), lr=1e-3), tree=s_stree,
+        mesh=mesh)
+    _, loss6p = step6p(init6p({"verts": lit_small.verts}), cam,
+                       torch.full((6, 8, 3), 0.5), draws)
+    step8, init8 = make_train_step(
+        lit_small, dataclasses.replace(popts, differentiable=True,
+                                       nee_light_stride=8),
+        lambda p: torch.optim.Adam(p.values(), lr=1e-3), tree=s_stree,
+        mesh=mesh)
+    try:   # ranges of 12 pixels are not whole runs of 8
+        step8(init8({"verts": lit_small.verts}), cam,
+              torch.full((6, 8, 3), 0.5), path_draws(
+                  dataclasses.replace(popts, nee_light_stride=8),
+                  torch.Generator().manual_seed(7), cpu))
+        stride8 = ""
+    except ValueError as e:
+        stride8 = str(e)
     return {"ring_hit": ring["hit"], "ring_t": ring["t"],
             "ring_tri": ring["tri"], "sh_hit": sh["hit"], "sh_t": sh["t"],
             "sh_tri": sh["tri"], "image": img, "loss": loss,
-            "verts": state.params["verts"]}
+            "verts": state.params["verts"], "ring6_hit": ring6["hit"],
+            "ring6_t": ring6["t"], "ring6_tri": ring6["tri"],
+            "image6": img6, "loss6": loss6, "image6e": img6e,
+            "image6p": img6p, "loss6p": loss6p, "stride8": stride8}
 
 
 def parallel_checks(rank, tmp):
