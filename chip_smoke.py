@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR: a tree of the parent commit (a git archive); the kernels of
-its sources named in PARENT_STEMS (packet_v1.cu: K6a, K6b and K9) are
-built beside this tree's and timed in turns with them in phases 23 and 38
-(with ray_walk.cu and brute_force.cu there, W1 and W2 in phases 40-42).
+its sources named in PARENT_STEMS (packet_v1.cu: K6a, K6b and K9;
+packet_queue.cu: K5) are built beside this tree's and timed in turns with
+them in phases 19, 23 and 38 (with ray_walk.cu and brute_force.cu there,
+W1 and W2 in phases 40-42).
 
 Phases, one line or more each (any failure raises and the exit code is
 not 0):
@@ -16,11 +17,12 @@ not 0):
 2. build: compile clpathtracer_tpu_torch/ops/csrc/*.cu with nvcc (sm_90a),
    one nvcc per source, all started together, and load the libraries;
    print the cluster launch shape of K1, K1', K1's kcap form, K2 (SO and
-   MT), K3, K4, K6b and K9 (blocks per cluster, threads, registers, shared
-   memory, the clusters resident at once: cudaOccupancyMaxActiveClusters;
-   K6b's and K9's at the terrain's tile 2048 and the soup's 512, and
-   their blocks and threads at four tiles held to the launch rule, a
-   tile that no launch takes refused) and G1's,
+   MT), K3, K4, K5 (SO and MT), K6a, K6b and K9 (blocks per cluster,
+   threads, registers, shared memory, the clusters resident at once:
+   cudaOccupancyMaxActiveClusters; K5's, K6a's, K6b's and K9's at the
+   terrain's tile 2048 and the soup's 512, and their blocks and threads
+   at tiles 224, 512, 2048 and 4096 held to the launch rule, a tile that
+   no launch takes (544) refused) and G1's,
    W1's and W2's launch shapes (threads a block, threads a ray or rays a
    thread, blocks resident on an SM, registers, shared memory, spill
    bytes; W1's and W2's `-Xptxas -v` lines also go to the kernels line);
@@ -107,18 +109,22 @@ queue engine (kernel K5):
 18. K5 through traverse_packet(engine="queue") on three inputs (terrain
    primaries SO + cull at tile 2048, soup primaries SO + cull at 512, the
    mirror bounce wave MT + active + cull), counted (3 launches, nothing
-   else); then K5 against its plain version on every 8th tile of each,
-   exact in t, slot and all five lanes;
+   else); then K5 against its plain version on every 8th tile of the
+   primaries and every 16th of the mirror wave, exact in t, slot and all
+   five lanes, and on the terrain primaries at tile 4096 (every 16th) and
+   128 (one block a tile, every 256th);
 19. K5 beside K3 (its cull form, no strips or frustum) on the same inputs:
-   hits and best t equal, slots equal but at exact-t ties; both times,
-   taken in turns, beside the bound, with windows tested and culled per
-   tile; and the strips frame's K3 time of phase 15.
+   hits and best t equal, slots equal but at exact-t ties; both times (with
+   --parent also the parent's K5), taken in turns, beside the bound, with
+   windows tested and culled per tile; and the strips frame's K3 time of
+   phase 15; K5's heaviest mirror tile goes to phase 38.
 
 The v1 walks (kernels K6a, K6b and K9, ops/csrc/packet_v1.cu):
 
 20. the stack guard: a degenerate 102-node table whose walk stays inside
-   the 128-entry stack runs, one of 202 nodes raises (K6b), and the same
-   with supernode chains of 12 and 32 rows (K9); the byte rule of
+   the 128-entry stack runs, one of 202 nodes raises (K6a and K6b), and
+   the same with supernode chains of 12 and 32 rows (K9), each at the
+   soup's tile 512 (a cluster) and at 32 (one block); the byte rule of
    engine="legacy" on both 1M trees (K6b: the records do not fit its
    budget, so K6a is reached only through its op-level entry,
    packet_legacy(resident=True));
@@ -133,14 +139,15 @@ The v1 walks (kernels K6a, K6b and K9, ops/csrc/packet_v1.cu):
 22. each kernel against its plain version, exact in best t, best slot and
    all five stats lanes, on every 8th tile of the primaries and every
    16th tile of the mirror wave (the plain walks there stream most of the
-   tree's windows); the plain runs count the pairs tested and their early
-   exits for the bounds;
+   tree's windows), and on the terrain primaries at tile 4096 (every
+   16th) and 128 (one block a tile, every 256th); the plain runs count
+   the pairs tested and their early exits for the bounds;
 23. K3 (its MT form with the AABB cull: the same records, the same rays,
    the same active mask on the mirror wave) and the three v1 kernels timed
-   in turns on each input (with --parent also the parent's K6b and K9, in
-   the same turns), with node pops and windows (K6a: leaves) per tile,
-   mean and max, and each v1 kernel's bound; K6b's and K9's heaviest
-   mirror tiles go to phase 38.
+   in turns on each input (with --parent also the parent's K6a, K6b and
+   K9, in the same turns), with node pops and windows (K6a: leaves) per
+   tile, mean and max, and each v1 kernel's bound; their heaviest mirror
+   tiles go to phase 38.
 
 The half-split walk K7 (ops/csrc/packet_stream2.cu) and the plane-form
 walk K8 (ops/csrc/packet_mxu.cu):
@@ -248,14 +255,15 @@ emissive_frac 0.001), windows at win_rows 8, camera [0, 0, -25] looking
 The tail of the two cluster walks:
 
 38. the heaviest unit of each mirror wave alone: K1''s heaviest bundle of
-   phase 10, K3's (MT form) heaviest tile of phase 13 and K6b's and K9's
-   heaviest tiles of phase 21, each cut out as a one-unit call; its result
+   phase 10, K3's (MT form) heaviest tile of phase 13, K5's of phase 18
+   and K6a's, K6b's and K9's of phase 21, each cut out as a one-unit call;
+   its result
    equal to the full launch's lanes and stats row and to its plain
    version's (exact); its time beside the full launch's and beside its own
    FP32 bound (its pairs weighted by their exits, counted by the plain
    run) on one SM and on the SMs of its cluster, and what its warps issue;
-   with --parent, K6b's and K9's tiles alone on the parent's kernels and
-   on this tree's, in turns.
+   with --parent, K5's, K6a's, K6b's and K9's tiles alone on the parent's
+   kernels and on this tree's, in turns.
 
 The JAX package's default kd route (intersector "wavefront"): the per-ray
 rope walk W1 (ops/csrc/ray_walk.cu) and the brute force W2
@@ -414,13 +422,13 @@ count beside them (phase 43's as "diff step W1", "diff step K3" and
 phase 45's row frames, "parallel"; W1's entry phase 45's ring,
 "parallel"; W1's entry also holds phase 43's steps, peak memory
 and crop check, and W1's, W2's, K3's and G1's their gradient checks);
-the cluster walks (K1, K1', K1's kcap form, K2, K3, K4, K6b, K9) also give
-their blocks per cluster ("cluster"), G1 its tail calls, W1 each
-wave of phase 40; K6b and K9 also "redesigned" (the schedule that
-replaced their first one), their heaviest mirror tile alone
-("mirror_tail") and, with
---parent, the parent's times on the three calls ("parent_ms",
-"soup_parent_ms", "mirror_wave_parent_ms"; null without --parent).
+the cluster walks (K1, K1', K1's kcap form, K2, K3, K4, K5, K6a, K6b,
+K9) also give their blocks per cluster ("cluster"), G1 its tail calls,
+W1 each wave of phase 40; K5, K6a, K6b and K9 also "redesigned" (the
+schedule that replaced their first one), their heaviest mirror tile
+alone ("mirror_tail") and, with --parent, the parent's times on the
+three calls ("parent_ms", "soup_parent_ms", "mirror_wave_parent_ms";
+null without --parent).
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -823,11 +831,16 @@ def k1_tail(args, out, full_ms):
         shape=("plist_super_shape", 1, WIN_ROWS))
 
 
-def k3_tail(args, kw, out, full_ms):
-    """Phase 38's K3 unit: the heaviest tile (most windows streamed) of the
-    call (args, kw, out), cut out as a one-tile call, with the full
-    launch's outputs for its lanes and its stats row."""
+def k3_tail(args, kw, out, full_ms, queue=False):
+    """Phase 38's K3 unit (queue: K5's): the heaviest tile (most windows
+    streamed) of the call (args, kw, out), cut out as a one-tile call, with
+    the full launch's outputs for its lanes and its stats row."""
     tile = kw["tile"]
+    fn, plain, shape = (
+        (packet.packet_queue, packet.packet_queue_reference,
+         ("packet_queue_shape", tile, int(kw["so"]))) if queue else
+        (packet.packet_stream, packet.packet_stream_reference,
+         ("packet_stream_shape", tile, int(kw["so"]), 0)))
     ti = int(torch.argmax(out[2][:, 1]))
     lanes = slice(ti * tile, (ti + 1) * tile)
     one = (*args[:3], *(a[..., lanes].contiguous() for a in args[3:]))
@@ -838,21 +851,21 @@ def k3_tail(args, kw, out, full_ms):
         unit=f"tile {ti}", n_units=out[2].shape[0], full_ms=full_ms,
         full=(out[0][lanes].clone(), out[1][lanes].clone(),
               out[2][ti:ti + 1].clone()),
-        call=lambda: packet.packet_stream(*one, **okw),
-        plain=lambda tally: packet.packet_stream_reference(
-            *one, tally=tally, **okw),
-        tests=lambda st: k3_tests(st, tile),
-        shape=("packet_stream_shape", tile, int(kw["so"]), 0))
+        call=lambda: fn(*one, **okw),
+        plain=lambda tally: plain(*one, tally=tally, **okw),
+        tests=lambda st: k3_tests(st, tile), shape=shape,
+        entry="packet_queue_launch" if queue else None)
 
 
 def tail_phase(tails, parent=None):
     """Phase 38: the heaviest unit of each mirror wave alone (K1' bundle,
-    K3, K6b and K9 MT tiles), held exactly against the full launch's lanes
-    and against its plain version, timed beside the full launch and its own
-    FP32 bound on one SM and on the SMs of its cluster; a unit whose launch
-    entry `parent` holds is also timed on the parent's kernel, in turns.
-    Returns {name: {"alone_ms", "full_ms", "windows", "cluster",
-    "bound_one_sm_ms", "parent_alone_ms"}}."""
+    K3, K5, K6a, K6b and K9 MT tiles), held exactly against the full
+    launch's lanes and against its plain version, timed beside the full
+    launch and its own FP32 bound on one SM and on the SMs of its cluster;
+    a unit whose launch entry `parent` holds is also timed on the parent's
+    kernel, in turns.
+    Returns {name: {"alone_ms", "full_ms", "windows" (K6a: "leaves"),
+    "cluster", "bound_one_sm_ms", "parent_alone_ms"}}."""
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     sm_rate = PEAK_FP32_OPS / n_sm
     res = {}
@@ -863,8 +876,9 @@ def tail_phase(tails, parent=None):
         ref = t.plain(tally)
         bad = [int((x != y).sum()) for x, y in zip(out, t.full)]
         bad_plain = [int((x != y).sum()) for x, y in zip(ref, t.full)]
+        lane1 = getattr(t, "lane1", "windows")
         say("tail", f"{name}, {t.unit} alone ({int(t.full[2][0, 1])} "
-            "windows) against the full launch's lanes and stats row "
+            f"{lane1}) against the full launch's lanes and stats row "
             f"(tolerance: exact): t/slot/stats mismatches {bad}; the plain "
             f"version's against the same {bad_plain}")
         if any(bad) or any(bad_plain):
@@ -882,7 +896,7 @@ def tail_phase(tails, parent=None):
             f"{c} SMs of its cluster; warp-issued {wops} ({wops / ops:.3f}x):"
             f" {wops / sm_rate * 1e3:.4f} ms on one SM")
         res[name] = {"alone_ms": ms, "full_ms": t.full_ms,
-                     "windows": int(t.full[2][0, 1]), "cluster": c,
+                     lane1: int(t.full[2][0, 1]), "cluster": c,
                      "bound_one_sm_ms": one_sm, "parent_alone_ms": None}
         if parent and getattr(t, "entry", None) in parent:
             p_ms, c_ms = parent_turns(parent, t.call, 3)
@@ -937,7 +951,7 @@ def main():
             f"{sh['static_smem']} + {sh['dynamic_smem']} bytes of shared "
             f"memory a block, at most {sh['max_active_clusters']} clusters "
             "resident")
-    v1_shapes()
+    tile_shapes()
     walk_shapes = {}
     for name, g, kernel in (
             ("traverse_grid", grid_shape(), None),
@@ -992,41 +1006,60 @@ def cluster_shapes():
             "packet_stream": cluster_shape("packet_stream_shape", tile, 1, 0),
             "packet_stream_bf16": cluster_shape("packet_stream_shape", tile,
                                                 0, 1),
+            "packet_queue": cluster_shape("packet_queue_shape", tile, 1),
+            "packet_queue MT": cluster_shape("packet_queue_shape", tile, 0),
+            "packet_legacy_resident": cluster_shape("packet_v1_shape", tile,
+                                                    0),
             "packet_legacy": cluster_shape("packet_v1_shape", tile, 1),
             "packet_wide": cluster_shape("packet_v1_shape", tile, 2),
+            "packet_queue soup": cluster_shape("packet_queue_shape",
+                                               SOUP_KD["tile"], 1),
+            "packet_legacy_resident soup": cluster_shape(
+                "packet_v1_shape", SOUP_KD["tile"], 0),
             "packet_legacy soup": cluster_shape("packet_v1_shape",
                                                 SOUP_KD["tile"], 1),
             "packet_wide soup": cluster_shape("packet_v1_shape",
                                               SOUP_KD["tile"], 2)}
 
 
-def v1_shapes():
-    """Phase 2's check of K6b's and K9's launch rule on the card
-    (packet_v1_shape): a tile of a multiple of 256 rays, as the main
-    path's 2048 and 512, runs on a cluster of 8 blocks with 2 threads a
-    lane, a smaller tile on one block with one thread a lane, and a tile
-    that no launch takes (544) is refused."""
+# the kd walks that share K3's launch rule: (shape entry, its last
+# argument: K5's SO form, the v1 engine)
+TILE_RULE = {"K5 SO": ("packet_queue_shape", 1),
+             "K5 MT": ("packet_queue_shape", 0),
+             "K6a": ("packet_v1_shape", 0), "K6b": ("packet_v1_shape", 1),
+             "K9": ("packet_v1_shape", 2)}
+
+
+def tile_shapes():
+    """Phase 2's check of the launch rule of K5, K6a, K6b and K9 on the
+    card (packet_queue_shape, packet_v1_shape): a tile of a multiple of
+    256 rays, as the main path's 2048 and 512, runs on a cluster of 8
+    blocks with 2 threads a lane, a smaller tile on one block with one
+    thread a lane, and a tile that no launch takes (544) is refused."""
     seen = []
     for tile, want in ((224, (1, 224)), (512, (8, 128)), (2048, (8, 512)),
                        (4096, (8, 1024))):
-        for engine in (1, 2):
-            sh = cluster_shape("packet_v1_shape", tile, engine)
+        for name, (entry, last) in TILE_RULE.items():
+            sh = cluster_shape(entry, tile, last)
             if (sh["cluster"], sh["threads"]) != want:
-                raise AssertionError(f"v1 shape: tile {tile} engine {engine}"
-                                     f": {sh}, not {want}")
+                raise AssertionError(f"tile shape: {name} at tile {tile}: "
+                                     f"{sh}, not {want}")
         seen.append(f"{tile}: {want[0]} x {want[1]}")
-    try:
-        cluster_shape("packet_v1_shape", 544, 1)
-    except RuntimeError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("v1 shape: tile 544 was not refused")
-    say("build", "K6b/K9 launches (tile: blocks a tile x threads a block): "
-        f"{', '.join(seen)}; tile 544 refused: {refused}")
+    refused = []
+    for name, (entry, last) in TILE_RULE.items():
+        try:
+            cluster_shape(entry, 544, last)
+        except RuntimeError as e:
+            refused.append(str(e))
+        else:
+            raise AssertionError(f"tile shape: {name} took tile 544")
+    say("build", f"{'/'.join(TILE_RULE)} launches (tile: blocks a tile x "
+        f"threads a block): {', '.join(seen)}; tile 544 refused: "
+        f"{'; '.join(refused)}")
 
 
 # the parent tree's sources whose kernels --parent builds and times
-PARENT_STEMS = ("packet_v1",)
+PARENT_STEMS = ("packet_v1", "packet_queue")
 
 
 def parent_library(parent_dir):
@@ -1175,7 +1208,8 @@ def path_leg_parent(parent, frame):
 
 def smoke(device, parent=None):
     """Phases 3-45 on `device`; returns the kernels line's entries. parent:
-    parent_library's entries, timed beside this tree's W1 and W2."""
+    parent_library's entries, timed beside this tree's kernels of the same
+    sources."""
     # 3. scene at full size
     t = time.perf_counter()
     scene = terrain_mesh(N_TRIS, seed=0, extent=10.0,
@@ -1427,13 +1461,14 @@ def smoke(device, parent=None):
 
     k3, ctx = kd_route(device, scene, soup, cam, scam, launches)
     k4 = preview_route(ctx, launches)
-    k5 = queue_engine(ctx, launches)
+    k5 = queue_engine(ctx, launches, parent)
     v1 = v1_engines(ctx, launches, parent)
     k7_k8 = stream2_mxu_engines(ctx, launches)
     sched = plist_schedules(device, scene, soup, cam, scam, launches)
     del soup
     grid_entries = nee_grid(device, scene, launches)
     tails["K3 MT"] = ctx["tail"]
+    tails["K5 MT"] = ctx["queue_tail"]
     tails.update(ctx["v1_tails"])
     tail_res = tail_phase(tails, parent)
     walk_entries = walk_route(
@@ -1477,6 +1512,8 @@ def smoke(device, parent=None):
     by_name["ray_walk"]["diff_steps"] = diff["steps"]
     by_name["ray_walk"]["diff_crop"] = diff["crop"]
     by_name["ray_walk"]["diff_peak_bytes"] = diff["peak_bytes"]
+    by_name["packet_queue"]["mirror_tail"] = tail_res["K5 MT"]
+    by_name["packet_legacy_resident"]["mirror_tail"] = tail_res["K6a MT"]
     by_name["packet_legacy"]["mirror_tail"] = tail_res["K6b MT"]
     by_name["packet_wide"]["mirror_tail"] = tail_res["K9 MT"]
     by_name["plist_super"]["cli_seconds"] = cli
@@ -1863,9 +1900,17 @@ def preview_split(scene, cam, tree, opts, orig, dirs, prim):
             "resolve+shade": median_ms(resolve_shade, 5)}
 
 
-def queue_engine(ctx, launches):
+# K5's schedule on the card, for the kernels line (blocks a cluster: the
+# entry's "cluster", read from packet_queue_shape)
+QUEUE_SCHEDULE = ("a cluster a tile of 256k rays, 2 threads a lane, a ring "
+                  "of 8 windows (cols 0-11) a block")
+
+
+def queue_engine(ctx, launches, parent=None):
     """Phases 18-19: the queue engine K5, beside K3. Returns K5's kernels
-    entry."""
+    entry; its heaviest mirror tile goes to ctx["queue_tail"] for phase 38.
+    parent: parent_library's entries, whose K5 is timed in turns beside
+    this tree's."""
     t_tile, s_tile = TERRAIN_KD["tile"], SOUP_KD["tile"]
     tree, stree = ctx["tree"], ctx["stree"]
     device = ctx["orig"].device
@@ -1877,7 +1922,8 @@ def queue_engine(ctx, launches):
                              ctx["ba"], False)}
 
     # 18. the three queue calls through the entry point, counted; then the
-    # kernel against its plain version on every 8th tile of each
+    # kernel against its plain version on every 8th tile of the primaries
+    # and every 16th of the mirror wave
     reset_counts()
     recs = {name: packet.traverse_packet(
                 tr, o, d, shape, tile, engine="queue", active=act,
@@ -1902,10 +1948,12 @@ def queue_engine(ctx, launches):
                                             device=device)
         e, plain_ms, ref_stats = compare_k3(
             f"K5 {name}", q_out, args, kw, tally=tally,
+            every=16 if name == "mirror wave" else EVERY,
             plain=packet.packet_queue_reference)
         err = max(err, e)
 
-        # 19. K5 beside K3 in its cull form on the same inputs
+        # 19. K5 beside K3 in its cull form on the same inputs (and the
+        # parent's K5, in the same turns)
         s_out = packet.packet_stream(*args, **kw)
         torch.cuda.synchronize()
         same_hit = torch.equal(q_out[1] >= 0, s_out[1] >= 0)
@@ -1916,22 +1964,46 @@ def queue_engine(ctx, launches):
             f"{int((s_out[1] >= 0).sum())} hits")
         if not (same_hit and same_t):
             raise AssertionError(f"K5 {name}: hits or t differ from K3's")
-        k3_ms, q_ms = turns_ms([lambda: packet.packet_stream(*args, **kw),
-                                lambda: packet.packet_queue(*args, **kw)],
-                               4 if name == "mirror wave" else 10)
+
+        def queue(args=args, kw=kw):
+            return packet.packet_queue(*args, **kw)
+
+        def with_parent(queue=queue):
+            with swapped(parent):
+                queue()
+        fns = [lambda: packet.packet_stream(*args, **kw), queue]
+        ms = turns_ms(fns + ([with_parent] if parent else []),
+                      4 if name == "mirror wave" else 10)
+        k3_ms, q_ms = ms[:2]
+        p_ms = ms[2] if parent else None
         if so:
             tests = k3_tests(q_out[2], tile)
             bnd, by = bound(k3_tensors(args, kw, q_out), tests * K1_OPS)
         else:
             bnd, by, tests, _, _ = mt_bound(args, kw, q_out, ref_stats, tally)
         k5[name] = dict(ms=q_ms, k3_ms=k3_ms, plain_ms=plain_ms, bound=bnd,
-                        by=by)
+                        by=by, parent_ms=p_ms)
+        was = ("" if p_ms is None else f"; the parent's K5 {p_ms:.4f} ms in "
+               f"the same turns ({q_ms / p_ms:.3f} x)")
         say(f"K5 vs K3 {name}", f"K5 {q_ms:.4f} ms, K3 {k3_ms:.4f} ms (in "
-            f"turns), bound {bnd:.4f} ms ({by}; {tests} "
+            f"turns{was}), bound {bnd:.4f} ms ({by}; {tests} "
             f"{'SO' if so else 'MT'} tests); K5 " + tile_stats_line(
                 q_out[2], tile) + "; K3 " + tile_stats_line(s_out[2], tile))
+        if name == "mirror wave":
+            ctx["queue_tail"] = k3_tail(args, kw, q_out, q_ms, queue=True)
     say("K5 vs K3", f"the terrain frame's K3 with strips (the route users get "
         f"today): {ctx['k3_ms']:.4f} ms")
+    # 18, K5's other launch forms on the terrain primaries: tile 4096 (a
+    # cluster of blocks of 1024 threads) and 128 (one block a tile)
+    for tile, every in ((4096, 16), (128, 256)):
+        args, kw, _ = packet.stream_kernel_args(
+            tree, ctx["orig"], ctx["dirs"], (SIZE, SIZE), tile, None, True,
+            True, strips=False, frustum=False)
+        out = packet.packet_queue(*args, **kw)
+        torch.cuda.synchronize()
+        err = max(err, compare_k3(f"K5 terrain tile {tile}", out, args, kw,
+                                  every=every,
+                                  plain=packet.packet_queue_reference)[0])
     k = k5["terrain"]
     return {"name": "packet_queue", "route": "cuda",
             "source": "clpathtracer_tpu_torch/ops/csrc/packet_queue.cu",
@@ -1945,9 +2017,13 @@ def queue_engine(ctx, launches):
             "bound_ms": k["bound"], "bound_by": k["by"], "library_ms": None,
             "k3_ms": k["k3_ms"],
             "soup_ms": k5["soup"]["ms"], "soup_k3_ms": k5["soup"]["k3_ms"],
+            "soup_bound_ms": k5["soup"]["bound"],
             "mirror_wave_ms": k5["mirror wave"]["ms"],
             "mirror_wave_k3_ms": k5["mirror wave"]["k3_ms"],
-            "mirror_wave_bound_ms": k5["mirror wave"]["bound"]}
+            "mirror_wave_bound_ms": k5["mirror wave"]["bound"],
+            "redesigned": QUEUE_SCHEDULE, "parent_ms": k["parent_ms"],
+            "soup_parent_ms": k5["soup"]["parent_ms"],
+            "mirror_wave_parent_ms": k5["mirror wave"]["parent_ms"]}
 
 
 def chain_tables(depth, wide_depth, device):
@@ -1976,25 +2052,28 @@ def chain_tables(depth, wide_depth, device):
 
 def stack_guard(recs, orig_t, dir_t, tile):
     """Phase 20's first part: the v1 kernels' stack guard on the card, on
-    both launch forms of K6b and K9 (`tile`: a cluster a tile; 32: one
-    block)."""
+    both launch forms of K6a, K6b and K9 (`tile`: a cluster a tile; 32:
+    one block). The chains' one live leaf is empty: K6a tests it (lane 1
+    counts leaves), K6b and K9 stream no window."""
     ok = chain_tables(100, 10, recs.device)
     bad = chain_tables(200, 30, recs.device)
-    for engine, pops, t in (("K6b", 201, tile), ("K9", 81, tile),
-                            ("K6b", 201, 32), ("K9", 81, 32)):
-        if engine == "K6b":
-            def call(tabs, t=t):
-                return packet.packet_legacy(tabs[0], recs, orig_t, dir_t,
-                                            tile=t, resident=False)
-        else:
+    for engine, pops, t in ((e, p, t) for t in (tile, 32) for e, p in (
+            ("K6a", 201), ("K6b", 201), ("K9", 81))):
+        if engine == "K9":
             def call(tabs, t=t):
                 return packet.packet_wide(tabs[1], recs, orig_t, dir_t,
                                           tile=t)
+        else:
+            def call(tabs, t=t, resident=engine == "K6a"):
+                return packet.packet_legacy(tabs[0], recs, orig_t, dir_t,
+                                            tile=t, resident=resident)
         st = call(ok)[2]
+        leaves = int(engine == "K6a")
         if not (bool((st[:, 0] == pops).all())
-                and bool((st[:, 1] == 0).all())):
-            raise AssertionError(f"stack guard: {engine} pops "
-                                 f"{st[:, 0].tolist()}, want {pops}")
+                and bool((st[:, 1] == leaves).all())):
+            raise AssertionError(f"stack guard: {engine} pops / lane 1 "
+                                 f"{st[:, :2].tolist()}, want {pops} / "
+                                 f"{leaves}")
         try:
             call(bad)
         except RuntimeError as e:
@@ -2033,18 +2112,18 @@ def v1_line(stats, tile, lane1):
             f"(max {int(st[:, 1].max())}); {stats.shape[0]} tiles of {tile}")
 
 
-# K6b's and K9's schedule on the card, for the kernels line (blocks a
+# the v1 kernels' schedule on the card, for the kernels line (blocks a
 # cluster: the entry's "cluster", read from packet_v1_shape)
 V1_SCHEDULE = ("a cluster a tile of 256k rays, 2 threads a lane, a ring of "
-               "4 windows")
+               "4 buffers of 128 records (K6b, K9: windows; K6a: the leaf's "
+               "own records in chunks)")
 
 
 def v1_engines(ctx, launches, parent=None):
     """Phases 20-23: the v1 walks K6a, K6b and K9, beside K3. Returns
-    their kernels entries; K6b's and K9's heaviest mirror tiles go to
-    ctx["v1_tails"] for phase 38. parent: the parent tree's packet_v1
-    entry (parent_library), whose K6b and K9 are timed in turns beside
-    this tree's."""
+    their kernels entries; their heaviest mirror tiles go to
+    ctx["v1_tails"] for phase 38. parent: parent_library's entries, whose
+    K6a, K6b and K9 are timed in turns beside this tree's."""
     n = SIZE * SIZE
     t_tile, s_tile = TERRAIN_KD["tile"], SOUP_KD["tile"]
     tree, stree = ctx["tree"], ctx["stree"]
@@ -2141,7 +2220,6 @@ def v1_engines(ctx, launches, parent=None):
         k3_args, k3_kw, _ = packet.stream_kernel_args(
             tr, o, d, shape, tile, act, strips=False, frustum=False)
         fns = [lambda: packet.packet_stream(*k3_args, **k3_kw)]
-        redesigned = []   # the parent's K6b and K9, timed in the same turns
         for kernel in kernels:
             args, kw, _, fn, plain = v1_call(name, kernel)
             out = outs[name, kernel]
@@ -2154,10 +2232,8 @@ def v1_engines(ctx, launches, parent=None):
             res[name, kernel] = dict(plain_ms=plain_ms, bound=bnd, by=by,
                                      tests=tests, ops=ops, parent_ms=None)
             fns.append(lambda args=args, kw=kw, fn=fn: fn(*args, **kw))
-            if kernel != "K6a":
-                redesigned.append((kernel, fns[-1]))
-        if parent:
-            for kernel, call in redesigned:
+        if parent:   # the parent's kernels, timed in the same turns
+            for call in fns[1:1 + len(kernels)]:
                 def with_parent(call=call):
                     with swapped(parent):
                         call()
@@ -2168,7 +2244,7 @@ def v1_engines(ctx, launches, parent=None):
         say(f"v1 vs K3 {name}", f"K3 (MT, AABB cull) {ms[0]:.4f} ms; "
             + tile_stats_line(k3_out[2], tile))
         if parent:
-            for (kernel, _), pms in zip(redesigned, ms[1 + len(kernels):]):
+            for kernel, pms in zip(kernels, ms[1 + len(kernels):]):
                 res[name, kernel]["parent_ms"] = pms
         for (kernel, (_, _, lane1)), kms in zip(kernels.items(), ms[1:]):
             r = res[name, kernel]
@@ -2183,22 +2259,22 @@ def v1_engines(ctx, launches, parent=None):
                 f"each by early exit); " + v1_line(outs[name, kernel][2],
                                                   tile, lane1))
         if name == "mirror wave":
-            for kernel in ("K6b", "K9"):
+            for engine, kernel in enumerate(kernels):
                 args, kw, _, fn, plain = v1_call(name, kernel)
                 ctx["v1_tails"][f"{kernel} MT"] = v1_tail(
                     args, kw, outs[name, kernel], res[name, kernel]["ms"],
-                    fn, plain, 1 if kernel == "K6b" else 2)
-    # 22, K6b's and K9's other launch forms on the terrain primaries: tile
+                    fn, plain, engine)
+    # 22, the v1 kernels' other launch forms on the terrain primaries: tile
     # 4096 (a cluster of blocks of 1024 threads) and 128 (one block a tile)
     for tile, every in ((4096, 16), (128, 256)):
-        for kernel in ("K6b", "K9"):
+        for kernel in kernels:
             args, _ = packet.v1_kernel_args(tree, ctx["orig"], ctx["dirs"],
                                             (SIZE, SIZE), tile,
                                             kernels[kernel][0])
             kw = {"tile": tile}
             fn, plain = packet.packet_wide, packet.packet_wide_reference
-            if kernel == "K6b":
-                kw["resident"] = False
+            if kernel != "K9":
+                kw["resident"] = kernel == "K6a"
                 fn, plain = (packet.packet_legacy,
                              packet.packet_legacy_reference)
             out = fn(*args, **kw)
@@ -2226,36 +2302,40 @@ def v1_engines(ctx, launches, parent=None):
             "soup_k3_ms": s_["k3_ms"], "soup_bound_ms": s_["bound"],
             "mirror_wave_ms": m["ms"], "mirror_wave_k3_ms": m["k3_ms"],
             "mirror_wave_bound_ms": m["bound"],
-            **({} if kernel == "K6a" else {
-                "redesigned": V1_SCHEDULE, "parent_ms": t["parent_ms"],
-                "soup_parent_ms": s_["parent_ms"],
-                "mirror_wave_parent_ms": m["parent_ms"]})})
+            "redesigned": V1_SCHEDULE, "parent_ms": t["parent_ms"],
+            "soup_parent_ms": s_["parent_ms"],
+            "mirror_wave_parent_ms": m["parent_ms"]})
     return entries
 
 
 def v1_tail(args, kw, out, full_ms, fn, plain, engine):
-    """Phase 38's K6b or K9 unit: the heaviest tile (most windows
-    streamed) of the call (args, kw, out), cut out as a one-tile call, with
-    the full launch's outputs for its lanes and its stats row. Its plain
-    run fills a 7-lane tally as mt_pairs does (the v1 plain versions count
-    the pairs tested in a lane before it)."""
+    """Phase 38's K6a, K6b or K9 unit (engine 0, 1, 2): the heaviest tile
+    (most leaves or windows) of the call (args, kw, out), cut out as a
+    one-tile call, with the full launch's outputs for its lanes and its
+    stats row. Its plain run fills a 7-lane tally as mt_pairs does (the v1
+    plain versions count the pairs tested in a lane before it); K6a's
+    pairs are those that run counted, its stats counting leaves."""
     tile = kw["tile"]
     ti = int(torch.argmax(out[2][:, 1]))
     lanes = slice(ti * tile, (ti + 1) * tile)
     one = (*args[:2], *(a[:, lanes].contiguous() for a in args[2:]))
+    pairs = []
 
     def plain_tally(tally):
         t8 = torch.zeros(8, dtype=torch.int64, device=tally.device)
         ref = plain(*one, tally=t8, **kw)
         tally.copy_(t8[1:])
+        pairs.append(int(t8[0]))
         return ref
     return SimpleNamespace(
         unit=f"tile {ti}", n_units=out[2].shape[0], full_ms=full_ms,
         full=(out[0][lanes].clone(), out[1][lanes].clone(),
               out[2][ti:ti + 1].clone()),
         call=lambda: fn(*one, **kw), plain=plain_tally,
-        tests=lambda st: int(st[:, 1].sum()) * 128 * tile,
-        shape=("packet_v1_shape", tile, engine), entry="packet_v1_launch")
+        tests=lambda st: (pairs[-1] if engine == 0
+                          else int(st[:, 1].sum()) * 128 * tile),
+        shape=("packet_v1_shape", tile, engine), entry="packet_v1_launch",
+        lane1="leaves" if engine == 0 else "windows")
 
 
 def compare_v1(name, kernel_out, args, kw, plain, every, tally):

@@ -78,6 +78,8 @@ SIGNATURES = {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, best_t,
         # best_slot, stats, overflow, n_rays, tile, n_rows, so, stream
         "packet_queue_launch": [_P] * 11 + [_I] * 4 + [_P],
+        # tile, so, out [6] i32
+        "packet_queue_shape": [_I, _I, _P],
     },
     "packet_stream2": {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, best_t, best_slot,

@@ -10,10 +10,10 @@
 // A walk is block-uniform: every thread of the block computes the same
 // pops, interval tests and window decisions from the same reads; thread 0
 // writes the stack in shared memory and barriers order its reads and
-// writes. The packet bounds and t_upper are block reductions (K3/K4, K6b
-// and K9 run the walk on every block of a cluster and reduce them over the
-// cluster instead: cluster_bounds, cluster_t_upper; packet_stream.cu,
-// packet_v1.cu, cluster.cuh).
+// writes. The packet bounds and t_upper are block reductions (K3/K4, K5,
+// K6a, K6b and K9 run the walk on every block of a cluster and reduce them
+// over the cluster instead: cluster_bounds, cluster_t_upper;
+// packet_stream.cu, packet_queue.cu, packet_v1.cu, cluster.cuh).
 //
 //   packet bounds: per axis the origin range and the clipped inverse-
 //     direction range over the tile's active lanes
@@ -25,11 +25,11 @@
 //   split_interval: the crossing of one split plane (_split_plane_interval);
 //   window_keeps: the AABB window cull, [ltlo, min(lthi, t_upper)] against
 //     the window's box interval;
-//   dense_window: the dense test of one staged window of 128 records
-//     against a thread's rays, merged with the TPU kernels' tie rule;
+//   dense_window: the dense MT test of one staged window of 128 records
+//     against a thread's rays, merged with the TPU kernels' tie rule (K7);
 //   precedes, dense_split: the window's tie rule as a total order, and
 //     dense_window with kS threads a lane whose winners merge by it (K3,
-//     K6b, K9);
+//     K5, K6b, K9);
 //   stream_windows: a run of windows on the clamped grid, double-buffered
 //     with cp.async, each tested by dense_window;
 //   load_rays, push_root, push_children, store_tile: the frame of a
@@ -427,33 +427,27 @@ __device__ __forceinline__ int push_children(const Bounds& B, int4 nd,
   return sp;
 }
 
-// The dense test of one staged window (kWinRecs records, kStride float4s
-// apart, cols 0-11 in the first three) against this thread's rays; lanes
-// whose gate bit is clear (gates >> (lane / kGate)) are skipped. Tie rule,
-// that of clpathtracer_tpu/ops/packet.py::_mt_chunk_math: within the window
-// the least t, among equal t the lowest row of 8 records and within it the
+// The dense MT test of one staged window (kWinRecs records, cols 0-11,
+// kUsedF4 float4s apart) against this thread's rays. Tie rule, that of
+// clpathtracer_tpu/ops/packet.py::_mt_chunk_math: within the window the
+// least t, among equal t the lowest row of 8 records and within it the
 // highest record; against the earlier windows the later window wins at
-// equal t. kBF16: the MT test of the bf16 preview (mt_hit_bf16; the caller
-// staged the records and the rays rounded to bf16).
-template <int RPT, bool kSO, bool kBF16, int kStride, int kGate>
+// equal t.
+template <int RPT>
 __device__ __forceinline__ void dense_window(const float4* win, const Ray* ray,
-                                             const bool* on, unsigned gates,
-                                             long long rec0, float* bt,
-                                             int* bs) {
+                                             const bool* on, long long rec0,
+                                             float* bt, int* bs) {
 #pragma unroll
   for (int k = 0; k < RPT; ++k) {
     if (!on[k]) continue;
-    if (!((gates >> ((threadIdx.x + k * blockDim.x) / kGate)) & 1u)) continue;
     float ct = kBig;
     int cr = -1;  // record of ct within the window
     for (int r = 0; r < kWinRecs; ++r) {
-      const float4 p = win[r * kStride];
-      const float4 q = win[r * kStride + 1];
-      const float4 w = win[r * kStride + 2];
+      const float4 p = win[r * kUsedF4];
+      const float4 q = win[r * kUsedF4 + 1];
+      const float4 w = win[r * kUsedF4 + 2];
       float t;
-      const bool hit = kSO     ? so_hit(ray[k], p, q, w, &t)
-                       : kBF16 ? mt_hit_bf16(ray[k], p, q, w, &t)
-                               : mt_hit(ray[k], p, q, w, &t);
+      const bool hit = mt_hit(ray[k], p, q, w, &t);
       // least t; at equal t the same row's later record
       if (hit && t < kBig &&
           (t < ct || (t == ct && (r >> 3) == (cr >> 3)))) {
@@ -562,9 +556,8 @@ __device__ void stream_windows(const float4* recs, int n_rows, int row0,
     }
     __syncthreads();  // every thread's part of window b has landed
     const int row = min(row0 + b * kChunkRows, n_rows - kChunkRows);
-    dense_window<RPT, false, false, kUsedF4, kMaxThreads>(
-        buf + (b & 1) * kWinUsedF4, ray, on, 0xffffffffu, (long long)row * 8,
-        bt, bs);
+    dense_window<RPT>(buf + (b & 1) * kWinUsedF4, ray, on,
+                      (long long)row * 8, bt, bs);
     __syncthreads();  // every thread is done with it before its reuse
   }
 }

@@ -547,6 +547,16 @@ def _kernel_mode(cbnd, frustum, masks):
     return _CULL_FRUSTUM if frustum is not None else _CULL
 
 
+def _walk_takes(tile: int) -> bool:
+    """Whether the kd walk wrappers take `tile` rays a tile: a multiple of
+    32 up to 4096 and of 512 above 512. K5 (ops/csrc/packet_queue.cu), K6a,
+    K6b and K9 (ops/csrc/packet_v1.cu) launch every such tile; which of
+    them run on a cluster is the kernel's choice (packet_queue_shape,
+    packet_v1_shape)."""
+    return 0 < tile <= 4096 and tile % 32 == 0 and (tile <= 512
+                                                   or tile % 512 == 0)
+
+
 def _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
                        cbnd, frustum, masks, ten, n_strips,
                        name="packet_stream"):
@@ -564,8 +574,7 @@ def _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
                              f"tensor, got {t.dtype} {tuple(t.shape)}")
     n = act.shape[0]
     m = nodes_i.shape[0]
-    if tile <= 0 or tile % 32 or tile > 4096 or n % tile \
-            or (tile > 512 and tile % 512):
+    if not _walk_takes(tile) or n % tile:
         raise ValueError(f"{name}: tile {tile} must be a multiple of 32 "
                          "that divides the rays, at most 4096, and a "
                          f"multiple of 512 above 512 ({n} rays)")
@@ -938,9 +947,11 @@ def packet_queue(nodes_i, nodes_f, rows, orig_t, dir_t, act, *, tile: int,
     schedule: see ops/csrc/packet_queue.cu.
 
     A CPU tensor runs the plain version (packet_queue_reference); a CUDA
-    tensor launches ops/csrc/packet_queue.cu on the current stream or
-    raises, also when the walk's stack overflows. `packet_queue.launches`
-    counts kernel launches."""
+    tensor launches ops/csrc/packet_queue.cu on the current stream (on a
+    cluster of 8 blocks a tile of 256k rays, 2 threads a lane, each block
+    with its own ring of QUEUE_DEPTH windows) or raises, also when the
+    walk's stack overflows or the card refuses the launch.
+    `packet_queue.launches` counts kernel launches."""
     _check_stream_args(nodes_i, nodes_f, rows, orig_t, dir_t, act, tile,
                        cbnd, None, None, None, 0, name="packet_queue")
     device = act.device
@@ -1063,16 +1074,6 @@ def _queue_tile(host, ob, ib, n_act, recs, rays, on, so, n_rows, tally):
 # ---------------------------------------------------------------------------
 
 
-def _v1_takes(tile: int, engine: int) -> bool:
-    """Whether ops/csrc/packet_v1.cu launches `engine` at `tile` rays a
-    tile: a multiple of 32 up to 4096 and of 512 above 512; K6a above 512
-    (tile / 512 rays a thread) only 1024, 2048 or 4096. Which of them take
-    K6b's and K9's cluster is the kernel's choice (packet_v1_shape)."""
-    return (0 < tile <= 4096 and tile % 32 == 0
-            and (tile <= 512 or tile % 512 == 0 and (
-                engine != _V1_RESIDENT or tile // 512 in (2, 4, 8))))
-
-
 def _check_v1_args(table, width, recs, orig_t, dir_t, tile, engine, name):
     padded = engine != _V1_RESIDENT   # K6b's and K9's windows: 128 rows
     tensors = dict(table=table, recs=recs, orig_t=orig_t, dir_t=dir_t)
@@ -1085,11 +1086,10 @@ def _check_v1_args(table, width, recs, orig_t, dir_t, tile, engine, name):
                              f"torch.float32 tensor, got {t.dtype} "
                              f"{tuple(t.shape)}")
     n = orig_t.shape[1] if orig_t.dim() == 2 else -1
-    if not _v1_takes(tile, engine) or n % tile:
+    if not _walk_takes(tile) or n % tile:
         raise ValueError(f"{name}: tile {tile} must be a multiple of 32 "
                          "that divides the rays, at most 4096, and a "
-                         "multiple of 512 above 512 (resident: 1024, 2048 "
-                         f"or 4096) ({n} rays)")
+                         f"multiple of 512 above 512 ({n} rays)")
     if table.dim() != 2 or table.shape[1] != width or table.shape[0] == 0:
         raise ValueError(f"{name}: table {tuple(table.shape)} is not "
                          f"[M, {width}]")
@@ -1131,11 +1131,13 @@ def packet_legacy(table16, recs, orig_t, dir_t, *, tile: int,
     (K6b), 0, 0, 0).
 
     A CPU tensor runs the plain version (packet_legacy_reference); a CUDA
-    tensor launches ops/csrc/packet_v1.cu on the current stream (K6b on
-    a cluster of 8 blocks a tile of 256k rays, K6a one block a tile) or
-    raises, also when the walk's stack overflows or the card refuses the
-    launch; a tile that no launch takes raises ValueError on either
-    device. `packet_legacy.resident_launches` counts K6a's launches and
+    tensor launches ops/csrc/packet_v1.cu on the current stream (K6a and
+    K6b on a cluster of 8 blocks a tile of 256k rays, 2 threads a lane,
+    the leaf's records staged in a 4-buffer cp.async ring: K6a's own
+    records in chunks of 128, K6b's windows) or raises, also when the
+    walk's stack overflows or the card refuses the launch; a tile that no
+    launch takes raises ValueError on either device.
+    `packet_legacy.resident_launches` counts K6a's launches and
     `packet_legacy.launches` K6b's."""
     name = "packet_legacy"
     engine = _V1_RESIDENT if resident else _V1_STREAM

@@ -101,7 +101,8 @@ def test_ptxas_report_picks_the_kernel():
     assert _cuda.ptxas_report(log, "brute_force_scan") == ""
 
 
-@pytest.mark.parametrize("entry", ["plist_super_shape", "plist_window_shape"])
+@pytest.mark.parametrize("entry", ["plist_super_shape", "plist_window_shape",
+                                   "packet_queue_shape", "packet_v1_shape"])
 def test_cluster_shape_reads_the_entry(monkeypatch, entry):
     calls = _fake_library(monkeypatch)
     assert _cuda.cluster_shape(entry, 1, 16) == dict(

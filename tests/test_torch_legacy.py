@@ -290,37 +290,80 @@ def test_v1_wrappers_reject_bad_arguments(fx, bad):
         tpk.packet_legacy(*args, tile=tile, resident=False)
 
 
-# the tiles the v1 wrappers take: (engine, tile, taken); which of them K6b
-# and K9 run on a cluster of 8 blocks (multiples of 256) is the kernel's
-# choice, read on the card (packet_v1_shape, chip_smoke.py phase 2)
+# the tiles the v1 wrappers take: (engine, tile, taken); all three kernels
+# share K3's launch rule, and which tiles run on a cluster of 8 blocks
+# (multiples of 256) is the kernel's choice, read on the card
+# (packet_v1_shape, chip_smoke.py phase 2)
 V1_TILES = ([(tpk._V1_STREAM, t, True)
              for t in (32, 224, 256, 480, 512, 1536, 4096)]
             + [(tpk._V1_WIDE, 2048, True)]
             + [(tpk._V1_RESIDENT, t, True)
-               for t in (32, 512, 1024, 2048, 4096)]
+               for t in (32, 512, 1024, 2048, 4096, 1536, 3072, 3584)]
             + [(tpk._V1_STREAM, t, False)
                for t in (0, 48, 544, 768, 4352, 8192)]
-            + [(tpk._V1_WIDE, 768, False)]
-            + [(tpk._V1_RESIDENT, t, False) for t in (1536, 3072, 3584)])
+            + [(tpk._V1_WIDE, 768, False)])
 
 
 @pytest.mark.parametrize("engine,tile,taken", V1_TILES)
 def test_v1_tile_rule(engine, tile, taken):
-    """Whole warps up to 4096 and multiples of 512 above 512; K6a (512 rays
-    a thread times 2, 4 or 8 above 512) only 1024, 2048 or 4096 there,
-    which its launch refuses otherwise."""
-    assert tpk._v1_takes(tile, engine) is taken
+    """Whole warps up to 4096 and multiples of 512 above 512, for every v1
+    kernel: K6a launches each of them too, as K6b and K9 do."""
+    assert tpk._walk_takes(tile) is taken
+    if not taken:
+        return
+    table = torch.zeros((1, 128 if engine == tpk._V1_WIDE else 16))
+    recs = torch.zeros((128, 16))
+    rays = torch.zeros((3, tile))
+    tpk._check_v1_args(table, table.shape[1], recs, rays, rays, tile,
+                       engine, "v1")
 
 
 def test_v1_wrappers_refuse_what_no_launch_takes(fx):
     """The wrappers refuse such a tile on the host as on the card: K6a at
-    tile 1536 (3 rays a thread), which K6b takes."""
+    tile 768 (a multiple of 256 above 512 but not of 512), which no kd walk
+    takes."""
     args, _ = tpk.v1_kernel_args(fx["pt"], fx["o"], fx["d"], tile=256,
                                  mode="vmem")
     table, recs, o, d = args
     o, d = (torch.cat([x, x], dim=1)[:, :1536].contiguous() for x in (o, d))
-    with pytest.raises(ValueError, match="packet_legacy: tile 1536"):
-        tpk.packet_legacy(table, recs, o, d, tile=1536, resident=True)
+    with pytest.raises(ValueError, match="packet_legacy: tile 768"):
+        tpk.packet_legacy(table, recs, o, d, tile=768, resident=True)
+
+
+def _tie_records(rng, n):
+    """n records, each a copy of one of two triangles that rays along +z
+    from z = 0 inside both hit at exactly t 1 and 2, or a miss (tri_id
+    -1), drawn at random (0.5, 0.3, 0.2): exact-t ties at every
+    position."""
+    recs = np.zeros((n, 16), np.float32)
+    kind = rng.choice(3, size=n, p=[0.5, 0.3, 0.2])
+    recs[:, 0:3] = [-10.0, -10.0, 0.0]
+    recs[:, 2] = np.where(kind == 1, 2.0, 1.0)
+    recs[:, 3:6] = [0.0, 20.0, 0.0]   # e1: det > 0 for rays along +z
+    recs[:, 6:9] = [20.0, 0.0, 0.0]
+    recs[:, 9] = np.where(kind == 2, -1.0, np.arange(n))
+    return recs
+
+
+def _tie_rays(rng):
+    """Up to 32 rays along +z from z = 0 inside both triangles of
+    _tie_records, as the 6 rows mt_pairs takes."""
+    xy = rng.uniform(-9.0, -1.0, size=(64, 2)).astype(np.float32)
+    xy = xy[xy.sum(axis=1) < -10.5][:32]
+    zero = np.zeros(len(xy), np.float32)
+    return [torch.as_tensor(v) for v in (
+        xy[:, 0], xy[:, 1], zero, zero, zero, np.ones(len(xy), np.float32))]
+
+
+def _tie_t(recs, rays):
+    """Every record's t on every lane ([records, lanes], BIG on a miss),
+    checked to be exactly 1 or 2 where the record is a triangle."""
+    ok, t = tpk.mt_pairs(torch.as_tensor(recs)[:, None, :10],
+                         *(r[None, :] for r in rays))
+    t = torch.where(ok, t, tpk.BIG).numpy()
+    want = np.where(recs[:, 9] >= 0.0, recs[:, 2], np.float32(tpk.BIG))
+    assert (t == want[:, None]).all()
+    return t
 
 
 def _split_winner(t, k_s, h0):
@@ -360,36 +403,22 @@ def test_split_merge_matches_plain_tie_rule(seed):
     lane, whatever share holds the result."""
     rng = np.random.default_rng(seed)
     n_win = 3
-    recs = np.zeros((n_win * 128, 16), np.float32)
-    kind = rng.choice(3, size=n_win * 128, p=[0.5, 0.3, 0.2])
-    recs[:, 0:3] = [-10.0, -10.0, 0.0]
-    recs[:, 2] = np.where(kind == 1, 2.0, 1.0)
-    recs[:, 3:6] = [0.0, 20.0, 0.0]   # e1: det > 0 for rays along +z
-    recs[:, 6:9] = [20.0, 0.0, 0.0]
-    recs[:, 9] = np.where(kind == 2, -1.0, np.arange(n_win * 128))
+    recs = _tie_records(rng, n_win * 128)
     if seed == 3:       # a window of misses only, then a tie with window 0
         recs[128:256, 9] = -1.0
         recs[256:, 2] = 1.0
-    lanes = 64
-    xy = rng.uniform(-9.0, -1.0, size=(lanes, 2)).astype(np.float32)
-    xy = xy[xy.sum(axis=1) < -10.5][:32]   # inside both triangles
-    rays = [torch.as_tensor(v) for v in (
-        xy[:, 0], xy[:, 1], np.zeros(len(xy), np.float32),
-        np.zeros(len(xy), np.float32), np.zeros(len(xy), np.float32),
-        np.ones(len(xy), np.float32))]
+    rays = _tie_rays(rng)
     rec_t = torch.as_tensor(recs)
     rows0 = np.arange(n_win) * 16
-    bt = torch.full((len(xy),), tpk.BIG)
-    bs = torch.full((len(xy),), -1, dtype=torch.int32)
-    on = torch.ones((n_win, len(xy)), dtype=torch.bool)
+    n = len(rays[0])
+    bt = torch.full((n,), tpk.BIG)
+    bs = torch.full((n,), -1, dtype=torch.int32)
+    on = torch.ones((n_win, n), dtype=torch.bool)
     p_t, p_s = tpk._dense_windows(rec_t[:, :10], rows0, rays, on, False, bt,
                                   bs, None)
-    ok, t = tpk.mt_pairs(rec_t[:, None, :10], *(r[None, :] for r in rays))
-    t = torch.where(ok, t, tpk.BIG).numpy()          # [records, lanes]
-    want = np.where(recs[:, 9] >= 0.0, recs[:, 2], np.float32(tpk.BIG))
-    assert (t == want[:, None]).all()   # hits at exactly t 1 and 2
+    t = _tie_t(recs, rays)
     for k_s in (1, 2, 4):
-        for lane in range(len(xy)):
+        for lane in range(n):
             best_t, best_s = tpk.BIG, -1
             for w in range(n_win):
                 for h0 in range(k_s):
@@ -401,3 +430,73 @@ def test_split_merge_matches_plain_tie_rule(seed):
                 if ct < tpk.BIG and ct <= best_t:
                     best_t, best_s = ct, w * 128 + cr
             assert (best_t, best_s) == (float(p_t[lane]), int(p_s[lane]))
+
+
+def _resident_winner(t, k_s, h0, best):
+    """packet_v1.cu's K6a leaf for one lane, replayed (ring_leaf,
+    dense_resident): the leaf's records in chunks of 128 (the last one
+    partial); share h takes records h, h + k_s, ... of a chunk in
+    ascending order where it hits at t <= its best; the shares merge by
+    the lower t, then the higher record, over the xor butterfly of warp
+    shuffles, seen from share h0; the chunk's winner meets the running
+    best (t, record within the leaf) where t <= its t. t: inf on a
+    miss."""
+    def beats(a, b):
+        return a[0] < b[0] or (a[0] == b[0] and a[1] > b[1])
+    for c0 in range(0, len(t), 128):
+        chunk = t[c0:c0 + 128]
+        won = []
+        for h in range(k_s):
+            ct, cr = tpk.BIG, -1
+            for r in range(h, len(chunk), k_s):
+                if np.isfinite(chunk[r]) and chunk[r] <= ct:
+                    ct, cr = chunk[r], r
+            won.append((ct, cr))
+        off = 1
+        while off < k_s:
+            won = [won[h ^ off] if beats(won[h ^ off], won[h]) else won[h]
+                   for h in range(k_s)]
+            off <<= 1
+        ct, cr = won[h0]
+        if cr >= 0 and ct <= best[0]:
+            best = (ct, c0 + cr)
+    return best
+
+
+@pytest.mark.parametrize("count", [1, 127, 128, 129, 300])
+def test_resident_merge_matches_plain_tie_rule(count):
+    """K6a's leaf on the card (packet_v1.cu::ring_leaf, dense_resident),
+    replayed: a leaf of `count` records from the unaligned record 4 q
+    (q odd), then a leaf of 7 records earlier in the array, with exact-t
+    ties at every position; with 1, 2 or 4 threads a lane (K6a takes 2)
+    the shares' winners, merged by the lower t and then the higher record
+    in chunks of 128, give ops/packet.py::_resident_leaf's t and slot on
+    every lane, whatever share holds the result: the highest record at
+    equal t within a leaf, the later leaf across leaves."""
+    rng = np.random.default_rng(count)
+    first, early = 4 * 3, 4
+    recs = _tie_records(rng, first + count + 5)
+    rays = _tie_rays(rng)
+    rec_t = torch.as_tensor(recs)[:, :10]
+    n = len(rays[0])
+    bt = torch.full((n,), tpk.BIG)
+    bs = torch.full((n,), -1, dtype=torch.int32)
+    leaves = ((first, count), (early, 7))
+    for f, c in leaves:
+        bt, bs = tpk._resident_leaf(rec_t, rays, f, c, bt, bs)
+    t = _tie_t(recs, rays)
+    t = np.where(t < np.float32(tpk.BIG), t, np.inf)
+    ties = 0
+    for lane in range(n):
+        ties += int((t[first:first + count, lane] == bt[lane].item()).sum()
+                    > 1)
+        for k_s in (1, 2, 4):
+            for h0 in range(k_s):
+                best = (tpk.BIG, -1)
+                for f, c in leaves:
+                    bt_, r = _resident_winner(t[f:f + c, lane], k_s, h0,
+                                              (best[0], -1))
+                    if r >= 0:
+                        best = (bt_, f + r)
+                assert best == (float(bt[lane]), int(bs[lane]))
+    assert count == 1 or ties > 0   # the leaf's winners had equal-t rivals

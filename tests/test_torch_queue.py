@@ -147,3 +147,30 @@ def test_packet_queue_rejects_bad_arguments(fixtures, bad):
         kw["tile"] = 768
     with pytest.raises(ValueError, match="packet_queue"):
         tpk.packet_queue(*args, **kw)
+
+
+# K5's tiles: those of every kd walk wrapper (packet._walk_takes); which of
+# them run on a cluster of 8 blocks (multiples of 256, 2 threads a lane)
+# or on one block is the kernel's choice, read on the card
+# (packet_queue_shape, chip_smoke.py phase 2)
+QUEUE_TILES = ([(t, True) for t in (32, 128, 224, 256, 480, 512, 1024, 1536,
+                                    2048, 3072, 3584, 4096)]
+               + [(t, False) for t in (0, 48, 544, 768, 4352, 8192)])
+
+
+@pytest.mark.parametrize("tile,taken", QUEUE_TILES)
+def test_queue_tile_rule(tile, taken):
+    """packet_queue takes whole warps up to 4096 and multiples of 512
+    above 512, K6b's and K6a's rule, and refuses other tiles on the host
+    as on the card. A taken tile of dead lanes does no walk."""
+    n = max(tile, 32)
+    nodes_i = torch.tensor([[4, 0, 0, 0]], dtype=torch.int32)
+    args = (nodes_i, torch.zeros(7), torch.zeros((128, 16)),
+            torch.zeros((3, n)), torch.zeros((3, n)), torch.zeros(n))
+    assert tpk._walk_takes(tile) is taken
+    if not taken:
+        with pytest.raises(ValueError, match=f"packet_queue: tile {tile}"):
+            tpk.packet_queue(*args, tile=tile, so=False)
+        return
+    _, best_slot, stats = tpk.packet_queue(*args, tile=tile, so=False)
+    assert (best_slot == -1).all() and (stats == 0).all()
