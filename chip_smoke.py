@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--parent DIR]
 
 --parent DIR: a tree of the parent commit (a git archive); the kernels of
-its sources named in PARENT_STEMS (packet_v1.cu: K6a, K6b and K9;
-packet_queue.cu: K5) are built beside this tree's and timed in turns with
-them in phases 19, 23 and 38 (with ray_walk.cu and brute_force.cu there,
-W1 and W2 in phases 40-42).
+its sources named in PARENT_STEMS (packet_stream2.cu: K7; packet_mxu.cu:
+K8) are built beside this tree's and timed in turns with them in phases
+28 and 38 (with packet_queue.cu or packet_v1.cu there, K5 in phases 19
+and 38, K6a, K6b and K9 in phases 23 and 38; with ray_walk.cu and
+brute_force.cu, W1 and W2 in phases 40-42).
 
 Phases, one line or more each (any failure raises and the exit code is
 not 0):
@@ -17,12 +18,12 @@ not 0):
 2. build: compile clpathtracer_tpu_torch/ops/csrc/*.cu with nvcc (sm_90a),
    one nvcc per source, all started together, and load the libraries;
    print the cluster launch shape of K1, K1', K1's kcap form, K2 (SO and
-   MT), K3, K4, K5 (SO and MT), K6a, K6b and K9 (blocks per cluster,
-   threads, registers, shared memory, the clusters resident at once:
-   cudaOccupancyMaxActiveClusters; K5's, K6a's, K6b's and K9's at the
-   terrain's tile 2048 and the soup's 512, and their blocks and threads
-   at tiles 224, 512, 2048 and 4096 held to the launch rule, a tile that
-   no launch takes (544) refused) and G1's,
+   MT), K3, K4, K5 (SO and MT), K6a, K6b, K7, K8 and K9 (blocks per
+   cluster, threads, registers, shared memory, the clusters resident at
+   once: cudaOccupancyMaxActiveClusters; K5's, K6a's, K6b's, K7's, K8's
+   and K9's at the terrain's tile 2048 and the soup's 512, and their
+   blocks and threads at tiles 224, 512, 2048 and 4096 held to the launch
+   rule, a tile that no launch takes (544) refused) and G1's,
    W1's and W2's launch shapes (threads a block, threads a ray or rays a
    thread, blocks resident on an SM, registers, shared memory, spill
    bytes; W1's and W2's `-Xptxas -v` lines also go to the kernels line);
@@ -168,14 +169,17 @@ walk K8 (ops/csrc/packet_mxu.cu):
    bounce lanes against the brute force, at phases 5 and 9's limits;
 26. K7 against its plain version, exact in best t, best slot and all five
    stats lanes, on every 8th tile of the primaries and every 16th of the
-   wave; the plain runs count the MT pairs, their early exits and the
-   chunk steps that tested one half only;
+   wave, and on the terrain primaries at tile 4096 (every 16th) and 128
+   (one block a tile, every 256th); the plain runs count the MT pairs,
+   their early exits and the chunk steps that tested one half only;
 27. K8 through traverse_packet(engine="mxu") on the same three inputs:
    counted, the coefficient rows' build time and bytes, the same oracles,
-   and against its plain version as in phase 26 (the plain runs count the
-   pairs and the planes' early exits);
+   and against its plain version as in phase 26, tiles 4096 and 128
+   included (the plain runs count the pairs and the planes' early exits);
+   their heaviest mirror tiles go to phase 38;
 28. K3 (its MT form with the AABB cull, phase 23's call), K7 and K8 timed
-   in turns on each input, with node pops and windows or chunks per tile,
+   in turns on each input (with --parent also the parent's K7 and K8, in
+   the same turns), with node pops and windows or chunks per tile,
    mean and max, the one-half chunk steps of K7, and each kernel's bound;
    beside K8, one torch.matmul (TF32 off) of the rays' features against
    one chunk ("planes only", a yardstick, not the function).
@@ -255,15 +259,16 @@ emissive_frac 0.001), windows at win_rows 8, camera [0, 0, -25] looking
 The tail of the two cluster walks:
 
 38. the heaviest unit of each mirror wave alone: K1''s heaviest bundle of
-   phase 10, K3's (MT form) heaviest tile of phase 13, K5's of phase 18
-   and K6a's, K6b's and K9's of phase 21, each cut out as a one-unit call;
+   phase 10, K3's (MT form) heaviest tile of phase 13, K5's of phase 18,
+   K6a's, K6b's and K9's of phase 21 and K7's and K8's of phase 25, each
+   cut out as a one-unit call;
    its result
    equal to the full launch's lanes and stats row and to its plain
    version's (exact); its time beside the full launch's and beside its own
    FP32 bound (its pairs weighted by their exits, counted by the plain
    run) on one SM and on the SMs of its cluster, and what its warps issue;
-   with --parent, K5's, K6a's, K6b's and K9's tiles alone on the parent's
-   kernels and on this tree's, in turns.
+   with --parent, the tiles alone of the kernels of PARENT_STEMS on the
+   parent's kernels and on this tree's, in turns.
 
 The JAX package's default kd route (intersector "wavefront"): the per-ray
 rope walk W1 (ops/csrc/ray_walk.cu) and the brute force W2
@@ -423,11 +428,11 @@ phase 45's row frames, "parallel"; W1's entry phase 45's ring,
 "parallel"; W1's entry also holds phase 43's steps, peak memory
 and crop check, and W1's, W2's, K3's and G1's their gradient checks);
 the cluster walks (K1, K1', K1's kcap form, K2, K3, K4, K5, K6a, K6b,
-K9) also give their blocks per cluster ("cluster"), G1 its tail calls,
-W1 each wave of phase 40; K5, K6a, K6b and K9 also "redesigned" (the
-schedule that replaced their first one), their heaviest mirror tile
-alone ("mirror_tail") and, with --parent, the parent's times on the
-three calls ("parent_ms", "soup_parent_ms", "mirror_wave_parent_ms";
+K7, K8, K9) also give their blocks per cluster ("cluster"), G1 its tail
+calls, W1 each wave of phase 40; K5, K6a, K6b, K7, K8 and K9 also
+"redesigned" (the schedule that replaced their first one), their
+heaviest mirror tile alone ("mirror_tail") and, with --parent, the
+parent's times on the three calls ("parent_ms", "soup_parent_ms", "mirror_wave_parent_ms";
 null without --parent).
 The last line is {"ok": true, "device": {...}}.
 """
@@ -859,7 +864,7 @@ def k3_tail(args, kw, out, full_ms, queue=False):
 
 def tail_phase(tails, parent=None):
     """Phase 38: the heaviest unit of each mirror wave alone (K1' bundle,
-    K3, K5, K6a, K6b and K9 MT tiles), held exactly against the full
+    K3, K5, K6a, K6b, K7, K8 and K9 MT tiles), held exactly against the full
     launch's lanes and against its plain version, timed beside the full
     launch and its own FP32 bound on one SM and on the SMs of its cluster;
     a unit whose launch entry `parent` holds is also timed on the parent's
@@ -886,15 +891,21 @@ def tail_phase(tails, parent=None):
                                  "full launch")
         ms = median_ms(t.call, 5)
         tests = t.tests(out[2])
-        ops, wops = mt_ops(tests, tally), warp_ops(tally)
+        exit_ops = getattr(t, "exit_ops", MT_EXIT_OPS)
+        ops = mt_ops(tests, tally, exit_ops)
         c = cluster_shape(*t.shape)["cluster"]
         one_sm = ops / sm_rate * 1e3
+        if getattr(t, "warp", True):
+            wops = warp_ops(tally, exit_ops)
+            issued = (f"warp-issued {wops} ({wops / ops:.3f}x): "
+                      f"{wops / sm_rate * 1e3:.4f} ms on one SM")
+        else:
+            issued = "warp-issued not counted"
         say("tail", f"{name}, {t.unit}: alone {ms:.4f} ms, the full launch "
             f"of {t.n_units} units {t.full_ms:.4f} ms; its FP32 bound "
             f"({tests} pairs, {ops} operations, lane average) {one_sm:.4f} "
             f"ms on one SM ({n_sm} on the card), {one_sm / c:.4f} ms on the "
-            f"{c} SMs of its cluster; warp-issued {wops} ({wops / ops:.3f}x):"
-            f" {wops / sm_rate * 1e3:.4f} ms on one SM")
+            f"{c} SMs of its cluster; {issued}")
         res[name] = {"alone_ms": ms, "full_ms": t.full_ms,
                      lane1: int(t.full[2][0, 1]), "cluster": c,
                      "bound_one_sm_ms": one_sm, "parent_alone_ms": None}
@@ -1019,36 +1030,46 @@ def cluster_shapes():
             "packet_legacy soup": cluster_shape("packet_v1_shape",
                                                 SOUP_KD["tile"], 1),
             "packet_wide soup": cluster_shape("packet_v1_shape",
-                                              SOUP_KD["tile"], 2)}
+                                              SOUP_KD["tile"], 2),
+            "packet_stream2": cluster_shape("packet_stream2_shape", tile),
+            "packet_mxu": cluster_shape("packet_mxu_shape", tile),
+            "packet_stream2 soup": cluster_shape("packet_stream2_shape",
+                                                 SOUP_KD["tile"]),
+            "packet_mxu soup": cluster_shape("packet_mxu_shape",
+                                             SOUP_KD["tile"])}
 
 
-# the kd walks that share K3's launch rule: (shape entry, its last
-# argument: K5's SO form, the v1 engine)
-TILE_RULE = {"K5 SO": ("packet_queue_shape", 1),
-             "K5 MT": ("packet_queue_shape", 0),
-             "K6a": ("packet_v1_shape", 0), "K6b": ("packet_v1_shape", 1),
-             "K9": ("packet_v1_shape", 2)}
+# the kd walks that share K3's launch rule: (shape entry, its arguments
+# after the tile: K5's SO form, the v1 engine)
+TILE_RULE = {"K5 SO": ("packet_queue_shape", (1,)),
+             "K5 MT": ("packet_queue_shape", (0,)),
+             "K6a": ("packet_v1_shape", (0,)),
+             "K6b": ("packet_v1_shape", (1,)),
+             "K9": ("packet_v1_shape", (2,)),
+             "K7": ("packet_stream2_shape", ()),
+             "K8": ("packet_mxu_shape", ())}
 
 
 def tile_shapes():
-    """Phase 2's check of the launch rule of K5, K6a, K6b and K9 on the
-    card (packet_queue_shape, packet_v1_shape): a tile of a multiple of
-    256 rays, as the main path's 2048 and 512, runs on a cluster of 8
-    blocks with 2 threads a lane, a smaller tile on one block with one
-    thread a lane, and a tile that no launch takes (544) is refused."""
+    """Phase 2's check of the launch rule of K5, K6a, K6b, K7, K8 and K9
+    on the card (packet_queue_shape, packet_v1_shape, packet_stream2_shape,
+    packet_mxu_shape): a tile of a multiple of 256 rays, as the main path's
+    2048 and 512, runs on a cluster of 8 blocks with 2 threads a lane, a
+    smaller tile on one block with one thread a lane, and a tile that no
+    launch takes (544) is refused."""
     seen = []
     for tile, want in ((224, (1, 224)), (512, (8, 128)), (2048, (8, 512)),
                        (4096, (8, 1024))):
-        for name, (entry, last) in TILE_RULE.items():
-            sh = cluster_shape(entry, tile, last)
+        for name, (entry, more) in TILE_RULE.items():
+            sh = cluster_shape(entry, tile, *more)
             if (sh["cluster"], sh["threads"]) != want:
                 raise AssertionError(f"tile shape: {name} at tile {tile}: "
                                      f"{sh}, not {want}")
         seen.append(f"{tile}: {want[0]} x {want[1]}")
     refused = []
-    for name, (entry, last) in TILE_RULE.items():
+    for name, (entry, more) in TILE_RULE.items():
         try:
-            cluster_shape(entry, 544, last)
+            cluster_shape(entry, 544, *more)
         except RuntimeError as e:
             refused.append(str(e))
         else:
@@ -1059,7 +1080,7 @@ def tile_shapes():
 
 
 # the parent tree's sources whose kernels --parent builds and times
-PARENT_STEMS = ("packet_v1", "packet_queue")
+PARENT_STEMS = ("packet_stream2", "packet_mxu")
 
 
 def parent_library(parent_dir):
@@ -1108,6 +1129,12 @@ def parent_library(parent_dir):
     say("build", f"parent {', '.join(PARENT_STEMS)} from {parent_dir}: "
         f"{time.perf_counter() - t:.2f} s nvcc")
     return fns
+
+
+def parent_of(parent, stem):
+    """The parent's entries where PARENT_STEMS has `stem` (the phases of
+    its kernels time them in turns with this tree's), else None."""
+    return parent if parent and f"{stem}_launch" in parent else None
 
 
 @contextlib.contextmanager
@@ -1461,19 +1488,20 @@ def smoke(device, parent=None):
 
     k3, ctx = kd_route(device, scene, soup, cam, scam, launches)
     k4 = preview_route(ctx, launches)
-    k5 = queue_engine(ctx, launches, parent)
-    v1 = v1_engines(ctx, launches, parent)
-    k7_k8 = stream2_mxu_engines(ctx, launches)
+    k5 = queue_engine(ctx, launches, parent_of(parent, "packet_queue"))
+    v1 = v1_engines(ctx, launches, parent_of(parent, "packet_v1"))
+    k7_k8 = stream2_mxu_engines(ctx, launches,
+                                parent_of(parent, "packet_stream2"))
     sched = plist_schedules(device, scene, soup, cam, scam, launches)
     del soup
     grid_entries = nee_grid(device, scene, launches)
     tails["K3 MT"] = ctx["tail"]
     tails["K5 MT"] = ctx["queue_tail"]
     tails.update(ctx["v1_tails"])
+    tails.update(ctx["k7k8_tails"])
     tail_res = tail_phase(tails, parent)
-    walk_entries = walk_route(
-        device, ctx, launches,
-        parent if parent and "ray_walk_launch" in parent else None)
+    walk_entries = walk_route(device, ctx, launches,
+                              parent_of(parent, "ray_walk"))
     diff = diff_route(device, ctx, launches)
     cli = cli_route(device, launches)
     par = parallel_route(device, ctx, launches)
@@ -1516,6 +1544,8 @@ def smoke(device, parent=None):
     by_name["packet_legacy_resident"]["mirror_tail"] = tail_res["K6a MT"]
     by_name["packet_legacy"]["mirror_tail"] = tail_res["K6b MT"]
     by_name["packet_wide"]["mirror_tail"] = tail_res["K9 MT"]
+    by_name["packet_stream2"]["mirror_tail"] = tail_res["K7 MT"]
+    by_name["packet_mxu"]["mirror_tail"] = tail_res["K8 MT"]
     by_name["plist_super"]["cli_seconds"] = cli
     by_name["plist_super"]["parallel"] = par["k1"]
     by_name["ray_walk"]["parallel"] = dict(par["w1"],
@@ -2117,6 +2147,12 @@ def v1_line(stats, tile, lane1):
 V1_SCHEDULE = ("a cluster a tile of 256k rays, 2 threads a lane, a ring of "
                "4 buffers of 128 records (K6b, K9: windows; K6a: the leaf's "
                "own records in chunks)")
+# K7's and K8's schedules (phases 25-28), as V1_SCHEDULE
+WALK_SCHEDULE = {
+    "K7": ("a cluster a tile of 256k rays, blocks 0-3 the left half and 4-7 "
+           "the right, 2 threads a lane, K6b's ring of 4 windows"),
+    "K8": ("a cluster a tile of 256k rays, 2 threads a lane, a ring of 4 "
+           "chunks of 128 triangles' coefficients")}
 
 
 def v1_engines(ctx, launches, parent=None):
@@ -2462,10 +2498,12 @@ def interval_guard(ctx):
         f"skipped (medians of {FRAMES} frames each, in turns)")
 
 
-def stream2_mxu_engines(ctx, launches):
+def stream2_mxu_engines(ctx, launches, parent=None):
     """Phases 24-28: the stack guard of the interval walks, the half-split
     walk K7 and the plane-form walk K8, beside K3. Returns K7's and K8's
-    kernels entries."""
+    kernels entries; their heaviest mirror tiles go to ctx["k7k8_tails"]
+    for phase 38. parent: parent_library's entries, whose K7 and K8 are
+    timed in turns beside this tree's."""
     n = SIZE * SIZE
     t_tile, s_tile = TERRAIN_KD["tile"], SOUP_KD["tile"]
     tree, stree = ctx["tree"], ctx["stree"]
@@ -2554,10 +2592,27 @@ def stream2_mxu_engines(ctx, launches):
             err[kernel] = max(err[kernel], e)
             res[name, kernel] = dict(plain_ms=plain_ms, tally=tally,
                                      ref_stats=ref_stats, every=every,
-                                     args=args, kw=kw, fn=fn)
+                                     args=args, kw=kw, fn=fn,
+                                     parent_ms=None)
         del recs
+        # 26 / 27, the other launch forms on the terrain primaries: tile
+        # 4096 (a cluster of blocks of 1024 threads) and 128 (one block a
+        # tile)
+        for tile, every in ((4096, 16), (128, 256)):
+            calls["terrain"] = (tree, ctx["orig"], ctx["dirs"], (SIZE, SIZE),
+                                tile, None)
+            args, kw, _, fn, plain = kernel_call("terrain", kernel)
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            e = compare_k3(f"{kernel} terrain tile {tile}", out, args, kw,
+                           every=every, plain=plain)[0]
+            err[kernel] = max(err[kernel], e)
+        calls["terrain"] = (tree, ctx["orig"], ctx["dirs"], (SIZE, SIZE),
+                            t_tile, None)
 
-    # 28. K3 (MT, AABB cull), K7 and K8 in turns
+    # 28. K3 (MT, AABB cull), K7 and K8 in turns (with the parent's K7
+    # and K8 in the same turns)
+    ctx["k7k8_tails"] = {}
     for name, (tr, o, d, shape, tile, act) in calls.items():
         k3_args, k3_kw, _ = packet.stream_kernel_args(
             tr, o, d, shape, tile, act, strips=False, frustum=False)
@@ -2565,22 +2620,37 @@ def stream2_mxu_engines(ctx, launches):
         for kernel in kernels:
             r = res[name, kernel]
             fns.append(lambda r=r: r["fn"](*r["args"], **r["kw"]))
+        if parent:
+            for call in fns[1:1 + len(kernels)]:
+                def with_parent(call=call):
+                    with swapped(parent):
+                        call()
+                fns.append(with_parent)
         ms = turns_ms(fns, 2 if name == "mirror wave" else 5)
         k3_out = packet.packet_stream(*k3_args, **k3_kw)
         torch.cuda.synchronize()
         say(f"K7 K8 vs K3 {name}", f"K3 (MT, AABB cull) {ms[0]:.4f} ms; "
             + tile_stats_line(k3_out[2], tile))
+        if parent:
+            for kernel, pms in zip(kernels, ms[1 + len(kernels):]):
+                res[name, kernel]["parent_ms"] = pms
         for kernel, kms in zip(kernels, ms[1:]):
             r = res[name, kernel]
             out = outs[name, kernel]
             bnd, by, tests, ops, note = walk_bound(kernel, r, out, tile)
             r.update(ms=kms, k3_ms=ms[0], bound=bnd, by=by)
+            was = ("" if r["parent_ms"] is None else
+                   f"; the parent's {r['parent_ms']:.4f} ms in the same turns"
+                   f" ({kms / r['parent_ms']:.3f} x)")
             say(f"K7 K8 vs K3 {name}", f"{kernel} {kms:.4f} ms "
-                f"({kms / ms[0]:.3f} x K3), plain {r['plain_ms']:.1f} ms on "
-                f"every {r['every']}th tile, bound {bnd:.4f} ms ({by}; "
+                f"({kms / ms[0]:.3f} x K3{was}), plain {r['plain_ms']:.1f} ms"
+                f" on every {r['every']}th tile, bound {bnd:.4f} ms ({by}; "
                 f"{tests} pairs, {ops / max(tests, 1):.3f} FP32 operations "
                 f"each by early exit{note}); "
                 + v1_line(out[2], tile, "chunks"))
+            if name == "mirror wave":
+                ctx["k7k8_tails"][f"{kernel} MT"] = walk_tail(
+                    kernel, r["args"], r["kw"], out, kms)
     planes = planes_only(res["terrain", "K8"], outs["terrain", "K8"])
     entries = []
     for kernel, (engine, cname) in kernels.items():
@@ -2600,11 +2670,51 @@ def stream2_mxu_engines(ctx, launches):
             "k3_ms": t["k3_ms"], "soup_ms": s_["ms"],
             "soup_k3_ms": s_["k3_ms"], "soup_bound_ms": s_["bound"],
             "mirror_wave_ms": m["ms"], "mirror_wave_k3_ms": m["k3_ms"],
-            "mirror_wave_bound_ms": m["bound"]}
+            "mirror_wave_bound_ms": m["bound"],
+            "redesigned": WALK_SCHEDULE[kernel],
+            "parent_ms": t["parent_ms"], "soup_parent_ms": s_["parent_ms"],
+            "mirror_wave_parent_ms": m["parent_ms"]}
         if kernel == "K8":
             entry["planes_only_ms"] = planes
         entries.append(entry)
     return entries
+
+
+def walk_tail(kernel, args, kw, out, full_ms):
+    """Phase 38's K7 or K8 unit: the heaviest tile (most chunks) of the
+    call (args, kw, out), cut out as a one-tile call, with the full
+    launch's outputs for its lanes and its stats row. Its plain run's pairs
+    (K7: the active lanes of the halves live at a chunk; K8: the tile's
+    active lanes, each chunk) are the unit's tests, and their early exits
+    go to the first lanes of phase 38's tally (K8's weighed by
+    MXU_EXIT_OPS; what warps issue is not counted)."""
+    tile = kw["tile"]
+    ti = int(torch.argmax(out[2][:, 1]))
+    lanes = slice(ti * tile, (ti + 1) * tile)
+    one = (*args[:3], *(a[..., lanes].contiguous() for a in args[3:]))
+    k7 = kernel == "K7"
+    fn, plain, stem = ((packet.packet_stream2,
+                        packet.packet_stream2_reference, "packet_stream2")
+                       if k7 else (packet_mxu.packet_mxu,
+                                   packet_mxu.packet_mxu_reference,
+                                   "packet_mxu"))
+    pairs = []
+
+    def plain_tally(tally):
+        own = torch.zeros(5 if k7 else 4, dtype=torch.int64,
+                          device=tally.device)
+        ref = plain(*one, tally=own, **kw)
+        tally[:3].copy_(own[1:4])
+        pairs.append(int(own[0]))
+        return ref
+    return SimpleNamespace(
+        unit=f"tile {ti}", n_units=out[2].shape[0], full_ms=full_ms,
+        full=(out[0][lanes].clone(), out[1][lanes].clone(),
+              out[2][ti:ti + 1].clone()),
+        call=lambda: fn(*one, **kw), plain=plain_tally,
+        tests=lambda st: pairs[-1], shape=(f"{stem}_shape", tile),
+        entry=f"{stem}_launch", lane1="chunks",
+        exit_ops=MT_EXIT_OPS if k7 else MXU_EXIT_OPS, warp=False)
 
 
 def walk_bound(kernel, r, out, tile):

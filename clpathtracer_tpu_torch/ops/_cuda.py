@@ -85,11 +85,15 @@ SIGNATURES = {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, best_t, best_slot,
         # stats, overflow, n_rays, tile, n_rows, stream
         "packet_stream2_launch": [_P] * 10 + [_I] * 3 + [_P],
+        # tile, out [6] i32
+        "packet_stream2_shape": [_I, _P],
     },
     "packet_mxu": {
         # nodes_i, nodes_f, chunks, orig_t, dir_t, act, best_t, best_slot,
         # stats, overflow, n_rays, tile, n_chunks, stream
         "packet_mxu_launch": [_P] * 10 + [_I] * 3 + [_P],
+        # tile, out [6] i32
+        "packet_mxu_shape": [_I, _P],
     },
     "grid_dda": {
         # table, geom, orig, dir, t_max, active, out_t, out_tri, out_u,

@@ -1,8 +1,8 @@
 // Thread-block cluster helpers for the walks that spread one unit of work
 // over the C blocks of a cluster: K1, K1', K1's kcap form and K2
 // (plist_super.cu: a 512-ray gate or bundle) and the kd walks K3/K4, K5,
-// K6a, K6b and K9 (packet_stream.cu, packet_queue.cu, packet_v1.cu: a
-// packet tile).
+// K6a, K6b, K7, K8 and K9 (packet_stream.cu, packet_queue.cu,
+// packet_v1.cu, packet_stream2.cu, packet_mxu.cu: a packet tile).
 //
 // Each block of a cluster owns a disjoint slice of the unit's lanes and
 // runs the same unit-uniform control flow (K1's list walk and break, K3's

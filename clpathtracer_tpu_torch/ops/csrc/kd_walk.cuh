@@ -7,31 +7,33 @@
 // _queue_tile, _binary_v1_walk, _wide_v1_walk, _stream2_tile and
 // ops/packet_mxu.py::_mxu_tile).
 //
-// A walk is block-uniform: every thread of the block computes the same
-// pops, interval tests and window decisions from the same reads; thread 0
-// writes the stack in shared memory and barriers order its reads and
-// writes. The packet bounds and t_upper are block reductions (K3/K4, K5,
-// K6a, K6b and K9 run the walk on every block of a cluster and reduce them
-// over the cluster instead: cluster_bounds, cluster_t_upper;
-// packet_stream.cu, packet_queue.cu, packet_v1.cu, cluster.cuh).
+// A walk is cluster-uniform: every block of a tile's cluster (one block for
+// the tiles that do not split into 8 slices of whole warps) runs the same
+// walk on its own stack in shared memory, from the same reads and from the
+// values reduced over the whole cluster (cluster.cuh::cluster_reduce):
+// every thread computes the same pops, interval tests and window
+// decisions; thread 0 writes the block's stack and barriers order its
+// reads and writes.
 //
 //   packet bounds: per axis the origin range and the clipped inverse-
 //     direction range over the tile's active lanes
-//     (clpathtracer_tpu/ops/packet.py::_packet_bounds_masked); with
-//     half_lanes, over one half of the tile (K7's half split), and
-//     tile_t_upper likewise;
+//     (clpathtracer_tpu/ops/packet.py::_packet_bounds_masked), reduced over
+//     the cluster (cluster_bounds); with half_lanes, over one half of the
+//     tile (K7's half split);
 //   box_interval: the packet-conservative [t_enter, t_exit] of an AABB
 //     (_box_interval);
 //   split_interval: the crossing of one split plane (_split_plane_interval);
 //   window_keeps: the AABB window cull, [ltlo, min(lthi, t_upper)] against
 //     the window's box interval;
-//   dense_window: the dense MT test of one staged window of 128 records
-//     against a thread's rays, merged with the TPU kernels' tie rule (K7);
-//   precedes, dense_split: the window's tie rule as a total order, and
-//     dense_window with kS threads a lane whose winners merge by it (K3,
-//     K5, K6b, K9);
-//   stream_windows: a run of windows on the clamped grid, double-buffered
-//     with cp.async, each tested by dense_window;
+//   precedes, dense_split: the window's tie rule as a total order
+//     (_mt_chunk_math's: within a window the least t, among equal t the
+//     lowest row of 8 records and within it the highest record; the later
+//     window wins at equal t), and the dense MT test of a staged window
+//     with kS threads a lane whose winners merge by it (K3, K5, K6b, K7,
+//     K9);
+//   ring_stream, ring_windows: a leaf's staged buffers through a ring of
+//     kRing cp.async copies (K6a, K6b, K7, K8, K9), the windows on the
+//     clamped grid each tested by dense_split;
 //   load_rays, push_root, push_children, store_tile: the frame of a
 //     walk around them (kS threads a lane, kC blocks a tile);
 //   cluster_bounds, cluster_t_upper: the packet bounds and t_upper
@@ -42,8 +44,8 @@
 // The stack guard: a split whose two pushes could pass the kStack entries
 // ends the walk instead (push_children returns -1 and writes nothing); the
 // kernel then sets its overflow flag, which the wrapper raises on after
-// the launch. The decision is block-uniform, so the block leaves the walk
-// as a whole and the CUDA context stays usable.
+// the launch. The decision is cluster-uniform, so every block leaves the
+// walk as a whole and the CUDA context stays usable.
 
 #pragma once
 
@@ -62,6 +64,7 @@ constexpr int kRecF4 = 4;            // float4s per 16-float record
 constexpr int kUsedF4 = 3;           // float4s staged per record (cols 0-11)
 constexpr int kWinUsedF4 = kWinRecs * kUsedF4;
 constexpr int kTupMask = 3;          // t_upper after a leaf on every 4th pop
+constexpr int kRing = 4;             // buffers of a leaf's ring (ring_stream)
 constexpr int kMaxThreads = 512;
 constexpr float kBig = 3.4e38f;
 constexpr float kInvBig = 1e30f;
@@ -103,57 +106,21 @@ __device__ __forceinline__ void wait_pending(int pending) {
   }
 }
 
-// Block reductions; every thread gets the result. Callers are uniform.
-__device__ __forceinline__ float block_min(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // red[] is free: every thread read the previous result
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fminf(r, red[w]);
-  return r;
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  return -block_min(-v, red);
-}
-
-__device__ __forceinline__ int block_sum(int v, int* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = 0;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) r += red[w];
-  return r;
-}
-
 __device__ __forceinline__ float clip_inv(float d) {
   return fminf(fmaxf(__frcp_rn(d), -kInvBig), kInvBig);
 }
 
-// t_upper: the largest best t over the tile's active lanes (-kBig when none).
-template <int RPT>
-__device__ __forceinline__ float tile_t_upper(const float* bt, const bool* on,
-                                              float* red) {
-  float m = -kBig;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k)
-    if (on[k]) m = fmaxf(m, bt[k]);
-  return block_max(m, red);
-}
-
 // The active flags of one half of the tile: lanes [0, tile / 2) (right =
-// false) or [tile / 2, tile) (right = true).
+// false) or [tile / 2, tile) (right = true). lane0: the tile's lane of this
+// thread's first ray (its block's first lane, cluster rank x tile / kC,
+// plus the thread's lane in the block); lanes k * lpt apart.
 template <int RPT>
 __device__ __forceinline__ void half_lanes(const bool* on, int tile,
-                                           bool right, bool* out) {
+                                           int lane0, int lpt, bool right,
+                                           bool* out) {
 #pragma unroll
   for (int k = 0; k < RPT; ++k)
-    out[k] = on[k] &&
-             (((int)(threadIdx.x + k * blockDim.x) >= tile / 2) == right);
+    out[k] = on[k] && ((lane0 + k * lpt >= tile / 2) == right);
 }
 
 // This thread's rays of the block's lanes from `base` (lane tid / kS +
@@ -213,43 +180,8 @@ struct Bounds {
   float ol[3], oh[3], il[3], ih[3];
 };
 
-// Computes the packet bounds over the active lanes into B (thread 0 writes)
-// and returns the tile's count of active lanes; its last barriers publish B.
-template <int RPT>
-__device__ __forceinline__ int packet_bounds(const Ray* ray, const bool* on,
-                                             Bounds& B, float* red,
-                                             int* ired) {
-  int n_on = 0;
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) n_on += on[k];
-  for (int ax = 0; ax < 3; ++ax) {
-    float ol = kBig, oh = -kBig, il = kInvBig, ih = -kInvBig;
-#pragma unroll
-    for (int k = 0; k < RPT; ++k) {
-      if (!on[k]) continue;
-      const float o = ax == 0 ? ray[k].ox : ax == 1 ? ray[k].oy : ray[k].oz;
-      const float d = ax == 0 ? ray[k].dx : ax == 1 ? ray[k].dy : ray[k].dz;
-      const float inv = clip_inv(d);
-      ol = fminf(ol, o);
-      oh = fmaxf(oh, o);
-      il = fminf(il, inv);
-      ih = fmaxf(ih, inv);
-    }
-    ol = block_min(ol, red);
-    oh = block_max(oh, red);
-    il = block_min(il, red);
-    ih = block_max(ih, red);
-    if (threadIdx.x == 0) {
-      B.ol[ax] = ol;
-      B.oh[ax] = oh;
-      B.il[ax] = il;
-      B.ih[ax] = ih;
-    }
-  }
-  return block_sum(n_on, ired);
-}
-
-// The packet bounds of the whole tile over its active lanes
+// The packet bounds of the whole tile over its active lanes `on` (K7: one
+// half's; a block without such a lane gives the identities)
 // (_packet_bounds_masked), reduced over the cluster, into B (thread 0
 // writes); returns the tile's active lanes, counted on the threads where
 // `counts` (one thread of each lane's kS). Its last barrier publishes B.
@@ -427,41 +359,6 @@ __device__ __forceinline__ int push_children(const Bounds& B, int4 nd,
   return sp;
 }
 
-// The dense MT test of one staged window (kWinRecs records, cols 0-11,
-// kUsedF4 float4s apart) against this thread's rays. Tie rule, that of
-// clpathtracer_tpu/ops/packet.py::_mt_chunk_math: within the window the
-// least t, among equal t the lowest row of 8 records and within it the
-// highest record; against the earlier windows the later window wins at
-// equal t.
-template <int RPT>
-__device__ __forceinline__ void dense_window(const float4* win, const Ray* ray,
-                                             const bool* on, long long rec0,
-                                             float* bt, int* bs) {
-#pragma unroll
-  for (int k = 0; k < RPT; ++k) {
-    if (!on[k]) continue;
-    float ct = kBig;
-    int cr = -1;  // record of ct within the window
-    for (int r = 0; r < kWinRecs; ++r) {
-      const float4 p = win[r * kUsedF4];
-      const float4 q = win[r * kUsedF4 + 1];
-      const float4 w = win[r * kUsedF4 + 2];
-      float t;
-      const bool hit = mt_hit(ray[k], p, q, w, &t);
-      // least t; at equal t the same row's later record
-      if (hit && t < kBig &&
-          (t < ct || (t == ct && (r >> 3) == (cr >> 3)))) {
-        ct = t;
-        cr = r;
-      }
-    }
-    if (ct < kBig && ct <= bt[k]) {  // the later window wins ties
-      bt[k] = ct;
-      bs[k] = (int)(rec0 + cr);
-    }
-  }
-}
-
 // Whether (t2, r2) precedes (t, r) in a window's tie rule: the least t,
 // among equal t the lowest row of 8 records, within it the highest record.
 __device__ __forceinline__ bool precedes(float t2, int r2, float t, int r) {
@@ -469,14 +366,15 @@ __device__ __forceinline__ bool precedes(float t2, int r2, float t, int r) {
   return t2 < t || (t2 == t && (row2 < row || (row2 == row && r2 > r)));
 }
 
-// dense_window with kS threads a lane: the kS threads of a lane are
-// neighbours in a warp, and share h tests records h, h + kS, ... of the
-// window (neighbouring records for neighbouring threads: distinct
-// shared-memory banks). Each share's winner under the window's rule is the
-// rule's least of its records, so the shares merge by `precedes` (warp
-// shuffles) into the window's winner, which then meets the earlier
-// windows' as in dense_window (the later window wins at equal t); every
-// thread of the lane holds the result. Records staged kUsedF4 float4s
+// The dense MT (or SO, or bf16) test of one staged window (kWinRecs
+// records, cols 0-11) against this thread's rays, kS threads a lane: the
+// kS threads of a lane are neighbours in a warp, and share h tests records
+// h, h + kS, ... of the window (neighbouring records for neighbouring
+// threads: distinct shared-memory banks). Each share's winner under the
+// window's rule is the rule's least of its records, so the shares merge by
+// `precedes` (warp shuffles) into the window's winner, which then meets the
+// earlier windows' where t <= the best so far (the later window wins at
+// equal t); every thread of the lane holds the result. Records staged kUsedF4 float4s
 // apart. lane0: the block's lane of this thread's first ray; lanes k * lpt
 // apart; a lane whose gate bit (gates >> (lane / kGate)) is clear is
 // skipped.
@@ -535,31 +433,50 @@ __device__ __forceinline__ void copy_window(float4* dst, const float4* recs,
   cp_async_commit();
 }
 
-// Stream and test nch windows, rows row0 + 16 b clamped to n_rows - 16 for
-// b < nch, in order, double-buffered in buf[2 * kWinUsedF4]: window b + 1's
-// copy is in flight while window b is tested; one commit group per window
-// and thread, each waited exactly once (wait_group 1 while the next copy
-// flies, 0 for the last window); nch = 0 starts no copy. `on`: the lanes
-// that test. Every thread calls it (uniform).
-template <int RPT>
-__device__ void stream_windows(const float4* recs, int n_rows, int row0,
-                               int nch, float4* buf, const Ray* ray,
-                               const bool* on, float* bt, int* bs) {
-  if (nch > 0) copy_window(buf, recs, min(row0, n_rows - kChunkRows));
+// A leaf's nch staged buffers of `stride` float4s through a ring of kRing
+// in shared memory (K6a, K6b, K7, K8, K9): kRing - 1 copies in flight
+// while one is tested, one commit group per buffer and thread (each thread
+// waits until at most min(kRing - 2, buffers left after this one) of its
+// groups are pending), one barrier per buffer. copy(b, dst) starts buffer
+// b's copies into dst and commits them; test(b, src) tests it. nch = 0
+// starts no copy. Every thread of the block calls it (block-uniform); its
+// barriers are the block's own, so a block of a cluster that has nothing
+// to test may skip it. The caller puts a barrier between the last test and
+// the next leaf's copies (the next pop's, or a t_upper refresh's).
+template <class Copy, class Test>
+__device__ __forceinline__ void ring_stream(int nch, float4* ring, int stride,
+                                            Copy copy, Test test) {
+  for (int b = 0; b < kRing - 1 && b < nch; ++b) copy(b, ring + b * stride);
   for (int b = 0; b < nch; ++b) {
-    if (b + 1 < nch) {
-      copy_window(buf + ((b + 1) & 1) * kWinUsedF4, recs,
-                  min(row0 + (b + 1) * kChunkRows, n_rows - kChunkRows));
-      cp_async_wait<1>();  // window b's group is complete, b + 1's flies
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // every thread's part of window b has landed
-    const int row = min(row0 + b * kChunkRows, n_rows - kChunkRows);
-    dense_window<RPT>(buf + (b & 1) * kWinUsedF4, ray, on,
-                      (long long)row * 8, bt, bs);
-    __syncthreads();  // every thread is done with it before its reuse
+    wait_pending(min(kRing - 2, nch - 1 - b));  // this thread's buffer b
+    __syncthreads();  // buffer b has landed; buffer b - 1 is tested
+    if (b + kRing - 1 < nch)  // into b - 1's buffer
+      copy(b + kRing - 1, ring + ((b + kRing - 1) % kRing) * stride);
+    test(b, ring + (b % kRing) * stride);
   }
+}
+
+// A leaf's nch windows on the clamped grid, rows row0 + 16 b clamped to
+// last_row (n_rows - 16), through the ring (kRing * kWinUsedF4 float4s),
+// each tested by dense_split with kS threads a lane, one ray a thread: the
+// window's tie rule, the later window winning at equal t (K6b, K7, K9).
+// `on`: the lanes that test.
+template <int kS>
+__device__ __forceinline__ void ring_windows(const float4* recs, int last_row,
+                                             int row0, int nch, float4* ring,
+                                             const Ray* ray, const bool* on,
+                                             int lane0, int lpt, float* bt,
+                                             int* bs) {
+  ring_stream(
+      nch, ring, kWinUsedF4,
+      [&](int b, float4* dst) {
+        copy_window(dst, recs, min(row0 + b * kChunkRows, last_row));
+      },
+      [&](int b, const float4* win) {
+        dense_split<1, kS, false, false, kMaxThreads>(
+            win, ray, on, 0xffffffffu, lane0, lpt,
+            (long long)min(row0 + b * kChunkRows, last_row) * 8, bt, bs);
+      });
 }
 
 }  // namespace clpt

@@ -28,43 +28,66 @@
 //     b < ceil((ceil((4 q + count) / 8) - r0) / 16) (an empty leaf at an
 //     odd quad start gets one chunk; the host computes the count,
 //     ops/packet.py::stream2_nodes); a chunk's dense MT test (_mt_chunk_math
-//     with the active mask, kd_walk.cuh::dense_window) runs for the lanes of
+//     with the active mask, kd_walk.cuh::dense_split) runs for the lanes of
 //     the live halves only; no window is culled;
 //   t_upper: after a leaf's last chunk, when the pop count is a multiple of
 //     4, each live half takes the largest best t over its active lanes; an
 //     empty leaf (no chunk) refreshes nothing.
 // Stats per tile: node pops, chunks, the tile's active lanes, 0, 0. Tie
-// rule: dense_window's (_mt_chunk_math's). The TPU program steps two tiles'
-// machines in turn; the machines share nothing, so here each tile is one
-// block. The plain torch version (ops/packet.py::packet_stream2_reference)
+// rule: the window's (_mt_chunk_math's, kd_walk.cuh::precedes). The TPU
+// program steps two tiles' machines in turn; the machines share nothing,
+// so here each tile is walked on its own (a cluster or a block). The plain torch version (ops/packet.py::packet_stream2_reference)
 // replays the same walk with the same rounding (__f*_rn, --fmad=false) and
 // agrees exactly in t, slot and stats.
 //
-// Design: one block per tile, tile/RPT threads of RPT rays each, and the
-// block-uniform walk of kd_walk.cuh, as K3: every thread computes the same
-// pops and interval tests for both halves; thread 0 writes the stack (128
-// entries of node, t_lo and t_hi left, t_lo and t_hi right) and barriers
-// order its reads and writes. A leaf's chunks (cols 0-11 of 128 records, 6
-// KB) are double-buffered in shared memory with cp.async
-// (kd_walk.cuh::stream_windows, as K6b). The stack is guarded: a split whose
-// pushes could pass 128 entries sets the overflow flag (the wrapper raises)
-// and ends the walk.
+// Design: K6b's cluster walk (packet_v1.cu). A tile that is a multiple of
+// 256 rays runs on a thread-block cluster of kCluster = 8 blocks
+// (cluster.cuh), each block an eighth of the tile's lanes (256 at tile
+// 2048, 64 at tile 512, 512 at tile 4096) with kSplit = 2 neighbouring
+// threads a lane, each testing every other record of a staged chunk; so
+// blocks 0-3 hold the left half and blocks 4-7 the right half, and no
+// block straddles the two (half_lanes maps a lane through the block's
+// cluster rank). A smaller tile, or one that is not a multiple of 256,
+// runs on one block with one thread a lane. Every block runs the same walk
+// on its own stack in shared memory (128 entries of node, t_lo and t_hi
+// left, t_lo and t_hi right; thread 0 writes, barriers order the reads);
+// each half's packet bounds and active count (cluster_bounds, the other
+// half's blocks giving the identities) and both halves' t_upper at a
+// refresh (one cluster_reduce of two maxima) are reduced over the whole
+// cluster, so every block pops the same nodes, takes the same halves live
+// and takes the stack guard's decision alike; rank 0 writes the stats row,
+// and the last cluster barrier keeps every block until its peers have read
+// its shared memory. A leaf's chunks (cols 0-11 of 128 records, 6 KB) go
+// through K6b's ring of 4 buffers with cp.async (kd_walk.cuh::ring_windows:
+// three copies in flight while one is tested, dense_split's two shares a
+// lane merged by the window's tie rule). A block whose lanes the leaf does
+// not test (its half not live at the pop, or no active lane of its half)
+// skips the leaf's copies and tests: the ring's barriers are the block's
+// own, and the next cluster barrier (a t_upper refresh) is reached by
+// every block alike.
 //
 // What bounds it on this card: FP32 issue in the dense MT test (15-53
 // operations per pair by its early exit), as K3; the half split removes a
 // half's lanes from a chunk's test when that half has left the node, but
 // culls no window, so a tile streams every chunk of every leaf either half
-// reaches. Besides, the walk's serial barriers and global reads, and one
-// block per tile (128 tiles of 2048 rays at 512x512 on 132 SMs).
+// reaches. On one block a 2048-ray tile ran on one SM, and a mirror wave
+// took as long as its heaviest tile; on a cluster it runs on 8 SMs (4 a
+// half), so the launch moves toward its total work at the rate the pair
+// tests issue. The walk's barriers and node reads stay serial per tile,
+// repeated by every block of the cluster.
 
 #include <cuda_runtime.h>
 
+#include "cluster.cuh"
 #include "kd_walk.cuh"
 #include "pair_tests.cuh"
 
 namespace {
 
 using namespace clpt;
+
+constexpr int kCluster = 8;  // blocks per tile (tiles of 256k rays)
+constexpr int kSplit = 2;    // threads a lane on a cluster
 
 struct S2Args {
   const int4* nodes_i;     // [M]: (flags, child_lo | row0, child_hi | -,
@@ -85,29 +108,46 @@ __device__ __forceinline__ bool live(float tlo, float thi, float t_upper) {
   return tlo <= fminf(thi, t_upper) && thi > 0.f;
 }
 
-template <int RPT>
-__global__ void __launch_bounds__(kMaxThreads)
+// kC blocks per tile (a cluster), each owning tile / kC consecutive lanes,
+// one per group of kS neighbouring threads (lane rank * tile / kC +
+// tid / kS).
+template <int kC, int kS>
+__global__ void __launch_bounds__(kMaxThreads * kS, kS == 1 ? 2 : 1)
 packet_stream2_kernel(const S2Args a) {
-  __shared__ __align__(16) float4 buf[2 * kWinUsedF4];
+  __shared__ float4 ring[kRing * kWinUsedF4];
   __shared__ int s_node[kStack];
   __shared__ float s_tlo_l[kStack], s_thi_l[kStack];
   __shared__ float s_tlo_r[kStack], s_thi_r[kStack];
-  __shared__ float red[kMaxThreads / 32];
-  __shared__ int ired[kMaxThreads / 32];
+  __shared__ ClusterSlots<12> sb;
+  __shared__ ClusterSlots<2> s2;
+  __shared__ ClusterSlots<1> s1;
   __shared__ Bounds BL, BR;
 
+  const int rank = cluster_rank();
   const int tid = threadIdx.x;
-  const size_t base = (size_t)blockIdx.x * a.tile;
+  const int lanes = a.tile / kC;
+  const size_t base = (size_t)(blockIdx.x / kC) * a.tile +
+                      (size_t)rank * lanes;
+  const int lpt = blockDim.x / kS;  // lanes of the block
+  const int lane0 = tid / kS;       // the block's lane of this thread
 
-  Ray ray[RPT];
-  bool on[RPT], on_l[RPT], on_r[RPT], go[RPT];
-  float bt[RPT];
-  int bs[RPT];
-  load_rays<RPT>(a.orig_t, a.dir_t, a.act, a.n_rays, base, ray, on, bt, bs);
-  half_lanes<RPT>(on, a.tile, false, on_l);
-  half_lanes<RPT>(on, a.tile, true, on_r);
-  const int n_l = packet_bounds<RPT>(ray, on_l, BL, red, ired);
-  const int n_r = packet_bounds<RPT>(ray, on_r, BR, red, ired);
+  Ray ray[1];
+  bool on[1], on_l[1], on_r[1], go[1];
+  float bt[1];
+  int bs[1];
+  load_rays<1, kS>(a.orig_t, a.dir_t, a.act, a.n_rays, base, ray, on, bt,
+                   bs);
+  half_lanes<1>(on, a.tile, rank * lanes + lane0, lpt, false, on_l);
+  half_lanes<1>(on, a.tile, rank * lanes + lane0, lpt, true, on_r);
+  int par_b = 0, par1 = 0, par2 = 0;
+  const bool counts = tid % kS == 0;
+  const int n_l = cluster_bounds<1>(ray, on_l, counts, BL, sb, par_b, s1,
+                                    par1);
+  const int n_r = cluster_bounds<1>(ray, on_r, counts, BR, sb, par_b, s1,
+                                    par1);
+  // whether this block has an active lane of each half
+  const bool has_l = __syncthreads_or(on_l[0]);
+  const bool has_r = __syncthreads_or(on_r[0]);
 
   int sp = 0;
   if (n_l + n_r > 0) {  // seed: the root's interval per half
@@ -145,13 +185,15 @@ packet_stream2_kernel(const S2Args a) {
       const int nch = nd.w;
       nl += nch;
       if (nch == 0) continue;
-#pragma unroll
-      for (int k = 0; k < RPT; ++k)
-        go[k] = (live_l && on_l[k]) || (live_r && on_r[k]);
-      stream_windows<RPT>(a.rows, a.n_rows, nd.y, nch, buf, ray, go, bt, bs);
-      if ((nv & kTupMask) == 0) {
-        if (live_l) tu_l = tile_t_upper<RPT>(bt, on_l, red);
-        if (live_r) tu_r = tile_t_upper<RPT>(bt, on_r, red);
+      go[0] = (live_l && on_l[0]) || (live_r && on_r[0]);
+      if ((live_l && has_l) || (live_r && has_r))
+        ring_windows<kS>(a.rows, a.n_rows - kChunkRows, nd.y, nch, ring, ray,
+                         go, lane0, lpt, bt, bs);
+      if ((nv & kTupMask) == 0) {  // each live half's t_upper
+        float m[2] = {on_l[0] ? bt[0] : -kBig, on_r[0] ? bt[0] : -kBig};
+        cluster_reduce<2>(m, s2, par2, MaxOp(), -INFINITY);
+        if (live_l) tu_l = m[0];
+        if (live_r) tu_r = m[1];
       }
     } else {  // split: far child first, then the near child
       if (sp + 2 > kStack) {
@@ -200,17 +242,33 @@ packet_stream2_kernel(const S2Args a) {
       __syncthreads();
     }
   }
-  if (overflow && tid == 0) *a.overflow = 1;
-
-  store_tile<RPT>(bt, bs, base, a.best_t, a.best_slot, a.stats, nv, nl,
-                  n_l + n_r, 0, 0);
+  if (overflow && rank == 0 && tid == 0) *a.overflow = 1;
+  // every thread of a group holds its lane's winner
+  store_tile<1, kS, kC>(bt, bs, base, a.best_t, a.best_slot, a.stats, nv, nl,
+                        n_l + n_r, 0, 0);
+  cluster_end();
 }
 
-template <int RPT>
-int launch_rpt(const S2Args& a, cudaStream_t stream) {
-  packet_stream2_kernel<RPT>
-      <<<a.n_rays / a.tile, a.tile / RPT, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+using Stream2Kernel = void (*)(const S2Args);
+
+// The launch shape of K7 at `tile`: blocks per cluster (kCluster when the
+// tile is a multiple of 32 * kCluster, so that each block's lanes are whole
+// warps and lie in one half; else 1) and threads per block (kSplit a lane
+// on a cluster, one a lane on one block); the kernel instance, null for a
+// tile it does not take (a multiple of 32 up to 4096, and up to 512 on one
+// block). K6b's rule (packet_v1.cu::v1_shape).
+Stream2Kernel stream2_shape(int tile, int* c, int* threads) {
+  if (tile <= 0 || tile % 32 || tile > kCluster * kMaxThreads)
+    return nullptr;
+  if (tile % (32 * kCluster) == 0) {
+    *c = kCluster;
+    *threads = tile / kCluster * kSplit;
+    return packet_stream2_kernel<kCluster, kSplit>;
+  }
+  if (tile > kMaxThreads) return nullptr;
+  *c = 1;
+  *threads = tile;
+  return packet_stream2_kernel<1, 1>;
 }
 
 }  // namespace
@@ -220,9 +278,10 @@ int launch_rpt(const S2Args& a, cudaStream_t stream) {
 // aligned; orig_t, dir_t: [3, n_rays] f32 tile-major; act: [n_rays] f32.
 // Outputs best_t [n_rays] f32, best_slot [n_rays] i32 (-1 on a miss), stats
 // [n_rays / tile, 5] i32, and overflow [1] i32 (zeroed by the caller; set to
-// 1 when a stack overflows). tile: a multiple of 32 up to 4096, with
-// tile / 512 rays per thread above 512. Returns cudaGetLastError() after the
-// launch.
+// 1 when a stack overflows). tile: a multiple of 32 up to 4096; a multiple
+// of 256 runs as a cluster of 8 blocks, each an eighth of its lanes, a
+// smaller one (up to 512) as one block. Returns the launch's error, else
+// cudaGetLastError(): a refused cluster launch shows there.
 extern "C" int packet_stream2_launch(
     const void* nodes_i, const void* nodes_f, const void* rows,
     const void* orig_t, const void* dir_t, const void* act, void* best_t,
@@ -242,18 +301,25 @@ extern "C" int packet_stream2_launch(
   a.n_rays = n_rays;
   a.tile = tile;
   a.n_rows = n_rows;
-  if (tile <= 0 || tile % 32 || tile > 8 * kMaxThreads || n_rays % tile ||
-      n_rows < kChunkRows || reinterpret_cast<size_t>(rows) % 16)
+  if (tile <= 0 || n_rays % tile || n_rows < kChunkRows ||
+      reinterpret_cast<size_t>(rows) % 16)
     return (int)cudaErrorInvalidValue;
+  int c, threads;
+  const Stream2Kernel kernel = stream2_shape(tile, &c, &threads);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rpt = tile <= kMaxThreads ? 1 : tile / kMaxThreads;
-  if (rpt * (tile / rpt) != tile) return (int)cudaErrorInvalidValue;
-  switch (rpt) {
-    case 1: return launch_rpt<1>(a, s);
-    case 2: return launch_rpt<2>(a, s);
-    case 4: return launch_rpt<4>(a, s);
-    case 8: return launch_rpt<8>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_cluster(kernel, c, n_rays / tile * c, threads, 0,
+                        static_cast<cudaStream_t>(stream), a);
+}
+
+// The shape of K7's launch at `tile`, as clpt::cluster_shape writes it into
+// out[6]: blocks per cluster, threads per block, the clusters resident at
+// once, registers per thread, static and dynamic shared memory bytes per
+// block. Returns a CUDA error or 0 (cudaErrorInvalidValue for a tile the
+// kernel does not take).
+extern "C" int packet_stream2_shape(int tile, int* out) {
+  int c, threads;
+  const Stream2Kernel kernel = stream2_shape(tile, &c, &threads);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return cluster_shape(kernel, c, threads, 0, out);
 }

@@ -23,7 +23,7 @@
 //     culled (_chunk_pipeline's stream_leaf), with _mt_chunk_math's tie
 //     rule: within a window the least t, among equal t the lowest row of 8
 //     and within it the highest record; across windows the later window
-//     wins at equal t (kd_walk.cuh::dense_window).
+//     wins at equal t (kd_walk.cuh::dense_split).
 //   K9 walks supernodes of accel/wide.py's [S, 128] table: a pop tests its
 //     8 child slots in order; a live internal child (kind 1) is pushed, a
 //     live leaf (kind 2) streams its windows as K6b at once and refreshes
@@ -50,11 +50,10 @@
 // keeps every block until its peers have read its shared memory. Nothing
 // is culled, so a leaf's records are known when it is entered: they go
 // through a ring of kRing = 4 buffers of 6 KB (cols 0-11 of 128 records,
-// what mt_hit reads) with cp.async, three in flight while one is tested,
-// one commit group per buffer and thread (each thread waits until at most
-// min(kRing - 2, buffers left after this one) of its groups are pending),
-// one barrier per buffer; no copy is asked beyond the leaf, since the next
-// leaf depends on t_upper, and an empty leaf starts none.
+// what mt_hit reads) with cp.async, three in flight while one is tested
+// (kd_walk.cuh::ring_stream, shared with K7 and K8); no copy is asked
+// beyond the leaf, since the next leaf depends on t_upper, and an empty
+// leaf starts none.
 //   K6b and K9 stage the leaf's windows on the clamped grid of the padded
 //     records; the 2 shares of a lane merge by the window's tie rule, a
 //     total order, before they meet the earlier windows' winner
@@ -98,7 +97,6 @@ enum Engine { kResident = 0, kStream = 1, kWide = 2 };
 
 constexpr int kCluster = 8;  // blocks per tile (tiles of 256k rays)
 constexpr int kSplit = 2;    // threads a lane on a cluster
-constexpr int kRing = 4;     // buffers of a leaf's records staged at once
 
 struct V1Args {
   const float* table;      // K6a, K6b: [M, 16] binary nodes; K9: [S, 128]
@@ -159,48 +157,39 @@ __device__ __forceinline__ void copy_records(float4* dst, const float4* recs,
 }
 
 // A leaf at quad row qstart with `count` records through the ring of kRing
-// buffers (kRing - 1 copies in flight; one commit group per buffer and
-// thread), kS threads a lane. K6a (kResident): its records in chunks of
-// 128 from 4 qstart, the last one partial, each tested by dense_resident;
-// returns 1 (a leaf tested). K6b and K9: its windows, rows row0 + 16 b
-// clamped to n_recs / 8 - 16 for b < nch, in order, each tested by
-// dense_split; returns nch. Every thread of the cluster calls it
-// (uniform). The caller's t_upper refresh after it is a cluster barrier,
-// so every thread is done with the ring before the next leaf's copies.
+// buffers (kd_walk.cuh::ring_stream), kS threads a lane. K6a (kResident):
+// its records in chunks of 128 from 4 qstart, the last one partial, each
+// tested by dense_resident; returns 1 (a leaf tested). K6b and K9: its
+// windows, rows row0 + 16 b clamped to n_recs / 8 - 16 for b < nch, in
+// order, each tested by dense_split (ring_windows); returns nch. Every
+// thread of the cluster calls it (uniform). The caller's t_upper refresh
+// after it is a cluster barrier, so every thread is done with the ring
+// before the next leaf's copies.
 template <int kS, int kEngine>
 __device__ int ring_leaf(const V1Args& a, int qstart, int count,
                          float4* ring, const Ray* ray, const bool* on,
                          int lane0, int lpt, float* bt, int* bs) {
   const int first = qstart * 4;
-  const int row0 = first / 8;
-  const int nch = kEngine == kResident
-                      ? (count + kWinRecs - 1) / kWinRecs
-                      : ((first + count + 7) / 8 - row0 + kChunkRows - 1) /
-                            kChunkRows;
-  const int last_row = a.n_recs / 8 - kChunkRows;
-  auto copy = [&](int b) {
-    float4* dst = ring + (b % kRing) * kWinUsedF4;
-    if constexpr (kEngine == kResident)
-      copy_records(dst, a.recs, first + b * kWinRecs,
-                   min(kWinRecs, count - b * kWinRecs));
-    else
-      copy_window(dst, a.recs, min(row0 + b * kChunkRows, last_row));
-  };
-  for (int b = 0; b < kRing - 1 && b < nch; ++b) copy(b);
-  for (int b = 0; b < nch; ++b) {
-    wait_pending(min(kRing - 2, nch - 1 - b));  // this thread's buffer b
-    __syncthreads();  // buffer b has landed; buffer b - 1 is tested
-    if (b + kRing - 1 < nch) copy(b + kRing - 1);  // into b - 1's buffer
-    const float4* win = ring + (b % kRing) * kWinUsedF4;
-    if constexpr (kEngine == kResident)
-      dense_resident<kS>(win, min(kWinRecs, count - b * kWinRecs), ray[0],
-                         first + b * kWinRecs, bt, bs);
-    else
-      dense_split<1, kS, false, false, kMaxThreads>(
-          win, ray, on, 0xffffffffu, lane0, lpt,
-          (long long)min(row0 + b * kChunkRows, last_row) * 8, bt, bs);
+  if constexpr (kEngine == kResident) {
+    ring_stream(
+        (count + kWinRecs - 1) / kWinRecs, ring, kWinUsedF4,
+        [&](int b, float4* dst) {
+          copy_records(dst, a.recs, first + b * kWinRecs,
+                       min(kWinRecs, count - b * kWinRecs));
+        },
+        [&](int b, const float4* win) {
+          dense_resident<kS>(win, min(kWinRecs, count - b * kWinRecs),
+                             ray[0], first + b * kWinRecs, bt, bs);
+        });
+    return 1;
+  } else {
+    const int row0 = first / 8;
+    const int nch =
+        ((first + count + 7) / 8 - row0 + kChunkRows - 1) / kChunkRows;
+    ring_windows<kS>(a.recs, a.n_recs / 8 - kChunkRows, row0, nch, ring, ray,
+                     on, lane0, lpt, bt, bs);
+    return nch;
   }
-  return kEngine == kResident ? 1 : nch;
 }
 
 // K6a (kEngine kResident) and K6b (kStream), the binary walk, and K9

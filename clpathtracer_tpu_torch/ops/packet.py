@@ -550,9 +550,10 @@ def _kernel_mode(cbnd, frustum, masks):
 def _walk_takes(tile: int) -> bool:
     """Whether the kd walk wrappers take `tile` rays a tile: a multiple of
     32 up to 4096 and of 512 above 512. K5 (ops/csrc/packet_queue.cu), K6a,
-    K6b and K9 (ops/csrc/packet_v1.cu) launch every such tile; which of
-    them run on a cluster is the kernel's choice (packet_queue_shape,
-    packet_v1_shape)."""
+    K6b and K9 (ops/csrc/packet_v1.cu), K7 (ops/csrc/packet_stream2.cu) and
+    K8 (ops/csrc/packet_mxu.cu) launch every such tile; which of them run
+    on a cluster is the kernel's choice (packet_queue_shape,
+    packet_v1_shape, packet_stream2_shape, packet_mxu_shape)."""
     return 0 < tile <= 4096 and tile % 32 == 0 and (tile <= 512
                                                    or tile % 512 == 0)
 
@@ -1395,7 +1396,9 @@ def packet_stream2(nodes_i, nodes_f, rows, orig_t, dir_t, act, *,
     for an active lane. K3's interval walk with an interval and a t_upper
     per half tile (lanes [0, tile/2) and [tile/2, tile)); a leaf's chunks
     run the dense MT test for the halves live at its pop; no window cull
-    (see ops/csrc/packet_stream2.cu). Always f32, MT form.
+    (see ops/csrc/packet_stream2.cu: a tile of 256k rays walks on a
+    cluster of 8 blocks, 4 a half; packet_stream2_shape). tile: as
+    _walk_takes. Always f32, MT form.
 
     Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss, stats
     [n_tiles, 5] i32 = node pops, chunks, active lanes, 0, 0).

@@ -142,7 +142,8 @@ def packet_mxu(nodes_i, nodes_f, chunks, orig_t, dir_t, act, *, tile: int):
     orig_t / dir_t: [3, N] tile-major rays; act: [N] f32, > 0 for an active
     lane. K3's interval walk with no window cull; a leaf streams its chunk
     range, each chunk's planes summed in exact FP32 (see
-    ops/csrc/packet_mxu.cu).
+    ops/csrc/packet_mxu.cu: a tile of 256k rays walks on a cluster of 8
+    blocks; packet_mxu_shape). tile: as ops/packet.py::_walk_takes.
 
     Returns (best_t [N] f32, best_slot [N] i32 with -1 on a miss: the row
     of the [T, 16] records; stats [n_tiles, 5] i32 = node pops, chunks,

@@ -101,13 +101,23 @@ def test_ptxas_report_picks_the_kernel():
     assert _cuda.ptxas_report(log, "brute_force_scan") == ""
 
 
+# the arguments before `out` of the shape entries that take other than
+# (1, 16): K7's and K8's take the tile alone
+SHAPE_ARGS = {"packet_stream2_shape": (2048,), "packet_mxu_shape": (512,)}
+
+
 @pytest.mark.parametrize("entry", ["plist_super_shape", "plist_window_shape",
-                                   "packet_queue_shape", "packet_v1_shape"])
+                                   "packet_queue_shape", "packet_v1_shape",
+                                   "packet_stream2_shape",
+                                   "packet_mxu_shape"])
 def test_cluster_shape_reads_the_entry(monkeypatch, entry):
     calls = _fake_library(monkeypatch)
-    assert _cuda.cluster_shape(entry, 1, 16) == dict(
+    ints = SHAPE_ARGS.get(entry, (1, 16))
+    sig = next(e[entry] for e in _cuda.SIGNATURES.values() if entry in e)
+    assert len(sig) == len(ints) + 1
+    assert _cuda.cluster_shape(entry, *ints) == dict(
         zip(_cuda.SHAPE_KEYS, range(10, 16)))
-    assert calls == [(1, 16)]
+    assert calls == [ints]
 
 
 def test_shape_error_raises(monkeypatch):

@@ -34,6 +34,7 @@ from clpathtracer_tpu.ops import packet_mxu as jmx
 from clpathtracer_tpu_torch.ops import packet as tpk
 from clpathtracer_tpu_torch.ops import packet_mxu as tmx
 from test_torch_legacy import SIZE, fx  # noqa: F401  (the soup fixture)
+from test_torch_legacy import _tie_rays, _tie_records
 from test_torch_plist import _bruteforce
 from test_torch_stream2 import (_Table, chain_table, check_record,
                                 dead_lanes, spy_runs, terrain)  # noqa: F401
@@ -193,3 +194,106 @@ def test_packet_mxu_rejects_bad_arguments(fx, bad):  # noqa: F811
         tile = 768
     with pytest.raises(ValueError, match="packet_mxu"):
         tmx.packet_mxu(*args, tile=tile)
+
+
+# K8's tiles: those of every kd walk wrapper (packet._walk_takes); which of
+# them run on a cluster of 8 blocks (multiples of 256, 2 threads a lane)
+# or on one block is the kernel's choice, read on the card
+# (packet_mxu_shape, chip_smoke.py phase 2)
+MXU_TILES = ([(t, True) for t in (32, 128, 224, 256, 480, 512, 1024, 1536,
+                                  2048, 4096)]
+             + [(t, False) for t in (0, 48, 544, 768, 4352, 8192)])
+
+
+@pytest.mark.parametrize("tile,taken", MXU_TILES)
+def test_mxu_tile_rule(tile, taken):
+    """packet_mxu takes whole warps up to 4096 and multiples of 512 above
+    512, the rule of every kd walk, and refuses other tiles on the host as
+    on the card. A taken tile of dead lanes does no walk."""
+    n = max(tile, 32)
+    nodes_i = torch.tensor([[4, 0, 0, 0]], dtype=torch.int32)
+    args = (nodes_i, torch.zeros(7), torch.zeros((tmx.MXU_ROWS,
+                                                  4 * tmx.MXU_TRIS)),
+            torch.zeros((3, n)), torch.zeros((3, n)), torch.zeros(n))
+    assert tpk._walk_takes(tile) is taken
+    if not taken:
+        with pytest.raises(ValueError, match=f"packet_mxu: tile {tile}"):
+            tmx.packet_mxu(*args, tile=tile)
+        return
+    _, best_slot, stats = tmx.packet_mxu(*args, tile=tile)
+    assert (best_slot == -1).all() and (stats == 0).all()
+
+
+BIG32 = np.float32(tpk.BIG)
+
+
+def _share_winner(t, k_s, h0):
+    """packet_mxu.cu::dense_chunk's chunk winner for one lane, replayed:
+    share h tests triangles h, h + k_s, ... in ascending order and keeps a
+    triangle where its t is less than its best, so the lowest triangle
+    among equal t; the shares then merge by the lower t, then the lower
+    triangle, over the xor butterfly of warp shuffles, seen from share h0.
+    t: [128] float32, BIG on a miss."""
+    won = []
+    for h in range(k_s):
+        ct, cj = BIG32, tmx.MXU_TRIS
+        for j in range(h, tmx.MXU_TRIS, k_s):
+            if t[j] < ct:
+                ct, cj = t[j], j
+        won.append((ct, cj))
+
+    def beats(a, b):
+        return a[0] < b[0] or (a[0] == b[0] and a[1] < b[1])
+    off = 1
+    while off < k_s:
+        won = [won[h ^ off] if beats(won[h ^ off], won[h]) else won[h]
+               for h in range(k_s)]
+        off <<= 1
+    return won[h0]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_mxu_split_merge_matches_plain_tie_rule(seed):
+    """Chunks of copies of two triangles at t 1 and 2 and of misses, at
+    random positions: exact-t ties everywhere. With 1, 2 or 4 threads a
+    lane (K8 takes 2 on a cluster) the shares' winners, merged by the lower
+    t and then the lower triangle, each chunk's then meeting the earlier
+    chunks' where t <= the best so far, give the plain version's t and
+    slot (ops/packet_mxu.py::_dense_chunks: within a chunk the least t and
+    the lowest slot among equal t, across chunks the later chunk at equal
+    t) on every lane, whatever share holds the result."""
+    rng = np.random.default_rng(seed)
+    n_chunks = 3
+    recs = _tie_records(rng, n_chunks * tmx.MXU_TRIS)
+    if seed == 3:       # a chunk of misses only, then a tie with chunk 0
+        recs[128:256, 9] = -1.0
+        recs[256:, 2] = 1.0
+    rays = _tie_rays(rng)
+    coef = tmx.staged_coefficients(tmx.mxu_rows_from_quads(
+        torch.as_tensor(recs)))
+    feats = tmx.mxu_features(rays)
+    n = len(rays[0])
+    p_t, p_s = tmx._dense_chunks(
+        coef, np.arange(n_chunks), feats, torch.ones(n, dtype=torch.bool),
+        torch.full((n,), tpk.BIG), torch.full((n,), -1, dtype=torch.int32),
+        None)
+    # every pair's t as the kernel sums it: exactly 1 or 2, or a miss
+    det, ud, vd, td = tmx.mxu_planes(coef[:, :, None, :],
+                                     [f[None, None, :] for f in feats])
+    ok = ((det > 0.0) & (ud >= 0.0) & (ud <= det) & (vd >= 0.0)
+          & (ud + vd <= det) & (td > 0.0))
+    t = torch.where(ok, td / torch.where(ok, det, 1.0), tpk.BIG).numpy()
+    want = np.where(recs[:, 9] >= 0.0, recs[:, 2], BIG32)
+    assert (t == want.reshape(n_chunks, tmx.MXU_TRIS)[:, :, None]).all()
+    for k_s in (1, 2, 4):
+        for lane in range(n):
+            best_t, best_s = BIG32, -1
+            for c in range(n_chunks):
+                won = {_share_winner(t[c, :, lane], k_s, h0)
+                       for h0 in range(k_s)}
+                assert len(won) == 1
+                ct, cj = won.pop()
+                if ct < BIG32 and ct <= best_t:
+                    best_t, best_s = ct, c * tmx.MXU_TRIS + cj
+            assert (float(best_t), best_s) == (float(p_t[lane]),
+                                               int(p_s[lane]))

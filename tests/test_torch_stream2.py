@@ -25,6 +25,8 @@ hits that its own stream engine finds; the port gives each half its own
 force, and the JAX record is shown to miss. The JAX kernel takes 7-9 s a
 call in interpret mode: four calls."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +40,7 @@ from clpathtracer_tpu.core.camera import generate_rays as j_generate_rays
 from clpathtracer_tpu.ops import packet as jpk
 from clpathtracer_tpu.scene.procedural import terrain_mesh as j_terrain
 from clpathtracer_tpu_torch import interop
+from clpathtracer_tpu_torch.ops import _cuda
 from clpathtracer_tpu_torch.ops import packet as tpk
 from test_torch_legacy import SIZE, fx  # noqa: F401  (the soup fixture)
 from test_torch_packet import _assert_hits
@@ -352,3 +355,64 @@ def test_packet_stream2_rejects_bad_arguments(fx, bad):  # noqa: F811
         args[5] = args[5].to("meta")
     with pytest.raises(ValueError, match="packet_stream2"):
         tpk.packet_stream2(*args, tile=tile)
+
+
+# K7's tiles: those of every kd walk wrapper (packet._walk_takes); which of
+# them run on a cluster of 8 blocks (multiples of 256, 2 threads a lane)
+# or on one block is the kernel's choice, read on the card
+# (packet_stream2_shape, chip_smoke.py phase 2)
+STREAM2_TILES = ([(t, True) for t in (32, 128, 224, 256, 480, 512, 1024,
+                                      1536, 2048, 4096)]
+                 + [(t, False) for t in (0, 48, 544, 768, 4352, 8192)])
+
+
+@pytest.mark.parametrize("tile,taken", STREAM2_TILES)
+def test_stream2_tile_rule(tile, taken):
+    """packet_stream2 takes whole warps up to 4096 and multiples of 512
+    above 512, the rule of every kd walk, and refuses other tiles on the
+    host as on the card. A taken tile of dead lanes does no walk."""
+    n = max(tile, 32)
+    nodes_i = torch.tensor([[4, 0, 0, 0]], dtype=torch.int32)
+    args = (nodes_i, torch.zeros(7), torch.zeros((128, 16)),
+            torch.zeros((3, n)), torch.zeros((3, n)), torch.zeros(n))
+    assert tpk._walk_takes(tile) is taken
+    if not taken:
+        with pytest.raises(ValueError, match=f"packet_stream2: tile {tile}"):
+            tpk.packet_stream2(*args, tile=tile)
+        return
+    _, best_slot, stats = tpk.packet_stream2(*args, tile=tile)
+    assert (best_slot == -1).all() and (stats == 0).all()
+
+
+def _cu_constant(stem, name):
+    src = (_cuda.CSRC_DIR / f"{stem}.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+@pytest.mark.parametrize("tile", [t for t in range(256, 4097, 256)
+                                  if tpk._walk_takes(t)])
+def test_stream2_cluster_half_map(tile):
+    """packet_stream2.cu's lane -> block -> half map, replayed for every
+    tile the cluster form takes (a multiple of 256): block `rank` of
+    kCluster owns the tile's lanes rank * tile / kCluster + tid / kSplit
+    (kSplit neighbouring threads a lane, whole warps, at most 1024 threads),
+    and half_lanes puts a lane in the right half where lane >= tile / 2.
+    So blocks 0-3 hold the left half and 4-7 the right, no block straddles
+    the two, every lane has kSplit threads, and the halves are the plain
+    version's (packet_stream2_reference: lanes [0, tile / 2) and
+    [tile / 2, tile))."""
+    k_c = _cu_constant("packet_stream2", "kCluster")
+    k_s = _cu_constant("packet_stream2", "kSplit")
+    assert (k_c, k_s) == (8, 2)
+    lanes = tile // k_c
+    threads = lanes * k_s
+    assert threads % 32 == 0 and threads <= 1024
+    seen = np.zeros(tile, np.int64)
+    plain_right = np.arange(tile) >= tile // 2
+    for rank in range(k_c):
+        lane = rank * lanes + np.arange(threads) // k_s
+        right = lane >= tile // 2        # half_lanes(..., lane0, ...)
+        assert (right == (rank >= k_c // 2)).all()
+        assert (right == plain_right[lane]).all()
+        np.add.at(seen, lane, 1)
+    assert (seen == k_s).all()
