@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--parent DIR]
 
---parent DIR: a tree of the parent commit (a git archive); the kernels of
-its sources named in PARENT_STEMS (packet_stream2.cu: K7; packet_mxu.cu:
-K8) are built beside this tree's and timed in turns with them in phases
-28 and 38 (with packet_queue.cu or packet_v1.cu there, K5 in phases 19
-and 38, K6a, K6b and K9 in phases 23 and 38; with ray_walk.cu and
-brute_force.cu, W1 and W2 in phases 40-42).
+--parent DIR: a tree of the parent commit (a git archive); the sources
+named in PARENT_STEMS (plist_super.cu, plist_subgate.cu) are built beside
+this tree's, their entries in PARENT_ENTRIES (K10; K11, SO and MT) are
+bound and timed in turns with this tree's in phases 33 and 38 (the
+parent's K1 and K2 are built but never called). With packet_stream2.cu
+and packet_mxu.cu there, K7 and K8 in phases 28 and 38; packet_queue.cu
+or packet_v1.cu, K5 in phases 19 and 38, K6a, K6b and K9 in phases 23
+and 38; ray_walk.cu and brute_force.cu, W1 and W2 in phases 40-42.
 
 Phases, one line or more each (any failure raises and the exit code is
 not 0):
@@ -18,12 +20,15 @@ not 0):
 2. build: compile clpathtracer_tpu_torch/ops/csrc/*.cu with nvcc (sm_90a),
    one nvcc per source, all started together, and load the libraries;
    print the cluster launch shape of K1, K1', K1's kcap form, K2 (SO and
-   MT), K3, K4, K5 (SO and MT), K6a, K6b, K7, K8 and K9 (blocks per
+   MT), K10, K11 (SO and MT), K3, K4, K5 (SO and MT), K6a, K6b, K7, K8
+   and K9 (blocks per
    cluster, threads, registers, shared memory, the clusters resident at
    once: cudaOccupancyMaxActiveClusters; K5's, K6a's, K6b's, K7's, K8's
    and K9's at the terrain's tile 2048 and the soup's 512, and their
    blocks and threads at tiles 224, 512, 2048 and 4096 held to the launch
-   rule, a tile that no launch takes (544) refused) and G1's,
+   rule, a tile that no launch takes (544) refused; K10's at both scenes'
+   chunks and at the largest chunk its wrapper takes, 4096 records, and
+   K11's at both scenes' windows, held to their launch rule) and G1's,
    W1's and W2's launch shapes (threads a block, threads a ray or rays a
    thread, blocks resident on an SM, registers, shared memory, spill
    bytes; W1's and W2's `-Xptxas -v` lines also go to the kernels line);
@@ -200,19 +205,25 @@ rebuilt:
    that holds every gate (K10, counted) and at kmax 8 (K1 once, K10
    never), each record equal to K1's; the kernel call at the full kmax
    against its plain version on every 8th gate and against K1 on all
-   gates, exactly;
+   gates, exactly, and on the terrain again at cwin 24 (chunks of 3072
+   records: the ring stages half chunks); its heaviest gate (most chunks)
+   to phase 38;
 31. K11 (four 128-ray sub-gates) in its SO and MT forms on both scenes
    against its plain version on every 8th gate, exactly; SO against MT
    (hit mismatch < 2e-3); a sky camera: no hit and no window for K2, K10
-   and K11;
+   and K11; each scene's heaviest sub-gate (most windows, SO form) to
+   phase 38;
 32. oracles: 4096 terrain pixels of K2, K10 (the full kmax) and K11
    against the brute force, at phase 5's limits;
 33. render_image normal frames with plist_schedule "super", "window" and
    "gathered" (2 warm-up, 20 timed; launches 22 of K1, K2, and K10 or K1
    on overflow, every other kernel 0; the three images equal);
    traverse_plist4 timed over 20 calls (20 launches of K11); K1, K2, K10
-   (full kmax) and K11 timed in turns on each scene, with windows per gate
-   (K11: per sub-gate), mean and max, and each kernel's bound.
+   (full kmax) and K11 (SO and MT) timed in turns on each scene (with
+   --parent also the parent's K10 and K11, SO and MT, in the same turns),
+   with windows per gate (K11: per sub-gate), mean and max, and each
+   kernel's bound (K11 MT: its pairs weighted by the early exits that its
+   plain stream, run on all gates, counts).
 
 NEE path tracing over the uniform grid (accel/grid.py; the grid DDA G1,
 ops/csrc/grid_dda.cu; K1's kcap form in ops/csrc/plist_super.cu), on the
@@ -261,12 +272,16 @@ The tail of the two cluster walks:
 38. the heaviest unit of each mirror wave alone: K1''s heaviest bundle of
    phase 10, K3's (MT form) heaviest tile of phase 13, K5's of phase 18,
    K6a's, K6b's and K9's of phase 21 and K7's and K8's of phase 25, each
-   cut out as a one-unit call;
+   cut out as a one-unit call; and of each scene's list schedules: K10's
+   heaviest gate of phase 30 and K11's heaviest sub-gate of phase 31 (its
+   gate cut out with the other sub-gates' need bits cleared: they test
+   nothing, and their lanes miss);
    its result
    equal to the full launch's lanes and stats row and to its plain
    version's (exact); its time beside the full launch's and beside its own
    FP32 bound (its pairs weighted by their exits, counted by the plain
-   run) on one SM and on the SMs of its cluster, and what its warps issue;
+   run; K10's and K11's SO pairs x 22) on one SM and on the SMs of its
+   cluster, and what its warps issue;
    with --parent, the tiles alone of the kernels of PARENT_STEMS on the
    parent's kernels and on this tree's, in turns.
 
@@ -427,8 +442,11 @@ count beside them (phase 43's as "diff step W1", "diff step K3" and
 phase 45's row frames, "parallel"; W1's entry phase 45's ring,
 "parallel"; W1's entry also holds phase 43's steps, peak memory
 and crop check, and W1's, W2's, K3's and G1's their gradient checks);
-the cluster walks (K1, K1', K1's kcap form, K2, K3, K4, K5, K6a, K6b,
-K7, K8, K9) also give their blocks per cluster ("cluster"), G1 its tail
+the cluster walks (K1, K1', K1's kcap form, K2, K10, K11, K3, K4, K5,
+K6a, K6b, K7, K8, K9) also give their blocks per cluster ("cluster"),
+K10 and K11 their heaviest units alone ("tail", "soup_tail") and, with
+--parent, the parent's times ("parent_ms", "soup_parent_ms"; K11 also
+"mt_ms", "mt_parent_ms" and the soup's), G1 its tail
 calls, W1 each wave of phase 40; K5, K6a, K6b, K7, K8 and K9 also
 "redesigned" (the schedule that replaced their first one), their
 heaviest mirror tile alone ("mirror_tail") and, with --parent, the
@@ -864,9 +882,11 @@ def k3_tail(args, kw, out, full_ms, queue=False):
 
 def tail_phase(tails, parent=None):
     """Phase 38: the heaviest unit of each mirror wave alone (K1' bundle,
-    K3, K5, K6a, K6b, K7, K8 and K9 MT tiles), held exactly against the full
-    launch's lanes and against its plain version, timed beside the full
-    launch and its own FP32 bound on one SM and on the SMs of its cluster;
+    K3, K5, K6a, K6b, K7, K8 and K9 MT tiles) and of each scene's K10 and
+    K11 calls (a gate, a sub-gate; SO: 22 operations a pair), held exactly
+    against the full launch's lanes and against its plain version, timed
+    beside the full launch and its own FP32 bound on one SM and on the SMs
+    of its cluster;
     a unit whose launch entry `parent` holds is also timed on the parent's
     kernel, in turns.
     Returns {name: {"alone_ms", "full_ms", "windows" (K6a: "leaves"),
@@ -892,7 +912,8 @@ def tail_phase(tails, parent=None):
         ms = median_ms(t.call, 5)
         tests = t.tests(out[2])
         exit_ops = getattr(t, "exit_ops", MT_EXIT_OPS)
-        ops = mt_ops(tests, tally, exit_ops)
+        ops = (tests * K1_OPS if getattr(t, "so", False)
+               else mt_ops(tests, tally, exit_ops))
         c = cluster_shape(*t.shape)["cluster"]
         one_sm = ops / sm_rate * 1e3
         if getattr(t, "warp", True):
@@ -963,6 +984,7 @@ def main():
             f"memory a block, at most {sh['max_active_clusters']} clusters "
             "resident")
     tile_shapes()
+    list_shapes()
     walk_shapes = {}
     for name, g, kernel in (
             ("traverse_grid", grid_shape(), None),
@@ -1006,6 +1028,8 @@ def cluster_shapes():
     """The cluster launch shapes of the redesigned walks, by kernels-line
     name, at the shapes the main paths give them."""
     tile = TERRAIN_KD["tile"]
+    cwin = plist.gathered_sizes(WIN_ROWS)[1]
+    s_cwin = plist.gathered_sizes(SOUP_WIN_ROWS)[1]
     return {"plist_super": cluster_shape("plist_super_shape", 0, WIN_ROWS),
             "plist_super_mt": cluster_shape("plist_super_shape", 1,
                                             WIN_ROWS),
@@ -1014,6 +1038,16 @@ def cluster_shapes():
             "plist_window": cluster_shape("plist_window_shape", 0, WIN_ROWS),
             "plist_window_mt": cluster_shape("plist_window_shape", 1,
                                              WIN_ROWS),
+            "plist_gathered": cluster_shape("plist_gathered_shape", cwin,
+                                            WIN_ROWS),
+            "plist_gathered soup": cluster_shape("plist_gathered_shape",
+                                                 s_cwin, SOUP_WIN_ROWS),
+            "plist_subgate": cluster_shape("plist_subgate_shape", 0,
+                                           WIN_ROWS),
+            "plist_subgate MT": cluster_shape("plist_subgate_shape", 1,
+                                              WIN_ROWS),
+            "plist_subgate soup": cluster_shape("plist_subgate_shape", 0,
+                                                SOUP_WIN_ROWS),
             "packet_stream": cluster_shape("packet_stream_shape", tile, 1, 0),
             "packet_stream_bf16": cluster_shape("packet_stream_shape", tile,
                                                 0, 1),
@@ -1079,17 +1113,59 @@ def tile_shapes():
         f"{'; '.join(refused)}")
 
 
-# the parent tree's sources whose kernels --parent builds and times
-PARENT_STEMS = ("packet_stream2", "packet_mxu")
+def list_shapes():
+    """Phase 2's check of the launch rule of K10 and K11 on the card
+    (plist_gathered_shape, plist_subgate_shape): K10 a cluster of 4 blocks
+    of 256 threads (2 a lane) with a ring of two pieces, a piece a chunk of
+    cwin windows up to 2048 records, else half a chunk (the largest chunk
+    the wrapper takes, 4096 records, among them); K11 blocks of 128 lanes,
+    2 threads a lane in the SO form and 4 in the MT form, with a ring of
+    two windows, each sub-gate's block on its own (clusters of one)."""
+    seen = []
+    for cwin, wr, piece in ((plist.gathered_sizes(WIN_ROWS)[1], WIN_ROWS,
+                             None),
+                            (plist.gathered_sizes(SOUP_WIN_ROWS)[1],
+                             SOUP_WIN_ROWS, None),
+                            (2, 256, 2048), (8, 32, 2048), (1, 64, 512)):
+        recs = cwin * wr * 8
+        piece = piece or recs
+        want = (4, 256, 2 * piece * 48)
+        sh = cluster_shape("plist_gathered_shape", cwin, wr)
+        got = (sh["cluster"], sh["threads"], sh["dynamic_smem"])
+        if got != want:
+            raise AssertionError(f"list shape: K10 at cwin {cwin}, win_rows "
+                                 f"{wr}: {sh}, not {want}")
+        seen.append(f"K10 chunk {recs} records: {want[0]} x {want[1]}, "
+                    f"{want[2]} B ring")
+    for mt, wr in ((0, WIN_ROWS), (1, WIN_ROWS), (0, SOUP_WIN_ROWS),
+                   (1, SOUP_WIN_ROWS)):
+        want = (1, 128 * (4 if mt else 2), 2 * wr * 8 * 48)
+        sh = cluster_shape("plist_subgate_shape", mt, wr)
+        got = (sh["cluster"], sh["threads"], sh["dynamic_smem"])
+        if got != want:
+            raise AssertionError(f"list shape: K11 {'MT' if mt else 'SO'} "
+                                 f"at win_rows {wr}: {sh}, not {want}")
+        seen.append(f"K11 {'MT' if mt else 'SO'} win_rows {wr}: {want[0]} x "
+                    f"{want[1]}, {want[2]} B ring")
+    say("build", "K10 / K11 launches (blocks a cluster x threads a block): "
+        + "; ".join(seen))
+
+
+# the parent tree's launch entries that --parent builds (their sources,
+# PARENT_STEMS, whole) and times
+PARENT_ENTRIES = {"plist_super": ("plist_gathered_launch",),
+                  "plist_subgate": ("plist_subgate_launch",
+                                    "plist_subgate_mt_launch")}
+PARENT_STEMS = tuple(PARENT_ENTRIES)
 
 
 def parent_library(parent_dir):
-    """The launch entries of the PARENT_STEMS sources of the parent tree
-    `parent_dir` (a git archive): built with this tree's nvcc flags into
-    the git-ignored build directory, bound with the parent's own
-    signatures. Returns {entry: function}, each called with this tree's
-    arguments (a W1 without the persistent grid's ray counter is called
-    without it)."""
+    """The PARENT_ENTRIES launch entries of the parent tree `parent_dir` (a
+    git archive): their PARENT_STEMS sources built with this tree's nvcc
+    flags into the git-ignored build directory, bound with the parent's
+    own signatures. Returns {entry: function}, each called with this
+    tree's arguments (a W1 without the persistent grid's ray counter is
+    called without it)."""
     root = Path(parent_dir).resolve() / "clpathtracer_tpu_torch" / "ops"
     spec = importlib.util.spec_from_file_location("parent_cuda",
                                                   root / "_cuda.py")
@@ -1113,28 +1189,30 @@ def parent_library(parent_dir):
         if proc.returncode != 0:
             raise RuntimeError(f"parent {stem}.cu: nvcc failed\n{text}")
         lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
-        name = f"{stem}_launch"
-        fn = getattr(lib, name)
-        fn.argtypes = mod.SIGNATURES[stem][name]
-        fn.restype = ctypes.c_int
-        ours = _cuda.SIGNATURES[stem][name]
-        if len(fn.argtypes) == len(ours):
-            fns[name] = fn
-        elif stem == "ray_walk" and len(fn.argtypes) == len(ours) - 1:
-            # no ray counter (argument 10)
-            fns[name] = lambda *a, fn=fn: fn(*a[:10], *a[11:])
-        else:
-            raise RuntimeError(f"parent {name}: {len(fn.argtypes)} "
-                               f"arguments, this tree's {len(ours)}")
+        for name in PARENT_ENTRIES[stem]:
+            fn = getattr(lib, name)
+            fn.argtypes = mod.SIGNATURES[stem][name]
+            fn.restype = ctypes.c_int
+            ours = _cuda.SIGNATURES[stem][name]
+            if len(fn.argtypes) == len(ours):
+                fns[name] = fn
+            elif stem == "ray_walk" and len(fn.argtypes) == len(ours) - 1:
+                # no ray counter (argument 10)
+                fns[name] = lambda *a, fn=fn: fn(*a[:10], *a[11:])
+            else:
+                raise RuntimeError(f"parent {name}: {len(fn.argtypes)} "
+                                   f"arguments, this tree's {len(ours)}")
     say("build", f"parent {', '.join(PARENT_STEMS)} from {parent_dir}: "
-        f"{time.perf_counter() - t:.2f} s nvcc")
+        f"{time.perf_counter() - t:.2f} s nvcc; bound {', '.join(fns)}")
     return fns
 
 
 def parent_of(parent, stem):
-    """The parent's entries where PARENT_STEMS has `stem` (the phases of
-    its kernels time them in turns with this tree's), else None."""
-    return parent if parent and f"{stem}_launch" in parent else None
+    """The parent's entries where PARENT_ENTRIES binds an entry of `stem`
+    (the phases of its kernels time them in turns with this tree's), else
+    None."""
+    return parent if parent and any(
+        e in parent for e in PARENT_ENTRIES.get(stem, ())) else None
 
 
 @contextlib.contextmanager
@@ -1492,7 +1570,8 @@ def smoke(device, parent=None):
     v1 = v1_engines(ctx, launches, parent_of(parent, "packet_v1"))
     k7_k8 = stream2_mxu_engines(ctx, launches,
                                 parent_of(parent, "packet_stream2"))
-    sched = plist_schedules(device, scene, soup, cam, scam, launches)
+    sched = plist_schedules(device, scene, soup, cam, scam, launches,
+                            parent_of(parent, "plist_subgate"), tails)
     del soup
     grid_entries = nee_grid(device, scene, launches)
     tails["K3 MT"] = ctx["tail"]
@@ -1546,6 +1625,9 @@ def smoke(device, parent=None):
     by_name["packet_wide"]["mirror_tail"] = tail_res["K9 MT"]
     by_name["packet_stream2"]["mirror_tail"] = tail_res["K7 MT"]
     by_name["packet_mxu"]["mirror_tail"] = tail_res["K8 MT"]
+    for kernel, cname in (("K10", "plist_gathered"), ("K11", "plist_subgate")):
+        by_name[cname]["tail"] = tail_res[f"{kernel} terrain"]
+        by_name[cname]["soup_tail"] = tail_res[f"{kernel} soup"]
     by_name["plist_super"]["cli_seconds"] = cli
     by_name["plist_super"]["parallel"] = par["k1"]
     by_name["ray_walk"]["parallel"] = dict(par["w1"],
@@ -2807,10 +2889,18 @@ def same_record(name, rec, base):
             raise AssertionError(f"{name}: the record's {k} differs from K1's")
 
 
-def plist_schedules(device, scene, soup, cam, scam, launches):
+# K10's chunk in phase 30's second call on the terrain: 24 windows of 128
+# records, 3072 records, more than two whole chunks of the ring fit
+K10_HALF_CWIN = 24
+
+
+def plist_schedules(device, scene, soup, cam, scam, launches, parent=None,
+                    tails=None):
     """Phases 29-33: the windows route's other stream schedules, K2
     (plist_window), K10 (plist_gathered) and K11 (plist_subgate), beside
-    K1. Returns their kernels entries."""
+    K1. parent: parent_library's entries, whose K10 and K11 are timed in
+    turns beside this tree's in phase 33. tails: receives each scene's K10
+    gate and K11 sub-gate for phase 38. Returns their kernels entries."""
     n = SIZE * SIZE
     n_gates = n // plist.GATE
     t0 = torch.full((n,), BIG, device=device)
@@ -2892,6 +2982,18 @@ def plist_schedules(device, scene, soup, cam, scam, launches):
                                dict(win_rows=x.wr, cwin=cwin))
         same_as_k1(f"K10 {name}", res[name, "K10"].out, x.k1)
         del table, ids, ten
+        if name == "terrain":
+            # chunks of 3072 records: the ring's pieces are half chunks
+            kmax_h, _ = plist.gathered_sizes(x.wr, kmax=most,
+                                             cwin=K10_HALF_CWIN)
+            h_args = (*plist.gate_lists_gathered(
+                x.mwin.win_bnd, x.dir_b, x.o, x.rows, x.wr, kmax_h)[2::-1],
+                x.dir_t, t0)
+            r = run(f"K10 {name} cwin {K10_HALF_CWIN}", "K10",
+                    plist.plist_gathered, plist.plist_gathered_reference,
+                    h_args, dict(win_rows=x.wr, cwin=K10_HALF_CWIN))
+            same_as_k1(f"K10 {name} cwin {K10_HALF_CWIN}", r.out, x.k1)
+            del h_args, r
 
     # 31. K11, SO and MT, against its plain version; SO against MT; sky
     for name, x in inputs.items():
@@ -2971,46 +3073,82 @@ def plist_schedules(device, scene, soup, cam, scam, launches):
         f"{float(np.median(t4)):.4f} ms over {FRAMES} calls (min "
         f"{min(t4):.4f}, max {max(t4):.4f}); launches {got}")
     rows = {}
+    timed_k = ("K2", "K10", "K11", "K11 MT")
+    par_k = ("K10", "K11", "K11 MT") if parent else ()
     for name, x in inputs.items():
         k1_args = (*plist.gate_lists_super(x.mwin.win_bnd, x.dir_b, x.o),
                    x.rows, x.dir_t, t0)
         calls = {"K1": SimpleNamespace(fn=plist.plist_super, args=k1_args,
                                        kw=dict(win_rows=x.wr), out=x.k1),
-                 **{k: res[name, k] for k in ("K2", "K10", "K11")}}
-        ms = turns_ms([lambda c=c: c.fn(*c.args, **c.kw)
-                       for c in calls.values()], 20)
+                 **{k: res[name, k] for k in timed_k}}
+        fns = [lambda c=c: c.fn(*c.args, **c.kw) for c in calls.values()]
+        for k in par_k:   # the parent's kernel, held to this tree's
+            c = calls[k]
+
+            def with_parent(c=c):
+                with swapped(parent):
+                    return c.fn(*c.args, **c.kw)
+            bad = [int((a != b).sum()) for a, b in zip(with_parent(), c.out)]
+            say(f"schedules {name}", f"the parent's {k} against this tree's "
+                f"(tolerance: exact): t/slot/stats mismatches {bad}")
+            if any(bad):
+                raise AssertionError(f"schedules {name}: the parent's {k} "
+                                     "differs")
+            fns.append(with_parent)
+        ms = turns_ms(fns, 20)
+        parent_ms = dict(zip(par_k, ms[len(calls):]))
         win_tris = x.wr * 8
         # K11's sub-gates, each with its own windows (the stats give the
-        # most of a gate's four, times four): its plain stream on all gates
+        # most of a gate's four, times four): its plain streams on all
+        # gates, the MT form's early exits tallied
         lanes = plist.GATE // plist.SUB
         sub_key, sub_wid = plist._subgate_lists(x.key4, x.pay4)
-        _, _, sub_ns = plist._window_stream(
-            sub_key, sub_wid, plist._records(x.rows, win_tris),
-            plist._group_test(None, x.dir_s, lanes),
-            torch.full((n_gates * plist.SUB, lanes), BIG, device=device),
-            win_tris)
+        t0s = torch.full((n_gates * plist.SUB, lanes), BIG, device=device)
+        tally = torch.zeros(3, dtype=torch.int64, device=device)
+        sub_ns = {form: plist._window_stream(
+            sub_key, sub_wid, plist._records(recs, win_tris),
+            plist._group_test(o_t, x.dir_s, lanes, tl), t0s, win_tris)[2]
+            for form, recs, o_t, tl in (("K11", x.rows, None, None),
+                                        ("K11 MT", x.mwin.tris, x.orig_s,
+                                         tally))}
         for (kernel, c), kms in zip(calls.items(), ms):
             st = c.out[2].to(torch.float64)
-            if kernel == "K11":
-                tests = int(sub_ns.sum()) * win_tris * lanes
-                sub_mean = float(sub_ns.float().mean())
-                wins = (f"windows per sub-gate {sub_mean:.3f} (max "
-                        f"{int(sub_ns.max())}), per gate in lockstep "
+            if kernel.startswith("K11"):
+                ns = sub_ns[kernel]
+                tests = int(ns.sum()) * win_tris * lanes
+                ops = (mt_ops(tests, tally) if kernel == "K11 MT"
+                       else tests * K1_OPS)
+                wins = (f"windows per sub-gate {float(ns.float().mean()):.3f}"
+                        f" (max {int(ns.max())}), per gate in lockstep "
                         f"{float(st[:, 1].mean()):.3f} (max "
                         f"{int(st[:, 1].max())})")
             else:
                 tests = n_tests(c.out[2], x.wr)
+                ops = tests * K1_OPS
                 wins = (f"windows per gate {float(st[:, 1].mean()):.3f} "
                         f"(max {int(st[:, 1].max())})")
-            bnd, by = bound([*c.args, *c.out], tests * K1_OPS)
-            rows[name, kernel] = dict(ms=kms, bound=bnd, by=by)
+            bnd, by = bound([*c.args, *c.out, *(
+                v for v in c.kw.values() if isinstance(v, torch.Tensor))],
+                ops)
+            rows[name, kernel] = dict(ms=kms, bound=bnd, by=by,
+                                      parent_ms=parent_ms.get(kernel))
             plain = ("" if kernel == "K1" else
                      f", plain {res[name, kernel].plain_ms:.1f} ms on every "
                      f"{EVERY}th gate")
+            was = ("" if kernel not in parent_ms else
+                   f"; the parent's {parent_ms[kernel]:.4f} ms in the same "
+                   "turns")
             ratio = kms / ms[0]
             say(f"schedules {name}", f"{kernel} {kms:.4f} ms ({ratio:.3f} x "
-                f"K1){plain}, bound {bnd:.4f} ms ({by}; {tests} SO tests x "
-                f"{K1_OPS}); {wins}")
+                f"K1){plain}, bound {bnd:.4f} ms ({by}; {tests} "
+                f"{'MT' if kernel == 'K11 MT' else 'SO'} tests, {ops} FP32 "
+                f"operations){was}; {wins}")
+        if tails is not None:
+            tails[f"K10 {name}"] = gathered_tail(res[name, "K10"], x.wr,
+                                                 rows[name, "K10"])
+            tails[f"K11 {name}"] = subgate_tail(res[name, "K11"], x.wr,
+                                                sub_ns["K11"],
+                                                rows[name, "K11"])
     entries = []
     for kernel, cname, src, line, path in (
             ("K2", "plist_window", "plist_super", 404, "window frame"),
@@ -3019,7 +3157,7 @@ def plist_schedules(device, scene, soup, cam, scam, launches):
             ("K11", "plist_subgate", "plist_subgate", 1462,
              "traverse_plist4")):
         t, s_ = rows["terrain", kernel], rows["soup", kernel]
-        entries.append({
+        e = {
             "name": cname, "route": "cuda",
             "source": f"clpathtracer_tpu_torch/ops/csrc/{src}.cu",
             "replaces": f"clpathtracer_tpu/ops/plist.py:{line}",
@@ -3032,8 +3170,73 @@ def plist_schedules(device, scene, soup, cam, scam, launches):
             "bound_by": t["by"], "library_ms": None,
             "k1_ms": rows["terrain", "K1"]["ms"], "soup_ms": s_["ms"],
             "soup_k1_ms": rows["soup", "K1"]["ms"],
-            "soup_bound_ms": s_["bound"]})
+            "soup_bound_ms": s_["bound"]}
+        if kernel != "K2":
+            e.update(parent_ms=t["parent_ms"], soup_parent_ms=s_["parent_ms"])
+        if kernel == "K11":
+            mt, s_mt = rows["terrain", "K11 MT"], rows["soup", "K11 MT"]
+            e.update(mt_ms=mt["ms"], mt_bound_ms=mt["bound"],
+                     mt_parent_ms=mt["parent_ms"], soup_mt_ms=s_mt["ms"],
+                     soup_mt_bound_ms=s_mt["bound"],
+                     soup_mt_parent_ms=s_mt["parent_ms"])
+        entries.append(e)
     return entries
+
+
+def gathered_tail(r, win_rows, row):
+    """Phase 38's K10 unit: the heaviest gate (most chunks) of phase 30's
+    call `r`, cut out as a one-gate call, with the full launch's outputs
+    for its lanes and its stats row (row: its phase 33 timing)."""
+    ten, ids, table, dir_t, t0 = r.args
+    g = int(torch.argmax(r.out[2][:, 1]))
+    lanes = slice(g * plist.GATE, (g + 1) * plist.GATE)
+    one = (ten[g:g + 1].contiguous(), ids[g:g + 1].contiguous(),
+           table[g:g + 1].contiguous(), dir_t[:, lanes].contiguous(),
+           t0[lanes].contiguous())
+    kw = dict(r.kw)   # not r: its full table would stay on the card
+    return SimpleNamespace(
+        unit=f"gate {g}", n_units=r.out[2].shape[0], full_ms=row["ms"],
+        full=(r.out[0][lanes].clone(), r.out[1][lanes].clone(),
+              r.out[2][g:g + 1].clone()),
+        call=lambda: plist.plist_gathered(*one, **kw),
+        plain=lambda tally: plist.plist_gathered_reference(*one, **kw),
+        tests=lambda st: n_tests(st, win_rows),
+        shape=("plist_gathered_shape", kw["cwin"], win_rows),
+        entry="plist_gathered_launch", so=True, warp=False)
+
+
+def subgate_tail(r, win_rows, sub_ns, row):
+    """Phase 38's K11 unit: the heaviest sub-gate (most windows, sub_ns
+    [G*4] from its plain stream) of phase 31's SO call `r`, alone: its gate
+    cut out as a one-gate call with the other three sub-gates' need bits
+    cleared, so that they test no window and their lanes miss (t BIG, slot
+    -1); its own lanes and the stats row (4 x its windows, the gate's most)
+    as the full launch's (row: its phase 33 timing)."""
+    key, pay, rows, dir_s = r.args
+    u = int(torch.argmax(sub_ns))
+    g, s = divmod(u, plist.SUB)
+    lanes = slice(g * plist.GATE, (g + 1) * plist.GATE)
+    mine = slice(s * plist.GATE // plist.SUB,
+                 (s + 1) * plist.GATE // plist.SUB)
+    others = ((1 << plist.SUB) - 1) ^ (1 << s)
+    one = (key[g:g + 1].contiguous(), (pay[g:g + 1] & ~others).contiguous(),
+           rows, dir_s[:, lanes].contiguous())
+    full_t = torch.full((plist.GATE,), BIG, device=key.device)
+    full_s = torch.full((plist.GATE,), -1, dtype=torch.int32,
+                        device=key.device)
+    full_t[mine] = r.out[0][lanes][mine]
+    full_s[mine] = r.out[1][lanes][mine]
+    lanes_s = plist.GATE // plist.SUB
+    kw = dict(r.kw)
+    return SimpleNamespace(
+        unit=f"gate {g} sub-gate {s}", n_units=r.out[2].shape[0] * plist.SUB,
+        full_ms=row["ms"], full=(full_t, full_s, r.out[2][g:g + 1].clone()),
+        args=one, call=lambda: plist.plist_subgate(*one, **kw),
+        plain=lambda tally: plist.plist_subgate_reference(*one, **kw),
+        tests=lambda st: int(st[0, 1]) // plist.SUB * win_rows * 8 * lanes_s,
+        shape=("plist_subgate_shape", 0, win_rows),
+        entry="plist_subgate_launch", so=True, warp=False,
+        lane1="lockstep windows")
 
 
 # bench.py's gated path leg: the 1M emissive soup, 2 bounces, NEE; the

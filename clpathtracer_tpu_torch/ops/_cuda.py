@@ -57,6 +57,8 @@ SIGNATURES = {
         "plist_super_shape": [_I, _I, _P],
         # mt, win_rows, out [6] i32
         "plist_window_shape": [_I, _I, _P],
+        # cwin, win_rows, out [6] i32
+        "plist_gathered_shape": [_I, _I, _P],
     },
     "plist_subgate": {
         # key, pay, rows, dir_t, best_t, best_slot, stats, n_gates,
@@ -65,6 +67,8 @@ SIGNATURES = {
         # key, pay, rows, orig_t, dir_t, best_t, best_slot, stats, n_gates,
         # list_len, win_rows, stream
         "plist_subgate_mt_launch": [_P] * 8 + [_I] * 3 + [_P],
+        # mt, win_rows, out [6] i32
+        "plist_subgate_shape": [_I, _I, _P],
     },
     "packet_stream": {
         # nodes_i, nodes_f, rows, orig_t, dir_t, act, cbnd, frustum, masks,

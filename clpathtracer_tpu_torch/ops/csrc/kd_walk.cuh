@@ -39,7 +39,10 @@
 //   cluster_bounds, cluster_t_upper: the packet bounds and t_upper
 //     reduced over a cluster (cluster.cuh::cluster_reduce);
 //   cp_async16, cp_async4, cp_async_commit, cp_async_wait, wait_pending:
-//     cp.async copies into shared memory and their commit groups.
+//     cp.async copies into shared memory and their commit groups;
+//   copy_recs, ring_smem: the list kernels' staging of a run of records
+//     (K1, K2, K10 in plist_super.cu, K11 in plist_subgate.cu) and their
+//     ring of two windows.
 //
 // The stack guard: a split whose two pushes could pass the kStack entries
 // ends the walk instead (push_children returns -1 and writes nothing); the
@@ -104,6 +107,24 @@ __device__ __forceinline__ void wait_pending(int pending) {
     case 6: cp_async_wait<6>(); break;
     default: cp_async_wait<7>(); break;
   }
+}
+
+// Staging for the list kernels: n_recs records of `rows` (a float4 view of
+// [S, 16]) from record rec0, cols 0-11, into `dst` with cp.async, this
+// thread's share of the 16-byte copies (the whole block copies), then its
+// commit group.
+__device__ __forceinline__ void copy_recs(float4* dst,
+                                          const float4* __restrict__ rows,
+                                          long long rec0, int n_recs) {
+  for (int i = threadIdx.x; i < n_recs * kUsedF4; i += blockDim.x)
+    cp_async16(dst + i, rows + (rec0 + i / kUsedF4) * kRecF4 + i % kUsedF4);
+  cp_async_commit();
+}
+
+// The list kernels' dynamic shared memory for a ring of two windows of
+// win_rows * 8 staged records (K1, K2, K11).
+inline size_t ring_smem(int win_rows) {
+  return 2 * (size_t)win_rows * 8 * kUsedF4 * sizeof(float4);
 }
 
 __device__ __forceinline__ float clip_inv(float d) {

@@ -16,6 +16,9 @@
 //     (27 mul, 18 add or sub, 7 compares, 1 reciprocal), 15, 27 or 45 on
 //     the pairs that the det, u or v branch rejects. mt_hit_uv also
 //     returns u and v (ops/traverse_fast.py::_mt_pre).
+//   nearest_in_window, merge_split: the list kernels' (min t, then min
+//     slot) winner over a staged run of records, and over the kS threads
+//     that split a lane's records.
 //   mt_hit_bf16: the bf16 preview of mt_hit (_mt_chunk_math with
 //     compute_dtype=bfloat16): the same expressions in the same order on
 //     bf16 values, each *, -, + and 1/x computed in f32 and rounded to bf16
@@ -197,6 +200,29 @@ __device__ __forceinline__ void nearest_in_window(const Ray& ray,
         bt = tt;
         bs = slot;
       }
+    }
+  }
+}
+
+// The list kernels' split of a lane over kS threads (K1, K1', K2, K10:
+// plist_super.cu; K11: plist_subgate.cu): thread h * kLanes + l tests the
+// h-th share of lane l's records. The lexicographic (t, slot) least of the
+// kS winners of each lane goes into every one of them: each thread writes
+// its winner into buf, then all read them. The caller's next barrier keeps
+// a later merge from overwriting buf before it is read.
+template <int kLanes, int kS>
+__device__ __forceinline__ void merge_split(float& bt, int& bs, float* buf_t,
+                                            int* buf_s) {
+  buf_t[threadIdx.x] = bt;
+  buf_s[threadIdx.x] = bs;
+  __syncthreads();
+  const int l = threadIdx.x % kLanes;
+  for (int h = 0; h < kS; ++h) {
+    const float t = buf_t[h * kLanes + l];
+    const int sl = buf_s[h * kLanes + l];
+    if (t < bt || (t == bt && sl < bs)) {
+      bt = t;
+      bs = sl;
     }
   }
 }

@@ -31,25 +31,27 @@
 // (t0 = 0) still streams the entries whose key is exactly 0, as the TPU
 // kernels do.
 //
-//   K1, K1' and K2 run one gate or bundle on a thread-block cluster of
-//   kCluster = 4 blocks (cluster.cuh), each block 128 of its 512 lanes, with
-//   kSplit threads a lane (2 in the SO form, 4 in the MT form), each testing
-//   a contiguous share of every window's records: the (t, slot) rule below
-//   does not depend on the order of the tests, so a lane's threads merge
-//   their winners (merge_split) before each t_upper and end with the lane's.
-//   Every block walks the same list; the start test and each t_upper (K1:
-//   after a super, K2: after a window) come from a max over the whole
-//   cluster (cluster_reduce, through distributed shared memory), so every
-//   block takes the decisions that one 512-thread block took, and tests the
-//   same windows in the same order; rank 0 writes the stats row. Windows
-//   are staged with cp.async in a ring of two buffers, one barrier per
-//   window: the copy of the next needed window flies while the current one
-//   is tested. K1 copies the super's next one, else the first one of the
-//   next super, issued before the break decision (an extra read, never an
-//   extra test); K2 copies window j + 1 exactly when its decision below
-//   takes it, before window j is tested.
-//   K10 runs one block of 512 threads per gate, which copies each chunk
-//   between two barriers (stage) and tests it.
+//   K1, K1', K2 and K10 run one gate or bundle on a thread-block cluster
+//   of kCluster = 4 blocks (cluster.cuh), each block 128 of its 512 lanes,
+//   with kSplit threads a lane (2 in the SO form, 4 in the MT form; K10 is
+//   SO only), each testing a contiguous share of every staged run of
+//   records: the (t, slot) rule below does not depend on the order of the
+//   tests, so a lane's threads merge their winners (pair_tests.cuh::
+//   merge_split) before each t_upper and end with the lane's. Every block
+//   walks the same list; the start test and each t_upper (K1: after a
+//   super, K2: after a window, K10: after a chunk) come from a max over the
+//   whole cluster (cluster_reduce, through distributed shared memory), so
+//   every block takes the decisions that one 512-thread block took, and
+//   tests the same windows in the same order; rank 0 writes the stats row.
+//   Records are staged with cp.async in a ring of two buffers, one barrier
+//   per buffer: the copy of the next one flies while the current one is
+//   tested. K1 copies the super's next needed window, else the first one of
+//   the next super, issued before the break decision (an extra read, never
+//   an extra test); K2 copies window j + 1 exactly when its decision below
+//   takes it, before window j is tested; K10 copies the next piece of its
+//   table (below) before the current one is tested, also ahead of the
+//   break decision when that piece starts the next chunk, and never past
+//   the table's kmax / cwin chunks.
 //
 //   K1: entries are supers of kSuper windows with one need bit per window;
 //       the needed windows of a super are tested, then t_upper is refreshed,
@@ -63,11 +65,17 @@
 //       was tested: the TPU kernel decides its prefetch of j+1 then
 //       (plist.py:458-477), and this keeps its stats.
 //   K10: entries are the gate's private table of kmax windows (the prepass
-//       gathered them), taken in chunks of cwin consecutive windows, one
-//       coalesced copy each. Chunk c is taken if the key of its first entry
-//       <= the t_upper after chunk c-1 (plist.py:1325-1327); every window of
-//       a taken chunk is tested. The slot of record r of entry k is
-//       ids[k]*win_rows*8 + r.
+//       gathered them), taken in chunks of cwin consecutive windows. Chunk
+//       c is taken if the key of its first entry <= the t_upper after
+//       chunk c-1 (plist.py:1325-1327); every window of a taken chunk is
+//       tested. The table is contiguous per gate, so the ring stages it in
+//       pieces of consecutive records: a chunk (256 records at the JAX
+//       package's cwin on both scenes, 12 KB of cols 0-11), or half a
+//       chunk when two whole chunks would not fit in shared memory (more
+//       than kPieceRecs records; the wrapper allows 2 * kPieceRecs). A
+//       thread's share of a piece runs across window ends: the slot of
+//       record r of entry k is ids[k]*win_rows*8 + r, and ids need not be
+//       monotonic, so the share is tested window by window.
 //
 // Stats per gate (the JAX tile_stats[::8, :5] columns): K1 (0, windows,
 // 512, supers, windows); K2 (0, windows, 512, 0, windows); K10 (0,
@@ -98,7 +106,9 @@
 // bundle on one SM (7,824 windows on the 1M terrain's mirror wave, all of
 // them); on a cluster that bundle runs on 4 SMs with 16 warps each, and the
 // launch moves toward its total work at the rate the pair tests issue. K10
-// still waits out each chunk's load at a barrier.
+// is K2's schedule with a chunk of cwin windows for a window: three
+// barriers a chunk (the landing, the merge, the cluster max) against 256
+// records of tests a lane, and a copy that the previous chunk's tests hide.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -110,50 +120,35 @@
 namespace {
 
 using clpt::Ray;
+using clpt::copy_recs;
+using clpt::kUsedF4;  // float4s staged per record (cols 0-11)
 using clpt::load_ray;
 using clpt::nearest_in_window;
+using clpt::ring_smem;
 
-constexpr int kGate = 512;     // rays per gate (threads per block of K10)
+constexpr int kGate = 512;     // rays per gate
 constexpr int kSuper = 16;     // windows per super
-constexpr int kRecF4 = 4;      // float4s per 16-float record in memory
-constexpr int kUsedF4 = 3;     // float4s loaded per record (cols 0-11)
 constexpr float kBig = 3.4e38f;
-constexpr int kCluster = 4;    // K1, K1', K2: blocks per gate or bundle
-constexpr int kLanes = kGate / kCluster;  // K1, K1', K2: lanes per block
-// K1, K1', K2: threads per lane, each testing a share of every window's
-// records: 256 threads a block in the SO form, 512 in the MT form
+constexpr int kCluster = 4;    // blocks per gate or bundle
+constexpr int kLanes = kGate / kCluster;  // lanes per block
+// threads per lane, each testing a share of every staged run of records:
+// 256 threads a block in the SO form, 512 in the MT form
 template <bool kMT>
 constexpr int kSplit = kMT ? 4 : 2;
+// K10: the most records of a piece (the ring's unit): two pieces of
+// kPieceRecs take 196,608 bytes of the 227 KB a block may have
+constexpr int kPieceRecs = 2048;
 
-// K1's and K2's dynamic shared memory: a ring of two windows of
-// win_rows * 8 staged records.
-size_t ring_smem(int win_rows) {
-  return 2 * (size_t)win_rows * 8 * kUsedF4 * sizeof(float4);
+// K10's piece: a chunk of cwin windows, or half of one above kPieceRecs.
+int gathered_piece(int cwin, int win_rows) {
+  const int chunk = cwin * win_rows * 8;
+  return chunk <= kPieceRecs ? chunk : chunk / 2;
 }
 
-// K10: max of v over the block; every thread gets the result. `red` holds
-// one float per warp. Callers are block-uniform.
-__device__ float block_max(float v, float* red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // red[] is free: every thread read the previous result
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kGate / 32; ++w) r = fmaxf(r, red[w]);
-  return r;
-}
-
-// K10: copy n_recs records from `rows` (float4 view of [S, 16]), starting at
-// record rec0, into shared memory (cols 0-11). The block synchronises
-// before (every thread is done with the previous contents) and after.
-__device__ __forceinline__ void stage(float4* win,
-                                      const float4* __restrict__ rows,
-                                      long long rec0, int n_recs) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < n_recs * kUsedF4; i += kGate)
-    win[i] = rows[(rec0 + i / kUsedF4) * kRecF4 + i % kUsedF4];
-  __syncthreads();
+// K10's dynamic shared memory: a ring of two pieces.
+size_t gathered_smem(int cwin, int win_rows) {
+  return 2 * (size_t)gathered_piece(cwin, win_rows) * kUsedF4 *
+         sizeof(float4);
 }
 
 // Outputs of one ray, and (writer) its gate's stats row g (0, a, 512, b, a).
@@ -172,18 +167,6 @@ __device__ __forceinline__ void finish(float* __restrict__ best_t,
     st[3] = b;
     st[4] = a;
   }
-}
-
-// K1's and K2's staging: n_recs records from `rows` (float4 view of
-// [S, 16]) from record rec0 (cols 0-11) into `dst` with cp.async, this
-// thread's share of the 16-byte copies, then its commit group.
-__device__ __forceinline__ void copy_recs(float4* dst,
-                                          const float4* __restrict__ rows,
-                                          long long rec0, int n_recs) {
-  for (int i = threadIdx.x; i < n_recs * kUsedF4; i += blockDim.x)
-    clpt::cp_async16(dst + i, rows + (rec0 + i / kUsedF4) * kRecF4 +
-                                  i % kUsedF4);
-  clpt::cp_async_commit();
 }
 
 // The max of v over the gate's cluster; every thread gets it.
@@ -207,27 +190,6 @@ __device__ __forceinline__ long long next_window(
   const unsigned b1 = (unsigned)gbits[j + 1];
   if (!b1) return -1;
   return ((long long)gsid[j + 1] * kSuper + __ffs((int)b1) - 1) * win_tris;
-}
-
-// The lexicographic (t, slot) least of the kS threads' winners of each
-// lane, into every one of them: each writes its winner into buf, then all
-// read them. The caller's next barrier (a cluster reduction follows every
-// merge) keeps a later merge from overwriting buf before it is read.
-template <int kS>
-__device__ __forceinline__ void merge_split(float& bt, int& bs, float* buf_t,
-                                            int* buf_s) {
-  buf_t[threadIdx.x] = bt;
-  buf_s[threadIdx.x] = bs;
-  __syncthreads();
-  const int l = threadIdx.x % kLanes;
-  for (int h = 0; h < kS; ++h) {
-    const float t = buf_t[h * kLanes + l];
-    const int sl = buf_s[h * kLanes + l];
-    if (t < bt || (t == bt && sl < bs)) {
-      bt = t;
-      bs = sl;
-    }
-  }
 }
 
 // K1 and K1': one gate or bundle per cluster of kCluster blocks, each block
@@ -288,7 +250,7 @@ plist_super_kernel(const float* __restrict__ key, const int* __restrict__ sid,
     }
     ++ns;
     nw += __popc(b);
-    merge_split<kS>(bt, bs, split_t, split_s);
+    clpt::merge_split<kLanes, kS>(bt, bs, split_t, split_s);
     tup = cluster_max(fminf(bt, t0r), slots, par);
     ++j;
     alive = j < jcap && gkey[j] <= tup;
@@ -354,7 +316,7 @@ plist_window_kernel(const float* __restrict__ key,
     nearest_in_window<kMT>(ray, win + cur * win_f4 + h * share * kUsedF4,
                            share, rec0 + h * share, bt, bs);
     ++ns;
-    merge_split<kS>(bt, bs, split_t, split_s);
+    clpt::merge_split<kLanes, kS>(bt, bs, split_t, split_s);
     tup = cluster_max(fminf(bt, t0r), slots, par);
     alive = next;
     cur ^= 1;
@@ -365,59 +327,83 @@ plist_window_kernel(const float* __restrict__ key,
   clpt::cluster_end();
 }
 
-// K10.
-__global__ void __launch_bounds__(kGate)
+// K10: one gate per cluster of kCluster blocks, each block kLanes of its
+// lanes, with kS threads per lane as in K1. The gate's table streams
+// through the two-buffer ring in pieces of `piece` records, per_chunk = 1
+// or 2 a chunk: piece q + 1 is copied before piece q is tested, and chunk
+// c + 1's first piece before the decision to take it (an extra read of at
+// most one piece, never an extra test).
+template <int kS>
+__global__ void __launch_bounds__(kLanes * kS)
 plist_gathered_kernel(const float* __restrict__ ten,
                       const int* __restrict__ ids,
                       const float4* __restrict__ table,
                       const float* __restrict__ dir_t,
                       const float* __restrict__ t0, float* __restrict__ best_t,
                       int* __restrict__ best_slot, int* __restrict__ stats,
-                      int n_rays, int kmax, int cwin, int win_rows) {
-  extern __shared__ float4 win[];  // [cwin * win_tris * kUsedF4]
-  __shared__ float red[kGate / 32];
+                      int n_rays, int kmax, int cwin, int win_rows,
+                      int piece) {
+  extern __shared__ float4 win[];  // two pieces of piece * kUsedF4
+  __shared__ clpt::ClusterSlots<1> slots;
+  __shared__ float split_t[kLanes * kS];
+  __shared__ int split_s[kLanes * kS];
 
-  const int g = blockIdx.x;
-  const int ray_i = g * kGate + threadIdx.x;
+  const int rank = clpt::cluster_rank();
+  const int g = blockIdx.x / kCluster;
+  const int h = threadIdx.x / kLanes;
+  const int ray_i = g * kGate + rank * kLanes + threadIdx.x % kLanes;
   const Ray ray = load_ray<false>(nullptr, dir_t, n_rays, ray_i);
   const float t0r = t0[ray_i];
   const int win_tris = win_rows * 8;
+  const int n_chunks = kmax / cwin;
+  const int per_chunk = cwin * win_tris / piece;
+  const int n_pieces = n_chunks * per_chunk;
+  const int piece_f4 = piece * kUsedF4;
+  const int share = piece / kS;  // records a thread tests of a piece
   const float* gten = ten + (size_t)g * kmax;
   const int* gids = ids + (size_t)g * kmax;
   const long long rec_g = (long long)g * kmax * win_tris;
-  const int n_chunks = kmax / cwin;
 
   float bt = kBig;
   int bs = INT_MAX;
-  int c = 0;
-  float tup = fminf(kBig, block_max(t0r, red));
-  while (c < n_chunks && gten[c * cwin] <= tup) {
-    stage(win, table, rec_g + (long long)c * cwin * win_tris,
-          cwin * win_tris);
-    for (int k = 0; k < cwin; ++k)
-      nearest_in_window<false>(ray, win + k * win_tris * kUsedF4, win_tris,
-                         (long long)gids[c * cwin + k] * win_tris, bt, bs);
-    tup = block_max(fminf(bt, t0r), red);
-    ++c;
+  int c = 0;  // chunks tested
+  int par = 0;
+  float tup = fminf(kBig, cluster_max(t0r, slots, par));
+  bool alive = n_chunks > 0 && gten[0] <= tup;
+  if (alive) copy_recs(win, table, rec_g, piece);
+  int cur = 0;  // the buffer of piece q
+  for (int q = 0; alive; ++q) {
+    clpt::cp_async_wait<0>();
+    __syncthreads();  // piece q has landed; win[cur ^ 1] is free
+    if (q + 1 < n_pieces)
+      copy_recs(win + (cur ^ 1) * piece_f4, table,
+                rec_g + (long long)(q + 1) * piece, piece);
+    // this thread's records [lo, lo + share) of the gate's table, window
+    // by window
+    const int lo = q * piece + h * share;
+    const float4* w = win + cur * piece_f4 + h * share * kUsedF4;
+    for (int r = lo; r < lo + share;) {
+      const int k = r / win_tris;
+      const int in_win = r - k * win_tris;
+      const int n = min(lo + share - r, win_tris - in_win);
+      nearest_in_window<false>(ray, w + (r - lo) * kUsedF4, n,
+                               (long long)gids[k] * win_tris + in_win, bt,
+                               bs);
+      r += n;
+    }
+    cur ^= 1;
+    if ((q + 1) % per_chunk == 0) {  // chunk c is tested
+      ++c;
+      clpt::merge_split<kLanes, kS>(bt, bs, split_t, split_s);
+      tup = cluster_max(fminf(bt, t0r), slots, par);
+      alive = c < n_chunks && gten[c * cwin] <= tup;
+    }
   }
-  finish(best_t, best_slot, stats, ray_i, bt, bs, c * cwin, 0, g,
-         threadIdx.x == 0);
-}
-
-// K10: launch with `recs` staged records of dynamic shared memory; raises
-// the kernel's limit above the default 48 KB where it needs more. Returns
-// cudaGetLastError() after the launch.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int n_gates, int recs, void* stream,
-           Args... args) {
-  const size_t smem = (size_t)recs * kUsedF4 * sizeof(float4);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<n_gates, kGate, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
+  clpt::cp_async_wait<0>();  // a copy that the break left unused
+  if (h == 0)  // every thread of a lane holds its merged winner
+    finish(best_t, best_slot, stats, ray_i, bt, bs, c * cwin, 0, g,
+           rank == 0 && threadIdx.x == 0);
+  clpt::cluster_end();
 }
 
 template <bool kMT>
@@ -549,11 +535,22 @@ extern "C" int plist_gathered_launch(const void* ten, const void* ids,
                                      void* best_slot, void* stats,
                                      int n_gates, int kmax, int cwin,
                                      int win_rows, void* stream) {
-  return launch(plist_gathered_kernel, n_gates, cwin * win_rows * 8, stream,
-                static_cast<const float*>(ten), static_cast<const int*>(ids),
-                static_cast<const float4*>(table),
-                static_cast<const float*>(dir_t),
-                static_cast<const float*>(t0), static_cast<float*>(best_t),
-                static_cast<int*>(best_slot), static_cast<int*>(stats),
-                n_gates * kGate, kmax, cwin, win_rows);
+  if (n_gates == 0) return 0;
+  return clpt::launch_cluster(
+      plist_gathered_kernel<kSplit<false>>, kCluster, n_gates * kCluster,
+      kLanes * kSplit<false>, gathered_smem(cwin, win_rows),
+      (cudaStream_t)stream, static_cast<const float*>(ten),
+      static_cast<const int*>(ids), static_cast<const float4*>(table),
+      static_cast<const float*>(dir_t), static_cast<const float*>(t0),
+      static_cast<float*>(best_t), static_cast<int*>(best_slot),
+      static_cast<int*>(stats), n_gates * kGate, kmax, cwin, win_rows,
+      gathered_piece(cwin, win_rows));
+}
+
+// The shape of K10's cluster launch at (cwin, win_rows), as
+// plist_super_shape writes it.
+extern "C" int plist_gathered_shape(int cwin, int win_rows, int* out) {
+  return clpt::cluster_shape(plist_gathered_kernel<kSplit<false>>, kCluster,
+                             kLanes * kSplit<false>,
+                             gathered_smem(cwin, win_rows), out);
 }

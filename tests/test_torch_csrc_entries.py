@@ -107,6 +107,8 @@ SHAPE_ARGS = {"packet_stream2_shape": (2048,), "packet_mxu_shape": (512,)}
 
 
 @pytest.mark.parametrize("entry", ["plist_super_shape", "plist_window_shape",
+                                   "plist_gathered_shape",
+                                   "plist_subgate_shape",
                                    "packet_queue_shape", "packet_v1_shape",
                                    "packet_stream2_shape",
                                    "packet_mxu_shape"])
