@@ -424,6 +424,24 @@ tree, so their launches are as before (W1 and W2 0):
    losses bit-equal;
    a ShardedTree step (4 blocks, W1 4) on icosphere(2) at 24x24: loss
    finite, vertex gradient finite and nonzero.
+46. the JAX renderer's last options, each where its scenes are built, the
+   card line first: (a) after phase 11, the terrain's windows without
+   fused resolve rows (resolve_rows None): the normal frame (K1 22) and
+   the mirror frame (K1 12, K1' 12) bit-equal to phases 6 and 10's, the
+   four frames timed in turns; (b) after phase 15, the
+   terrain's kd-tree without SO tables: K3's SO form on the per-frame
+   so_rows with strips (K3 1 a frame), 4096 primary pixels against the
+   brute force at phase 14's budget, so_rows beside so_combine and the
+   frame beside phase 15's, in turns; (c) the kd mirror frame with
+   sort_bounces=False (K3 2 a frame, sort_rays 0 calls): its bounce wave's
+   hits and t equal to the sorted wave's, tri and pixels apart only at
+   exact-t ties, both frames in turns; (d) after phase 37, the emissive
+   soup's grid in the split layout (build s and bytes beside phase 34's,
+   cells and entries equal): G1's split form on phase 35's waves, counted,
+   exact against its plain version on every 8th lane, equal to the inline
+   G1 (hit; t and tri on the nearest waves), both forms timed in turns
+   beside their bounds; the NEE path leg over it (K1 1, G1 split 3 a
+   frame) bit-equal to phase 37's image, both legs in turns.
 
 The card's name and power limit are printed again before the kernels
 line. The line before the last is a JSON object of the kernels: each
@@ -434,12 +452,14 @@ calls, K6b and K9 the six v1 traverse_packet calls, K6a its three
 op-level calls, K7 and K8 their three traverse_packet calls each, K2 the
 "window" frames, K10 the traverse_plist(gathered=True) call at the
 terrain's full kmax, K11 the traverse_plist4 calls, G1 the NEE path
-frames, K1's kcap form the two-phase calls, W1 the default kd normal
+frames, G1's split form phase 46d's NEE path frames, K1's kcap form the
+two-phase calls, W1 the default kd normal
 frames of phase 42a, W2 the flat-scan frames), with every path's own
 count beside them (phase 43's as "diff step W1", "diff step K3" and
 "diff edge-aware", phase 44's as "cli ...", phase 45's as "parallel
 ..."; K1's entry also holds phase 44's stage seconds, "cli_seconds", and
-phase 45's row frames, "parallel"; W1's entry phase 45's ring,
+phase 45's row frames, "parallel", and phase 46a's frames, "unfused";
+K3's phase 46b's and 46c's, "options"; W1's entry phase 45's ring,
 "parallel"; W1's entry also holds phase 43's steps, peak memory
 and crop check, and W1's, W2's, K3's and G1's their gradient checks);
 the cluster walks (K1, K1', K1's kcap form, K2, K10, K11, K3, K4, K5,
@@ -582,6 +602,7 @@ def reset_counts():
     plist.plist_super_mt.launches = 0
     plist.plist_super_mt.kcap_launches = 0
     traverse_grid.launches = 0
+    traverse_grid.split_launches = 0
     plist.plist_window.launches = 0
     plist.plist_gathered.launches = 0
     plist.plist_subgate.launches = 0
@@ -603,6 +624,7 @@ def counts():
             "plist_super_mt": plist.plist_super_mt.launches,
             "plist_super_mt_kcap": plist.plist_super_mt.kcap_launches,
             "traverse_grid": traverse_grid.launches,
+            "traverse_grid_split": traverse_grid.split_launches,
             "plist_window": plist.plist_window.launches,
             "plist_gathered": plist.plist_gathered.launches,
             "plist_subgate": plist.plist_subgate.launches,
@@ -811,7 +833,8 @@ def run_frames(render, warmup, frames):
 
 def check_counts(phase, got, want):
     want = {"plist_super": 0, "plist_super_kcap": 0, "plist_super_mt": 0,
-            "plist_super_mt_kcap": 0, "traverse_grid": 0, "plist_window": 0,
+            "plist_super_mt_kcap": 0, "traverse_grid": 0,
+            "traverse_grid_split": 0, "plist_window": 0,
             "plist_gathered": 0, "plist_subgate": 0, "packet_stream": 0,
             "packet_stream_bf16": 0, "packet_queue": 0, "packet_legacy": 0,
             "packet_legacy_resident": 0, "packet_wide": 0,
@@ -987,7 +1010,9 @@ def main():
     list_shapes()
     walk_shapes = {}
     for name, g, kernel in (
-            ("traverse_grid", grid_shape(), None),
+            ("traverse_grid", grid_shape(), "grid_dda_kernelILb0"),
+            ("traverse_grid_split", grid_shape("grid_dda_split_shape"),
+             "grid_dda_kernelILb1"),
             ("ray_walk", grid_shape("ray_walk_shape"), "ray_walk_kernel"),
             ("brute_force", brute_force_shape(), "brute_force_scan")):
         per = (f"{g['ray_threads']} threads a ray" if "ray_threads" in g
@@ -1312,7 +1337,7 @@ def path_leg_parent(parent, frame):
 
 
 def smoke(device, parent=None):
-    """Phases 3-45 on `device`; returns the kernels line's entries. parent:
+    """Phases 3-46 on `device`; returns the kernels line's entries. parent:
     parent_library's entries, timed beside this tree's kernels of the same
     sources."""
     # 3. scene at full size
@@ -1562,9 +1587,11 @@ def smoke(device, parent=None):
         f"{rays / p_med * 1e3:.6g} traversal rays/s (wave lanes, dead "
         f"bounce lanes included), image mean {mean:.6f}, "
         f"launches {got}")
+    unfused = unfused_frames(scene, mwin, cam, img, m_img, launches)
     del mwin
 
     k3, ctx = kd_route(device, scene, soup, cam, scam, launches)
+    k3["options"] = kd_options(ctx, launches)
     k4 = preview_route(ctx, launches)
     k5 = queue_engine(ctx, launches, parent_of(parent, "packet_queue"))
     v1 = v1_engines(ctx, launches, parent_of(parent, "packet_v1"))
@@ -1628,6 +1655,7 @@ def smoke(device, parent=None):
     for kernel, cname in (("K10", "plist_gathered"), ("K11", "plist_subgate")):
         by_name[cname]["tail"] = tail_res[f"{kernel} terrain"]
         by_name[cname]["soup_tail"] = tail_res[f"{kernel} soup"]
+    by_name["plist_super"]["unfused"] = unfused
     by_name["plist_super"]["cli_seconds"] = cli
     by_name["plist_super"]["parallel"] = par["k1"]
     by_name["ray_walk"]["parallel"] = dict(par["w1"],
@@ -3404,7 +3432,8 @@ def nee_waves(soup, lights, device):
 def nee_grid(device, scene, launches):
     """Phases 34-37: the uniform grid, the grid DDA G1, K1's kcap form with
     the two-phase engine, and bench.py's NEE path leg on the 1M emissive
-    soup. Returns G1's and the kcap form's kernels entries."""
+    soup; then phase 46d, the split grid. Returns G1's, the kcap form's and
+    G1's split form's kernels entries."""
     n = SIZE * SIZE
     n_gates = n // plist.GATE
 
@@ -3678,6 +3707,11 @@ def nee_grid(device, scene, launches):
         raise AssertionError("NEE path, bounce_grid off: image differs from "
                              "the grid bounce frame")
 
+    # 46d. the same soup's grid in the split layout
+    split_entry = split_grid(SimpleNamespace(
+        grid=grid, grid_s=grid_s, tv=tv, waves=waves, g1=g1, soup=soup,
+        scam=scam, swin=swin, opts=opts, lights=lights, img=img), launches)
+
     return [
         {"name": "traverse_grid", "route": "cuda",
          "source": "clpathtracer_tpu_torch/ops/csrc/grid_dda.cu",
@@ -3709,7 +3743,272 @@ def nee_grid(device, scene, launches):
          "unsettled_by_kcap": {k: r["unsettled"]
                                for k, r in kcap_rows.items()},
          "phase2_ms_by_kcap": {k: r["dda_ms"] for k, r in kcap_rows.items()}},
+        split_entry,
     ]
+
+
+# ---------------------------------------------------------------------------
+# phase 46: the last options of the JAX renderer, each on a route that the
+# phases before it built
+# ---------------------------------------------------------------------------
+
+
+def same_image(name, img, want):
+    """Hold an image to another bit for bit; print the largest difference
+    when it is not."""
+    diff = float((img - want).abs().max())
+    say(name, f"image against {want.shape[0]}x{want.shape[1]} reference "
+        f"(tolerance: bit-equal): max abs difference {diff}, pixels that "
+        f"differ {int((img != want).any(dim=-1).sum())}")
+    if not torch.equal(img, want):
+        raise AssertionError(f"{name}: the image is not bit-equal")
+
+
+def unfused_frames(scene, mwin, cam, img, m_img, launches):
+    """Phase 46a: the windows frames without fused resolve rows (the JAX
+    package's default: the winner resolves from the windows' records and
+    _surface gathers its shading). The normal frame (K1 22 launches) and
+    the mirror frame (K1 12, K1' 12), each bit-equal to the fused frame of
+    phases 6 and 10; the fused and unfused frames timed in turns. Returns
+    the numbers for K1's kernels entry."""
+    say("46a unfused", f"card: {card_line()}")
+    bare = mwin.replace(resolve_rows=None)
+    opts = RenderOptions(width=SIZE, height=SIZE)
+    m_opts = RenderOptions(width=SIZE, height=SIZE, mode="mirror",
+                           bounces=2)
+    _, _, got, u_img = run_frames(
+        lambda: render_image(scene, cam, opts, bare), WARMUP, FRAMES)
+    check_counts("46a unfused normal", got, {"plist_super": WARMUP + FRAMES})
+    launches["unfused normal"] = got
+    same_image("46a unfused normal", u_img, img)
+    _, _, got, um_img = run_frames(
+        lambda: render_image(scene, cam, m_opts, bare), 2, 10)
+    check_counts("46a unfused mirror", got, {"plist_super": 12,
+                                              "plist_super_mt": 12})
+    launches["unfused mirror"] = got
+    same_image("46a unfused mirror", um_img, m_img)
+    ms = turns_ms([lambda: render_image(scene, cam, opts, mwin),
+                   lambda: render_image(scene, cam, opts, bare),
+                   lambda: render_image(scene, cam, m_opts, mwin),
+                   lambda: render_image(scene, cam, m_opts, bare)], 10)
+    say("46a unfused", f"frames in turns (median ms of 10): normal fused "
+        f"{ms[0]:.4f} (phase 6's frame), unfused {ms[1]:.4f}; mirror fused "
+        f"{ms[2]:.4f} (phase 10's), unfused {ms[3]:.4f}")
+    return {"fused_ms": ms[0], "unfused_ms": ms[1],
+            "mirror_fused_ms": ms[2], "mirror_unfused_ms": ms[3]}
+
+
+def kd_options(ctx, launches):
+    """Phases 46b and 46c on the kd route's terrain (phase 12's tree).
+    (b) the tree without SO tables: the normal frame runs K3's SO form on
+    the per-frame so_rows with strips (1 launch a frame), its 4096
+    primary pixels against the brute force at phase 14's budget; so_rows
+    beside so_combine and the frame beside the tree with SO tables, in
+    turns. (c) the mirror frame with sort_bounces=False: K3 2 launches a
+    frame and sort_rays 0 calls; its bounce wave's hits and t equal to the
+    sorted wave's, tri equal but at exact-t ties, and the frame's pixels
+    equal but on those lanes; both frames in turns. Returns the numbers
+    for K3's kernels entry."""
+    say("46b so_rows", f"card: {card_line()}")
+    scene, cam, tree = ctx["scene"], ctx["cam"], ctx["tree"]
+    orig, dirs = ctx["orig"], ctx["dirs"]
+    n = SIZE * SIZE
+    t_tile = TERRAIN_KD["tile"]
+    bare = tree.replace(so_base=None)
+    o = orig[0]
+
+    # (b) per-frame SO rows
+    _, kw, _ = packet.stream_kernel_args(bare, orig, dirs, (SIZE, SIZE),
+                                         t_tile, shared_origin=True,
+                                         grid_dirs=True)
+    if not kw["so"] or kw.get("n_strips") != t_tile // packet.GATE_LANES:
+        raise AssertionError(f"46b: K3 form so={kw['so']}, strips "
+                             f"{kw.get('n_strips')}; want the SO form with "
+                             "512-lane gates")
+    opts = RenderOptions(width=SIZE, height=SIZE, intersector="packet",
+                         packet_tile=t_tile)
+    _, _, got, img = run_frames(
+        lambda: render_image(scene, cam, opts, tree=bare), 2, 10)
+    check_counts("46b so_rows frame", got, {"packet_stream": 12})
+    launches["kd normal, so_rows"] = got
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("46b: non-finite pixels")
+    rec = packet.traverse_packet(bare, orig, dirs, (SIZE, SIZE), t_tile,
+                                 shared_origin=True, grid_dirs=True)
+    pix = torch.as_tensor(np.random.default_rng(2).choice(
+        n, ORACLE_PIXELS, replace=False), device=orig.device)
+    check_oracle("46b so_rows oracle", scene, rec, orig, dirs, pix, 2e-3,
+                 1e-4, 1e-5)
+    base = packet.traverse_packet(tree, orig, dirs, (SIZE, SIZE), t_tile,
+                                  shared_origin=True, grid_dirs=True)
+    px = (img != render_image(scene, cam, opts, tree=tree)).any(dim=-1)
+    say("46b so_rows", f"against the SO tables' frame: hit flags differ on "
+        f"{int((rec['hit'] != base['hit']).sum())} of {n} rays, tri on "
+        f"{int((rec['tri'] != base['tri']).sum())} (edge flips of the two "
+        f"roundings); pixels differ on {int(px.sum())}")
+    ms = turns_ms([lambda: packet.pad_records(packet.so_rows(tree.tris, o),
+                                              pad_value=0.0),
+                   lambda: so_combine(tree.so_base, o),
+                   lambda: render_image(scene, cam, opts, tree=tree),
+                   lambda: render_image(scene, cam, opts, tree=bare)], 10)
+    say("46b so_rows", f"in turns (median ms of 10): so_rows pass "
+        f"{ms[0]:.4f} ({tree.tris.shape[0]} records) beside so_combine "
+        f"{ms[1]:.4f}; normal frame with SO tables {ms[2]:.4f} (phase 15's "
+        f"frame), without {ms[3]:.4f}")
+    out = {"so_rows_ms": ms[0], "so_combine_ms": ms[1],
+           "frame_so_tables_ms": ms[2], "frame_so_rows_ms": ms[3]}
+
+    # (c) unsorted bounce waves
+    say("46c unsorted", f"card: {card_line()}")
+    m_opts = RenderOptions(width=SIZE, height=SIZE, mode="mirror", bounces=2,
+                           intersector="packet", packet_tile=t_tile)
+    u_opts = dataclasses.replace(m_opts, sort_bounces=False)
+    sort_rays.calls = 0
+    _, _, got, u_img = run_frames(
+        lambda: render_image(scene, cam, u_opts, tree=tree), 1, 3)
+    check_counts("46c unsorted mirror", got, {"packet_stream": 8})
+    launches["kd mirror, unsorted"] = got
+    say("46c unsorted", f"sort_rays calls over those 5 frames: "
+        f"{sort_rays.calls} (want 0)")
+    if sort_rays.calls:
+        raise AssertionError("46c: the unsorted frame sorted a wave")
+    prim = intersect_scene(scene, None, orig, dirs, m_opts, tree=tree)
+    alive, b_orig, b_dirs, _ = mirror_wave(
+        scene, prim, orig, dirs, torch.ones((n,), dtype=torch.bool,
+                                            device=orig.device))
+    s_rec = intersect_scene(scene, None, b_orig, b_dirs, m_opts,
+                            coherent=False, active=alive, tree=tree)
+    u_rec = intersect_scene(scene, None, b_orig, b_dirs, u_opts,
+                            coherent=False, active=alive, tree=tree)
+    ties = u_rec["tri"] != s_rec["tri"]
+    s_img = render_image(scene, cam, m_opts, tree=tree)
+    px = (u_img != s_img).any(dim=-1).reshape(-1)
+    ok = (torch.equal(u_rec["hit"], s_rec["hit"])
+          and torch.equal(u_rec["t"], s_rec["t"])
+          and not bool((px & ~ties).any()))
+    say("46c unsorted", f"bounce wave ({int(alive.sum())} live lanes) "
+        f"against the sorted wave: hit flags "
+        f"{'equal' if torch.equal(u_rec['hit'], s_rec['hit']) else 'DIFFER'}"
+        f" ({int(s_rec['hit'].sum())} hits), t "
+        f"{'equal' if torch.equal(u_rec['t'], s_rec['t']) else 'DIFFERS'}, "
+        f"tri differs on {int(ties.sum())} lanes (exact-t ties); the frames' "
+        f"pixels differ on {int(px.sum())}, all on those lanes: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("46c: the unsorted mirror frame differs")
+    ms = turns_ms([lambda: render_image(scene, cam, m_opts, tree=tree),
+                   lambda: render_image(scene, cam, u_opts, tree=tree)], 3)
+    u_stats = packet.traverse_packet(
+        tree, b_orig, b_dirs, (SIZE, SIZE), t_tile, active=alive)[
+        "tile_stats"].to(torch.float64)
+    say("46c unsorted", f"mirror frames in turns (median ms of 3): sorted "
+        f"{ms[0]:.4f} (phase 15's), unsorted {ms[1]:.4f}; the unsorted "
+        f"wave's pixel tiles: node pops {float(u_stats[:, 0].mean()):.1f}, "
+        f"windows streamed {float(u_stats[:, 1].mean()):.1f} a tile (mean)")
+    out.update(mirror_sorted_ms=ms[0], mirror_unsorted_ms=ms[1],
+               unsorted_tie_lanes=int(ties.sum()))
+    return out
+
+
+def split_grid(nee, launches):
+    """Phase 46d: the emissive soup's grid in the split layout. Its build
+    beside phase 34's inline grid (cells and entries equal); G1's split
+    form on phase 35's waves, counted (1 launch), exact against its plain
+    version on every 8th lane and equal to the inline G1's hit (and t, tri
+    on the nearest waves); both forms timed in turns beside their bounds;
+    phase 37's NEE path leg over the split grid (G1's split form 3 a
+    frame), bit-equal to the inline leg's image. Returns the split form's
+    kernels entry."""
+    say("46d split grid", f"card: {card_line()}")
+    grid, waves, g1 = nee.grid, nee.waves, nee.g1
+    n = SIZE * SIZE
+    t = time.perf_counter()
+    sgrid = build_grid(nee.tv, layout="split", device=grid.lo.device)
+    torch.cuda.synchronize()
+    s_s = time.perf_counter() - t
+    st, ist = sgrid.stats(), grid.stats()
+    say("46d split grid", f"build_grid(layout='split'): {s_s:.3f} s host "
+        f"beside the inline grid's {nee.grid_s:.3f} s; {sgrid.nbytes()} "
+        f"device bytes (cells {tuple(sgrid.cells.shape)}, quads "
+        f"{tuple(sgrid.quads.shape)}) beside {grid.nbytes()}; stats {st}")
+    if (st["cells"], st["entries"]) != (ist["cells"], ist["entries"]):
+        raise AssertionError("46d: the split grid's cells or entries differ")
+    lanes = torch.arange(0, n, EVERY, device=grid.lo.device)
+    recs, err = {}, 0.0
+    for name, w in waves.items():
+        reset_counts()
+        rec = traverse_grid(sgrid, **w)
+        torch.cuda.synchronize()
+        check_counts(f"46d G1 split {name}", counts(),
+                     {"traverse_grid_split": 1})
+        tally = torch.zeros(5, dtype=torch.int64, device=grid.lo.device)
+        ref, plain_ms = timed(lambda: traverse_grid_reference(
+            sgrid, **{k: (v[lanes].contiguous()
+                          if isinstance(v, torch.Tensor) else v)
+                      for k, v in w.items()}, tally=tally))
+        err = max(err, same_walk(f"46d G1 split {name}", rec, lanes, ref))
+        inline = g1[name].rec
+        keys = ("hit",) if w.get("any_hit") else ("hit", "t", "tri")
+        bad = {k: int((rec[k] != inline[k]).sum()) for k in
+               ("hit", "t", "tri")}
+        say(f"46d G1 split {name}", f"{walk_stats(rec, w['active'])} "
+            f"(quad rows); against the inline G1 on all {n} lanes: "
+            f"mismatches {bad} (held: {', '.join(keys)}; any-hit's t and tri "
+            "are the first accepted hit, whose row differs by layout)")
+        if any(bad[k] for k in keys):
+            raise AssertionError(f"46d G1 split {name}: differs from the "
+                                 "inline G1")
+        recs[name] = SimpleNamespace(rec=rec, tally=tally, plain_ms=plain_ms,
+                                     sample_steps=int(ref["steps"].sum()))
+    timing = {}
+    for name in ("bounce", "shadow any-hit"):
+        w = waves[name]
+        ms = turns_ms([lambda w=w: traverse_grid(sgrid, **w),
+                       lambda w=w: traverse_grid(grid, **w)], 10)
+        r = recs[name]
+        bnd, by, steps, nbytes, ops = g1_bound(r.rec, r.tally,
+                                               r.sample_steps, w)
+        ib = g1_bound(g1[name].rec, g1[name].tally, g1[name].sample_steps,
+                      w)
+        timing[name] = dict(ms=ms[0], inline_ms=ms[1], bound=bnd, by=by,
+                            inline_bound=ib[0])
+        say(f"46d G1 split {name}", f"in turns (median ms of 10): split "
+            f"{ms[0]:.4f}, inline {ms[1]:.4f}; bounds: split {bnd:.4f} ms "
+            f"({by}; {steps} quad rows, {nbytes:.6g} B, {ops:.6g} MT "
+            f"operations), inline {ib[0]:.4f} ms ({ib[1]}; {ib[2]} rows)")
+
+    def frame(g):
+        return render_image(nee.soup, nee.scam, nee.opts, nee.swin, grid=g,
+                            lights=nee.lights,
+                            generator=torch.Generator(
+                                device=grid.lo.device).manual_seed(0))
+    _, _, got, img = run_frames(lambda: frame(sgrid), 1, 3)
+    check_counts("46d NEE path, split grid", got,
+                 {"plist_super": 4, "traverse_grid_split": 12})
+    launches["nee path, split grid"] = got
+    same_image("46d NEE path, split grid", img, nee.img)
+    ms = turns_ms([lambda: frame(grid), lambda: frame(sgrid)], 3)
+    say("46d NEE path, split grid", f"frames in turns (median ms of 3): "
+        f"inline grid {ms[0]:.4f} (phase 37's), split grid {ms[1]:.4f}")
+    b = timing["bounce"]
+    return {"name": "traverse_grid_split", "route": "cuda",
+            "source": "clpathtracer_tpu_torch/ops/csrc/grid_dda.cu",
+            "replaces": "clpathtracer_tpu/ops/grid_walk.py:210 (body_split; "
+                        "XLA, not a Pallas kernel)",
+            "launches": got["traverse_grid_split"],
+            "launches_by_path": {p: c.get("traverse_grid_split", 0)
+                                 for p, c in launches.items()},
+            "max_abs_err": err, "ms": b["ms"],
+            "plain_ms": recs["bounce"].plain_ms,
+            "plain_lanes": f"every {EVERY}th", "bound_ms": b["bound"],
+            "bound_by": b["by"], "library_ms": None,
+            "inline_ms": b["inline_ms"], "inline_bound_ms": b["inline_bound"],
+            "shadow_any_hit_ms": timing["shadow any-hit"]["ms"],
+            "shadow_any_hit_inline_ms": timing["shadow any-hit"]["inline_ms"],
+            "shadow_any_hit_bound_ms": timing["shadow any-hit"]["bound"],
+            "build_s": s_s, "inline_build_s": nee.grid_s,
+            "bytes": sgrid.nbytes(), "inline_bytes": grid.nbytes(),
+            "nee_frame_ms": ms[1], "nee_frame_inline_ms": ms[0]}
 
 
 SHADOW_KD = dict(leaf_size=16, max_depth=26)   # build_shadow_tree's defaults

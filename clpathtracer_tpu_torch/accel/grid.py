@@ -1,5 +1,4 @@
-"""Uniform grid for fog-like scenes (port of clpathtracer_tpu/accel/grid.py,
-its inline layout).
+"""Uniform grid for fog-like scenes (port of clpathtracer_tpu/accel/grid.py).
 
 The kd-tree and the windows suit surface meshes, whose density varies by
 orders of magnitude. A scene of uniformly scattered small triangles (the
@@ -9,15 +8,18 @@ needs no node table, and nearest and any-hit queries in dense fog settle
 within a few cells.
 
 The host build is the JAX package's numpy code, so the same vertices give
-the same table bit for bit. Triangles are binned into every cell their
+the same tables bit for bit. Triangles are binned into every cell their
 AABB overlaps; the walk's per-cell t-window makes the duplicates harmless.
-The table is one [C + S, 128] f32 array, C = rx*ry*rz cell rows and S
-spill rows:
+Cell (x, y, z) has the id cid = (x*ry + y)*rz + z, C = rx*ry*rz cells.
+Two layouts, both walked by ops/grid_walk.py::traverse_grid:
 
-  * row cid < C (cell (x, y, z) at cid = (x*ry + y)*rz + z): record slot 0
-    holds (first spill row, triangle count), slots 1..7 the cell's first 7
-    triangles;
-  * rows >= C: 8 triangles each, for cells with more than 7.
+  * "inline" (the default): one [C + S, 128] f32 table of C cell rows and
+    S spill rows. Row cid holds in record slot 0 (first spill row,
+    triangle count) and in slots 1..7 the cell's first 7 triangles; rows
+    >= C hold 8 triangles each, for cells with more than 7;
+  * "split": cells [C, 8] f32 rows (quad start, triangle count, pad) and
+    quads [Q, 64] f32 rows of QBLOCK = 4 records. Each cell's list is
+    padded to a multiple of 4 and starts at quad row `quad start`.
 
 A record is 16 floats (v0, e1, e2, tri_id, pad), the layout of
 accel/sah.py::pack_quads_host; tri_id -1 marks an empty slot.
@@ -30,31 +32,54 @@ import dataclasses
 import numpy as np
 import torch
 
+from clpathtracer_tpu_torch.accel.sah import pack_quads_host
 from clpathtracer_tpu_torch.core.struct import TensorStruct
+
+QBLOCK = 4  # records a quad row of the split layout
+LAYOUTS = ("inline", "split")
 
 
 @dataclasses.dataclass(frozen=True)
 class UniformGrid(TensorStruct):
-    """A uniform grid on the device (the inline layout).
+    """A uniform grid on the device, in one of two layouts (module
+    docstring): table set (inline) or cells and quads set (split).
 
-    table: [C + S, 128] f32 rows (module docstring).
     lo, hi: [3] f32 grid AABB; h: [3] f32 cell size; res: (rx, ry, rz).
+    table: [C + S, 128] f32 rows (inline), else None.
+    cells: [C, 8] f32 meta rows, quads: [Q, 64] f32 quad rows (split),
+    else None.
     """
 
-    table: torch.Tensor
     lo: torch.Tensor
     hi: torch.Tensor
     h: torch.Tensor
+    table: torch.Tensor = None
+    cells: torch.Tensor = None
+    quads: torch.Tensor = None
     res: tuple = (1, 1, 1)
 
     @property
     def num_cells(self) -> int:
         return int(np.prod(self.res))
 
+    @property
+    def layout(self) -> str:
+        return "inline" if self.table is not None else "split"
+
     def stats(self) -> dict:
-        """The JAX package's UniformGrid.stats() for the inline layout."""
+        """The JAX package's UniformGrid.stats(): entries counted the same
+        way in both layouts, then spill_rows (inline) or quad_rows
+        (split) and the tables' MB."""
         c = self.num_cells
-        counts = self.table[:c, 1].cpu().numpy()
+        if self.table is not None:
+            counts = self.table[:c, 1].cpu().numpy()
+            extra = {"spill_rows": int(self.table.shape[0] - c),
+                     "mem_mb": float(self.table.numel() * 4 / 1e6)}
+        else:
+            counts = self.cells[:, 1].cpu().numpy()
+            extra = {"quad_rows": int(self.quads.shape[0]),
+                     "mem_mb": float((self.quads.numel()
+                                      + self.cells.numel()) * 4 / 1e6)}
         occupied = counts > 0
         entries = float(counts.sum())
         return {
@@ -65,8 +90,7 @@ class UniformGrid(TensorStruct):
             "avg_tris_per_occupied_cell": float(
                 entries / max(occupied.sum(), 1)),
             "max_tris_per_cell": int(counts.max(initial=0)),
-            "spill_rows": int(self.table.shape[0] - c),
-            "mem_mb": float(self.table.numel() * 4 / 1e6),
+            **extra,
         }
 
 
@@ -109,14 +133,12 @@ def build_grid(tri_verts: np.ndarray, res=None, density: float = 1.0,
     tri_verts: [F, 3, 3] corners (Scene.tri_corners). res: per-axis cell
     counts; by default about `density` triangles a cell, cells as close to
     cubes as the scene AABB allows, at most 512 a side and
-    min(2^23, max(8F, 4096)) in all. layout: "inline" only; the JAX
-    package's "split" layout (meta + quad tables) is not ported (ROADMAP
-    queue 1 item 3)."""
-    if layout != "inline":
-        raise NotImplementedError(
-            f"build_grid(layout={layout!r}): only the inline layout is "
-            "ported; the split layout and its walk are ROADMAP queue 1 "
-            "item 3")
+    min(2^23, max(8F, 4096)) in all. layout: "inline" (one 128-float row
+    table) or "split" (meta rows and quad rows); see the module
+    docstring."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"build_grid: layout {layout!r} is not one of "
+                         f"{LAYOUTS}")
     tv = np.asarray(tri_verts, np.float32)
     f = tv.shape[0]
     if f == 0:
@@ -181,6 +203,28 @@ def build_grid(tri_verts: np.ndarray, res=None, density: float = 1.0,
     starts = np.searchsorted(cellid_s, np.arange(ncells, dtype=np.int64))
     ccount = np.diff(np.append(starts, total))
 
+
+    def dev(x):
+        return torch.as_tensor(x, device=device)
+    geom = dict(lo=dev(lo), hi=dev(hi), h=dev(h), res=res)
+    if layout == "split":
+        # each cell's list padded to a multiple of QBLOCK, in quad rows
+        padded = -(-ccount // QBLOCK) * QBLOCK
+        pstart = _exclusive_cumsum(padded)
+        total_padded = int(padded.sum())
+        if total_padded // QBLOCK >= 1 << 24:
+            raise ValueError(f"build_grid: {total_padded} entries overflow "
+                             "f32-exact quad ids; lower the resolution")
+        tri_slots = np.full(total_padded, -1, np.int32)
+        dest = pstart[cellid_s] + (np.arange(total, dtype=np.int64)
+                                   - starts[cellid_s])
+        tri_slots[dest] = tid_s.astype(np.int32)
+        cells = np.zeros((ncells, 8), np.float32)
+        cells[:, 0] = (pstart // QBLOCK).astype(np.float32)
+        cells[:, 1] = ccount.astype(np.float32)
+        quads = pack_quads_host(tri_slots, tv).reshape(-1, 64)
+        return UniformGrid(cells=dev(cells), quads=dev(quads), **geom)
+
     spill_rows = -(-np.maximum(ccount - 7, 0) // 8)
     srow0 = ncells + _exclusive_cumsum(spill_rows)
     nrows = int(ncells + spill_rows.sum())
@@ -199,8 +243,4 @@ def build_grid(tri_verts: np.ndarray, res=None, density: float = 1.0,
     records[rec] = _records16(tid_s.astype(np.int32), tv)
     records[np.arange(ncells) * 8, 0] = srow0.astype(np.float32)
     records[np.arange(ncells) * 8, 1] = ccount.astype(np.float32)
-
-    def dev(x):
-        return torch.as_tensor(x, device=device)
-    return UniformGrid(table=dev(records.reshape(nrows, 128)), lo=dev(lo),
-                       hi=dev(hi), h=dev(h), res=res)
+    return UniformGrid(table=dev(records.reshape(nrows, 128)), **geom)

@@ -45,20 +45,28 @@ def intersect_diff(scene, tree, orig, dir, opts=None, *, coherent=False,
     gives the topology through its ring (intersect_ring) on its records as
     built (JAX :60-65), and the re-resolve below on the live vertices.
 
+    opts.sort_bounces False takes a scattered wave as coherent, as the
+    JAX integrator passes coherent=(coherent or not sort_bounces)
+    (render/integrator.py:180): no grid; K3 unsorted on pixel-blocked
+    tiles (intersector="packet"), else the rope walk W1.
+
     A miss re-resolves against triangle 0 on detached inputs, so that no
     value of its masked branch (an inverse determinant near 0) reaches
     the backward pass."""
     # the integrator routes every wave through this function
     from clpathtracer_tpu_torch.render.integrator import (RenderOptions,
                                                           _intersect_tris)
+    opts = opts or RenderOptions()
+    if not coherent and not opts.sort_bounces:
+        grid = None
     with torch.no_grad():
         frozen = scene.with_verts(scene.verts.detach())
         if tree is not None and not isinstance(tree, ShardedTree):
             tree = tree.replace(tris=pack_quads(tree.tri_indices,
                                                 *frozen.tri_verts()))
         rec = _intersect_tris(frozen, None, orig.detach(), dir.detach(),
-                              opts or RenderOptions(), coherent, active,
-                              jitter_px, tree, grid, None)
+                              opts, coherent, active, jitter_px, tree, grid,
+                              None)
     hit, tri = rec["hit"], rec["tri"]
     keep = hit[:, None]
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from clpathtracer_tpu_torch.accel.grid import UniformGrid
 from clpathtracer_tpu_torch.accel.sah import (CHUNK_ROWS, FlatKdTree,
                                               tree_from_arrays)
 from clpathtracer_tpu_torch.core.camera import Camera
@@ -59,6 +60,23 @@ def windows_from_numpy(tris128, win_bnd, so_base, resolve_rows, slot_of_tri,
                       dev(np.asarray(resolve_rows, np.float32)
                           .reshape(-1, 32)[:s])),
         win_rows=int(win_rows))
+
+
+def grid_from_numpy(lo, hi, h, res, table=None, cells=None, quads=None, *,
+                    device) -> UniformGrid:
+    """UniformGrid from clpathtracer_tpu.accel.grid.UniformGrid's arrays, in
+    either layout: table [C + S, 128] (inline), or cells [C, 8] and quads
+    [Q, 64] (split); lo, hi, h [3]; res (rx, ry, rz)."""
+    if (table is None) == (cells is None or quads is None):
+        raise ValueError("grid_from_numpy: give table (inline) or cells and "
+                         "quads (split)")
+
+    def dev(x):  # a writable contiguous copy: JAX's host views are read-only
+        return None if x is None else torch.as_tensor(
+            np.array(x, np.float32), device=device)
+    return UniformGrid(lo=dev(lo), hi=dev(hi), h=dev(h), table=dev(table),
+                       cells=dev(cells), quads=dev(quads),
+                       res=tuple(int(r) for r in res))
 
 
 def tree_from_numpy(node_table, tri_indices, quads, chunk_start=None,

@@ -104,8 +104,14 @@ SIGNATURES = {
         # out_v, out_steps, next_ray, n, rx, ry, rz, nrows, max_iters,
         # any_hit, stream
         "grid_dda_launch": [_P] * 12 + [_I] * 7 + [_P],
+        # cells, quads, geom, orig, dir, t_max, active, out_t, out_tri,
+        # out_u, out_v, out_steps, next_ray, n, rx, ry, rz, nquads,
+        # max_iters, any_hit, stream
+        "grid_dda_split_launch": [_P] * 13 + [_I] * 7 + [_P],
         # out [6] i32
         "grid_dda_shape": [_P],
+        # out [6] i32
+        "grid_dda_split_shape": [_P],
     },
     "ray_walk": {
         # table, leaf_first, recs, orig, dir, t_max, active, out_t, out_slot,
@@ -241,7 +247,8 @@ def cluster_shape(entry, *ints) -> dict:
 
 def grid_shape(entry: str = "grid_dda_shape") -> dict:
     """The launch shape of a per-ray walk: G1 (ops/csrc/grid_dda.cu::
-    grid_dda_shape) or, with entry "ray_walk_shape", W1: threads per
+    grid_dda_shape; its split form with entry "grid_dda_split_shape") or,
+    with entry "ray_walk_shape", W1: threads per
     block, threads per ray, blocks resident on one SM, registers per
     thread, static shared memory bytes per block and local (spill) bytes
     per thread. Needs the card; raises on a CUDA error."""

@@ -1,10 +1,13 @@
 // G1: the uniform-grid 3-D DDA for Hopper (sm_90a).
 //
-// Replaces clpathtracer_tpu/ops/grid_walk.py::traverse_grid (its inline
-// layout). That walk is XLA in the JAX package, a lockstep wavefront that
-// advances every ray by one table row per iteration, not a Pallas kernel.
-// Here each ray walks on its own: a ray that settles stops, and no
-// full-width pass is spent on it.
+// Replaces clpathtracer_tpu/ops/grid_walk.py::traverse_grid, both of its
+// layouts (body_inline and body_split). That walk is XLA in the JAX
+// package, a lockstep wavefront that advances every ray by one row per
+// iteration, not a Pallas kernel. Here each ray walks on its own: a ray
+// that settles stops, and no full-width pass is spent on it. The record
+// fetch (Fetch<kSplit>) is the template parameter of one kernel and one
+// walk loop: the inline form (grid_dda_launch) and the split form
+// (grid_dda_split_launch).
 //
 // Per ray: the slab entry into the grid's box (a dir == 0 axis takes the
 // origin-in-slab answer), the entry cell, and per axis the t of the next
@@ -56,6 +59,17 @@
 // max 187). On the card, 4 threads a ray at 3 blocks an SM beat 1, 2 and
 // 8 threads a ray, and sizing a new cell's loads by a per-cell count read
 // beforehand from L2 was slower than loading the row whole (PERF.md §6).
+//
+// The split form (accel/grid.py's split layout: cells [C, 8] meta rows of
+// (quad start, count), quads [Q, 64] rows of QBLOCK = 4 records) keeps
+// that schedule: 4 threads a ray, the persistent grid, the next row
+// prefetched. A step reads one quad row, one record a thread, and only
+// the records the cell holds. A cell's meta row (8 bytes) is read once,
+// by each of the ray's threads (one address: one transaction): the next
+// cell's meta is the prefetch of the cell's last row, and that cell's
+// first quad row is loaded when the walk steps into it, so a new cell
+// costs two dependent round trips where the inline form costs one. Its
+// steps are quad rows, as in the JAX package's body_split.
 
 #include <cuda_runtime.h>
 
@@ -73,6 +87,11 @@ constexpr int kRecs = 8 / kRayThreads;  // records of a row a thread holds
 constexpr float kBig = 3.4e38f;
 constexpr int kRowF4 = 32;   // float4s per 128-float row
 constexpr int kRecF4 = 4;    // float4s per 16-float record
+constexpr int kQBlock = 4;   // records per quad row (split layout)
+constexpr int kQuadF4 = 16;  // float4s per 64-float quad row
+constexpr int kCellF2 = 4;   // float2s per 8-float meta row
+static_assert(kQBlock % kRayThreads == 0,
+              "a ray's threads split the 4 records of a quad row evenly");
 static_assert(kRayThreads == 1 || kRayThreads == 2 || kRayThreads == 4 ||
                   kRayThreads == 8,
               "a ray's threads split the 8 records of a row evenly");
@@ -98,6 +117,30 @@ __device__ __forceinline__ void load_row(const float4* __restrict__ table,
       r.c[k] = rec[2];
     }
   }
+}
+
+// Issue the loads of this thread's records among the first `nrec` of quad
+// row `q` (clamped into the quads), into r.*[0 .. kQBlock / kRayThreads).
+__device__ __forceinline__ void load_quad(const float4* __restrict__ quads,
+                                          int q, int nq, int h, int nrec,
+                                          RowRecs& r) {
+  const float4* p = quads + (size_t)min(max(q, 0), nq - 1) * kQuadF4;
+#pragma unroll
+  for (int k = 0; k < kQBlock / kRayThreads; ++k) {
+    const int j = k * kRayThreads + h;
+    if (j < nrec) {
+      const float4* rec = p + j * kRecF4;
+      r.a[k] = rec[0];
+      r.b[k] = rec[1];
+      r.c[k] = rec[2];
+    }
+  }
+}
+
+// A cell's meta (quad start, count) from its row of the [C, 8] cells.
+__device__ __forceinline__ float2 load_meta(const float2* __restrict__ cells,
+                                            int cid, int ncells) {
+  return cells[(size_t)min(max(cid, 0), ncells - 1) * kCellF2];
 }
 
 // v of the ray's thread `src` (0 .. kRayThreads - 1).
@@ -142,12 +185,130 @@ __device__ __forceinline__ Cell dda_step(const int* cell, const float* t_next,
   return n;
 }
 
+// The row's winner over the ray's threads: least t, then highest record j
+// (rt, rj: this thread's; they become the winner's in every thread).
+__device__ __forceinline__ void merge_row(unsigned mask, float& rt, int& rj) {
+#pragma unroll
+  for (int off = kRayThreads / 2; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(mask, rt, off, kRayThreads);
+    const int oj = __shfl_xor_sync(mask, rj, off, kRayThreads);
+    if (ot < rt || (ot == rt && oj > rj)) {
+      rt = ot;
+      rj = oj;
+    }
+  }
+}
+
+// The record fetch of one layout (the kernel's template parameter kSplit):
+// the walk's loop is shared, and these say what a step reads. enter: load
+// cell cid's first row into cur. open: this step's slots [first, first +
+// slots) of cur (a cell row's record 0 is the inline layout's meta). count:
+// the cell's records. prefetch: name what the walk reads next, the cell's
+// row after offset_next when `more`, else the next cell (cell id
+// next_cell), and, when `issue` (the walk may take another step) and
+// `more` or `go_on`, issue its loads. advance: cur becomes that row.
+template <bool kSplit>
+struct Fetch;
+
+// Inline: a step reads one row of the [C + S, 128] table, a cell row
+// (record 0 = (first spill row, count), records 1..7) or a spill row (8
+// records); the next row is prefetched whole into nxt.
+template <>
+struct Fetch<false> {
+  static constexpr int kHeld = kRecs;   // records of a row a thread holds
+  const float4* __restrict__ table;
+  int nrows, ncells, h;
+  int row = 0, next_row = 0, spill = 0, count = 0;
+
+  __device__ Fetch(const float4* t, const float2*, int nr, int nc, int hh)
+      : table(t), nrows(nr), ncells(nc), h(hh) {}
+  __device__ __forceinline__ void enter(int cid, RowRecs& cur) {
+    row = cid;
+    load_row(table, row, nrows, h, 8, cur);
+  }
+  __device__ __forceinline__ void open(unsigned mask, const RowRecs& cur,
+                                       int& first, int& slots) {
+    const bool at_cell = row < ncells;
+    if (at_cell) {
+      spill = (int)from_thread(mask, cur.a[0].x, 0);
+      count = (int)from_thread(mask, cur.a[0].y, 0);
+    }
+    first = at_cell ? 1 : 0;
+    slots = at_cell ? 7 : 8;
+  }
+  __device__ __forceinline__ void prefetch(bool issue, bool more, bool go_on,
+                                           int offset_next, int next_cell,
+                                           RowRecs& nxt) {
+    next_row = more ? spill + (offset_next - 7) / 8 : next_cell;
+    if (issue && (more || go_on))
+      load_row(table, next_row, nrows, h,
+               more ? min(8, count - offset_next) : 8, nxt);
+  }
+  __device__ __forceinline__ void advance(bool, RowRecs& cur,
+                                          const RowRecs& nxt) {
+    row = next_row;
+    cur = nxt;
+  }
+};
+
+// Split: a step reads one [64]-float quad row (QBLOCK = 4 records). The
+// cell's meta row (quad start, count) of the [C, 8] cells is read once:
+// the next cell's meta is the prefetch of the cell's last quad row, and
+// its first quad row is loaded on the step into it.
+template <>
+struct Fetch<true> {
+  static constexpr int kHeld = kQBlock / kRayThreads;
+  const float4* __restrict__ quads;
+  const float2* __restrict__ cells;
+  int nquads, ncells, h;
+  int qstart = 0, count = 0;
+  float2 meta;
+
+  __device__ Fetch(const float4* q, const float2* c, int nq, int nc, int hh)
+      : quads(q), cells(c), nquads(nq), ncells(nc), h(hh) {}
+  __device__ __forceinline__ void first_row(RowRecs& cur) {
+    qstart = (int)meta.x;
+    count = (int)meta.y;
+    load_quad(quads, qstart, nquads, h, min(kQBlock, count), cur);
+  }
+  __device__ __forceinline__ void enter(int cid, RowRecs& cur) {
+    meta = load_meta(cells, cid, ncells);
+    first_row(cur);
+  }
+  __device__ __forceinline__ void open(unsigned, const RowRecs&, int& first,
+                                       int& slots) {
+    first = 0;
+    slots = kQBlock;
+  }
+  __device__ __forceinline__ void prefetch(bool issue, bool more, bool go_on,
+                                           int offset_next, int next_cell,
+                                           RowRecs& nxt) {
+    if (!issue) return;
+    if (more)
+      load_quad(quads, qstart + offset_next / kQBlock, nquads, h,
+                min(kQBlock, count - offset_next), nxt);
+    else if (go_on)
+      meta = load_meta(cells, next_cell, ncells);
+  }
+  __device__ __forceinline__ void advance(bool more, RowRecs& cur,
+                                          const RowRecs& nxt) {
+    if (more)
+      cur = nxt;
+    else
+      first_row(cur);
+  }
+};
+
 // Walk ray i with its kRayThreads threads (h, mask: this thread's index
-// among them and their lanes); thread 0 writes the outputs.
+// among them and their lanes); thread 0 writes the outputs. kSplit: table
+// is the [nrows, 64] quads and cells the [C, 8] meta rows (split layout),
+// else table is the [nrows, 128] table and cells is null (inline layout).
+template <bool kSplit>
 __device__ __forceinline__ void walk_ray(
     int i, int h, unsigned mask, const float4* __restrict__ table,
-    const float* __restrict__ geom, const float* __restrict__ orig,
-    const float* __restrict__ dir, const float* __restrict__ t_max,
+    const float2* __restrict__ cells, const float* __restrict__ geom,
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_max,
     const unsigned char* __restrict__ active, float* __restrict__ out_t,
     int* __restrict__ out_tri, float* __restrict__ out_u,
     float* __restrict__ out_v, int* __restrict__ out_steps, int rx, int ry,
@@ -214,39 +375,31 @@ __device__ __forceinline__ void walk_ray(
         dt[a] = __fmul_rn(hh, fabsf(inv[a]));
       }
     }
-    int row = (cell[0] * ry + cell[1]) * rz + cell[2];
-    int offset = 0, count = 0, spill = 0;
+    Fetch<kSplit> f(table, cells, nrows, ncells, h);
+    int offset = 0;   // the cell's records before this step's
     RowRecs cur, nxt = {};
-    load_row(table, row, nrows, h, 8, cur);
+    f.enter((cell[0] * ry + cell[1]) * rz + cell[2], cur);
     while (steps < max_iters) {
       ++steps;
       const Cell nc = dda_step(cell, t_next, step, dt, rx, ry, rz);
-      const bool at_cell = row < ncells;
-      if (at_cell) {   // record 0: (first spill row, count)
-        spill = (int)from_thread(mask, cur.a[0].x, 0);
-        count = (int)from_thread(mask, cur.a[0].y, 0);
-      }
-      const int first = at_cell ? 1 : 0;
-      const int slots = at_cell ? 7 : 8;
-      const int m = min(slots, count - offset);
+      int first, slots;
+      f.open(mask, cur, first, slots);
+      const int m = min(slots, f.count - offset);
       const int offset_next = offset + slots;
-      const bool more = offset_next < count;   // the cell's next spill row
+      const bool more = offset_next < f.count;   // the cell's next row
       const float t_exit = fminf(fminf(t_next[0], t_next[1]), t_next[2]);
       // settled before the test stays settled: the test only lowers best_t
       const bool settled_now =
           (best_tri >= 0 && best_t <= t_exit) || (has_tb && t_exit >= tb);
-      const int next_row = more ? spill + (offset_next - 7) / 8
-                                : nc.id(ry, rz);
-      // prefetch the records the walk reads next if it goes on
-      if (steps < max_iters && (more || !(nc.out || settled_now)))
-        load_row(table, next_row, nrows, h,
-                 more ? min(8, count - offset_next) : 8, nxt);
+      // prefetch what the walk reads next if it goes on
+      f.prefetch(steps < max_iters, more, !(nc.out || settled_now),
+                 offset_next, nc.id(ry, rz), nxt);
 
       // this thread's records; <=: the last minimum
       float rt = kBig, ru = 0.f, rv = 0.f;
       int rtri = -1, rj = -1;
 #pragma unroll
-      for (int k = 0; k < kRecs; ++k) {
+      for (int k = 0; k < Fetch<kSplit>::kHeld; ++k) {
         const int j = k * kRayThreads + h;
         float t, u, v;
         if (j >= first && j < first + m &&
@@ -259,16 +412,7 @@ __device__ __forceinline__ void walk_ray(
           rj = j;
         }
       }
-      // the row's winner over the ray's threads: least t, then highest j
-#pragma unroll
-      for (int off = kRayThreads / 2; off > 0; off >>= 1) {
-        const float ot = __shfl_xor_sync(mask, rt, off, kRayThreads);
-        const int oj = __shfl_xor_sync(mask, rj, off, kRayThreads);
-        if (ot < rt || (ot == rt && oj > rj)) {
-          rt = ot;
-          rj = oj;
-        }
-      }
+      merge_row(mask, rt, rj);
       const bool take = rt < kBig && rt <= best_t && (!has_tb || rt < tb);
       if (take) {
         const int src = rj % kRayThreads;   // the thread that holds it
@@ -279,9 +423,8 @@ __device__ __forceinline__ void walk_ray(
         if (any_hit) break;
       }
       if (more) {
-        row = next_row;
         offset = offset_next;
-        cur = nxt;
+        f.advance(true, cur, nxt);
         continue;
       }
       const bool settled =
@@ -293,9 +436,8 @@ __device__ __forceinline__ void walk_ray(
         cell[a] = nc.c[a];
         t_next[a] = nc.t[a];
       }
-      row = next_row;
       offset = 0;
-      cur = nxt;
+      f.advance(false, cur, nxt);
     }
   }
   if (h != 0) return;
@@ -310,8 +452,10 @@ __device__ __forceinline__ void walk_ray(
 // Persistent: each ray's threads take the next ray from the counter
 // `next_ray` when their walk ends, so no thread waits for the longest walk
 // of its block; the grid is the blocks resident at once.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 grid_dda_kernel(const float4* __restrict__ table,
+                const float2* __restrict__ cells,
                 const float* __restrict__ geom,
                 const float* __restrict__ orig, const float* __restrict__ dir,
                 const float* __restrict__ t_max,
@@ -332,13 +476,15 @@ grid_dda_kernel(const float4* __restrict__ table,
     if (h == 0) i = atomicAdd(next_ray, 1);
     i = from_thread(mask, i, 0);
     if (i >= n) return;   // the ray's threads leave together
-    walk_ray(i, h, mask, table, geom, orig, dir, t_max, active, out_t,
-             out_tri, out_u, out_v, out_steps, rx, ry, rz, nrows, max_iters,
-             any_hit);
+    walk_ray<kSplit>(i, h, mask, table, cells, geom, orig, dir, t_max,
+                     active, out_t, out_tri, out_u, out_v, out_steps, rx, ry,
+                     rz, nrows, max_iters, any_hit);
   }
 }
 
-// The blocks of grid_dda_kernel resident on the current card at once.
+// The blocks of grid_dda_kernel<kSplit> resident on the current card at
+// once.
+template <bool kSplit>
 cudaError_t resident_blocks(int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -346,9 +492,52 @@ cudaError_t resident_blocks(int* blocks) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, grid_dda_kernel, kThreads, 0);
+        &per_sm, grid_dda_kernel<kSplit>, kThreads, 0);
   *blocks = sms * per_sm;
   return err;
+}
+
+template <bool kSplit>
+int launch(const void* table, const void* cells, const void* geom,
+           const void* orig, const void* dir, const void* t_max,
+           const void* active, void* out_t, void* out_tri, void* out_u,
+           void* out_v, void* out_steps, void* next_ray, int n, int rx,
+           int ry, int rz, int nrows, int max_iters, int any_hit,
+           void* stream) {
+  if (n <= 0) return 0;
+  int resident = 0;
+  const cudaError_t err = resident_blocks<kSplit>(&resident);
+  if (err != cudaSuccess) return (int)err;
+  const long long needed =
+      ((long long)n * kRayThreads + kThreads - 1) / kThreads;
+  grid_dda_kernel<kSplit><<<(unsigned)(needed < resident ? needed : resident),
+                            kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const float4*>(table), static_cast<const float2*>(cells),
+      static_cast<const float*>(geom), static_cast<const float*>(orig),
+      static_cast<const float*>(dir), static_cast<const float*>(t_max),
+      static_cast<const unsigned char*>(active), static_cast<float*>(out_t),
+      static_cast<int*>(out_tri), static_cast<float*>(out_u),
+      static_cast<float*>(out_v), static_cast<int*>(out_steps),
+      static_cast<int*>(next_ray), n, rx, ry, rz, nrows, max_iters, any_hit);
+  return (int)cudaGetLastError();
+}
+
+template <bool kSplit>
+int shape(int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, grid_dda_kernel<kSplit>);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, grid_dda_kernel<kSplit>, kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kThreads;
+  out[1] = kRayThreads;
+  out[2] = blocks;
+  out[3] = fa.numRegs;
+  out[4] = (int)fa.sharedSizeBytes;
+  out[5] = (int)fa.localSizeBytes;
+  return 0;
 }
 
 }  // namespace
@@ -366,42 +555,34 @@ extern "C" int grid_dda_launch(const void* table, const void* geom,
                                void* out_v, void* out_steps, void* next_ray,
                                int n, int rx, int ry, int rz, int nrows,
                                int max_iters, int any_hit, void* stream) {
-  if (n <= 0) return 0;
-  int resident = 0;
-  const cudaError_t err = resident_blocks(&resident);
-  if (err != cudaSuccess) return (int)err;
-  const long long needed =
-      ((long long)n * kRayThreads + kThreads - 1) / kThreads;
-  grid_dda_kernel<<<(unsigned)(needed < resident ? needed : resident),
-                    kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float4*>(table), static_cast<const float*>(geom),
-      static_cast<const float*>(orig), static_cast<const float*>(dir),
-      static_cast<const float*>(t_max),
-      static_cast<const unsigned char*>(active), static_cast<float*>(out_t),
-      static_cast<int*>(out_tri), static_cast<float*>(out_u),
-      static_cast<float*>(out_v), static_cast<int*>(out_steps),
-      static_cast<int*>(next_ray), n, rx, ry, rz, nrows, max_iters, any_hit);
-  return (int)cudaGetLastError();
+  return launch<false>(table, nullptr, geom, orig, dir, t_max, active, out_t,
+                       out_tri, out_u, out_v, out_steps, next_ray, n, rx, ry,
+                       rz, nrows, max_iters, any_hit, stream);
+}
+
+// G1's split form. cells: [rx*ry*rz, 8] f32 meta rows (quad start, count);
+// quads: [nquads, 64] f32 quad rows (accel/grid.py split layout); the other
+// arguments and the outputs as grid_dda_launch's; out_steps counts quad
+// rows.
+extern "C" int grid_dda_split_launch(const void* cells, const void* quads,
+                                     const void* geom, const void* orig,
+                                     const void* dir, const void* t_max,
+                                     const void* active, void* out_t,
+                                     void* out_tri, void* out_u, void* out_v,
+                                     void* out_steps, void* next_ray, int n,
+                                     int rx, int ry, int rz, int nquads,
+                                     int max_iters, int any_hit,
+                                     void* stream) {
+  return launch<true>(quads, cells, geom, orig, dir, t_max, active, out_t,
+                      out_tri, out_u, out_v, out_steps, next_ray, n, rx, ry,
+                      rz, nquads, max_iters, any_hit, stream);
 }
 
 // G1's launch shape into out[6]: threads a block, threads a ray, blocks
 // resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // registers a thread, static shared memory and local (spill) bytes a
 // thread. Returns a CUDA error or 0.
-extern "C" int grid_dda_shape(int* out) {
-  cudaFuncAttributes fa;
-  cudaError_t err = cudaFuncGetAttributes(&fa, grid_dda_kernel);
-  if (err != cudaSuccess) return (int)err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks,
-                                                      grid_dda_kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = kThreads;
-  out[1] = kRayThreads;
-  out[2] = blocks;
-  out[3] = fa.numRegs;
-  out[4] = (int)fa.sharedSizeBytes;
-  out[5] = (int)fa.localSizeBytes;
-  return 0;
-}
+extern "C" int grid_dda_shape(int* out) { return shape<false>(out); }
+
+// The same of G1's split form.
+extern "C" int grid_dda_split_shape(int* out) { return shape<true>(out); }

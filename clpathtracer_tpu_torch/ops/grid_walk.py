@@ -1,19 +1,24 @@
-"""3-D DDA through a uniform grid (port of clpathtracer_tpu/ops/grid_walk.py,
-its inline layout).
+"""3-D DDA through a uniform grid (port of clpathtracer_tpu/ops/grid_walk.py).
 
-Per ray: the slab entry into the grid's box, then one step per table row,
-a cell's row (its first 7 triangles) and then its spill rows (8 each);
-when a cell's list is done, the DDA advances to the next cell on the
-axis whose boundary crossing t is least. Moller-Trumbore with the det > 0
-backface cull (ops/traverse_fast.py::_mt_pre). A ray is settled once its
-best hit is at or inside the current cell's exit (every later cell starts
-beyond it); with t_max, once the exit reaches the bound; with any_hit, at
-the first row with an accepted hit below t_max. Ties: the last minimum
-within a row, and a later row's equal t wins over an earlier one's.
+Per ray: the slab entry into the grid's box, then one step per row of the
+cell's list. In the inline layout a step reads a table row: the cell's row
+(its first 7 triangles), then its spill rows (8 each). In the split layout
+(the JAX package's body_split) it reads one quad row of 4 triangles, the
+cell's meta row (quad start, count) giving where the list starts; the
+offset inside the cell advances by 4. When a cell's list is done, the DDA
+advances to the next cell on the axis whose boundary crossing t is least.
+Moller-Trumbore with the det > 0 backface cull
+(ops/traverse_fast.py::_mt_pre). A ray is settled once its best hit is at
+or inside the current cell's exit (every later cell starts beyond it);
+with t_max, once the exit reaches the bound; with any_hit, at the first
+row with an accepted hit below t_max. Ties: the last minimum within a row,
+and a later row's equal t wins over an earlier one's.
 
 On the GPU this is kernel G1 (ops/csrc/grid_dda.cu): 4 threads a ray, a
 row's loads issued together and the next row prefetched, a persistent
-grid that takes rays from a counter (one int32 the wrapper zeroes).
+grid that takes rays from a counter (one int32 the wrapper zeroes); its
+split form reads a cell's meta row once and then one record a thread of
+each quad row.
 The JAX package's walk is XLA, not a Pallas kernel; here it is
 hand-written because the lockstep wavefront as torch ops costs hundreds
 of full-width launches a wave. On the CPU the wrapper runs the plain
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from clpathtracer_tpu_torch.accel.grid import QBLOCK
 from clpathtracer_tpu_torch.core import vecmath as vm
 from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
 
@@ -48,8 +54,8 @@ def _check(grid, orig, dir, t_max, active):
                                or active.dtype != torch.bool):
         raise ValueError(f"traverse_grid: active {tuple(active.shape)} "
                          f"{active.dtype} is not [{n}] bool")
-    devices = {t.device for t in (grid.table, orig, dir, t_max, active)
-               if t is not None}
+    devices = {t.device for t in (grid.table, grid.cells, grid.quads, orig,
+                                  dir, t_max, active) if t is not None}
     if len(devices) != 1:
         raise ValueError(f"traverse_grid: tensors on several devices "
                          f"{devices}")
@@ -68,9 +74,11 @@ def traverse_grid(grid, orig, dir, *, max_iters: int = 16384, t_max=None,
     Returns the record hit [N] bool, t [N] (BIG on a miss), tri [N] i32
     (-1), u, v [N] (0 on a miss), steps [N] i32 (rows read).
 
-    A CPU tensor runs the plain version (traverse_grid_reference); a CUDA
-    tensor launches G1 (ops/csrc/grid_dda.cu) on the current stream or
-    raises. `traverse_grid.launches` counts kernel launches."""
+    The walk is the grid's layout's (grid.layout). A CPU tensor runs the
+    plain version (traverse_grid_reference); a CUDA tensor launches G1
+    (ops/csrc/grid_dda.cu), its inline or its split form, on the current
+    stream or raises. `traverse_grid.launches` counts launches of the
+    inline form, `traverse_grid.split_launches` of the split form."""
     if any_hit and t_max is None:
         raise ValueError("traverse_grid: any_hit needs t_max")
     _check(grid, orig, dir, t_max, active)
@@ -82,7 +90,8 @@ def traverse_grid(grid, orig, dir, *, max_iters: int = 16384, t_max=None,
     if device.type != "cuda":
         raise ValueError(f"traverse_grid: no kernel for device {device}")
     from clpathtracer_tpu_torch.ops._cuda import load_kernels
-    fn = load_kernels().fns["grid_dda_launch"]
+    split = grid.table is None
+    fns = load_kernels().fns
     n = orig.shape[0]
     orig, dir = orig.contiguous(), dir.contiguous()
     geom = torch.cat([grid.lo, grid.hi, grid.h]).to(torch.float32)
@@ -95,23 +104,31 @@ def traverse_grid(grid, orig, dir, *, max_iters: int = 16384, t_max=None,
     act = None if active is None else active.contiguous().to(torch.uint8)
     tm = None if t_max is None else t_max.contiguous()
     rx, ry, rz = grid.res
+    tables = ((grid.cells.data_ptr(), grid.quads.data_ptr()) if split
+              else (grid.table.data_ptr(),))
+    n_rows = (grid.quads if split else grid.table).shape[0]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(grid.table.data_ptr(), geom.data_ptr(), orig.data_ptr(),
-                 dir.data_ptr(), 0 if tm is None else tm.data_ptr(),
-                 0 if act is None else act.data_ptr(), t.data_ptr(),
-                 tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-                 steps.data_ptr(), next_ray.data_ptr(), n, rx, ry, rz,
-                 grid.table.shape[0], max_iters, int(any_hit), stream)
+        err = fns["grid_dda_split_launch" if split else "grid_dda_launch"](
+            *tables, geom.data_ptr(), orig.data_ptr(), dir.data_ptr(),
+            0 if tm is None else tm.data_ptr(),
+            0 if act is None else act.data_ptr(), t.data_ptr(),
+            tri.data_ptr(), u.data_ptr(), v.data_ptr(), steps.data_ptr(),
+            next_ray.data_ptr(), n, rx, ry, rz, n_rows, max_iters,
+            int(any_hit), stream)
     if err != 0:
         raise RuntimeError(f"traverse_grid launch failed: cudaError {err} "
-                           f"(N={n}, res={grid.res})")
-    traverse_grid.launches += 1
+                           f"(N={n}, res={grid.res}, {grid.layout})")
+    if split:
+        traverse_grid.split_launches += 1
+    else:
+        traverse_grid.launches += 1
     return {"hit": tri >= 0, "t": t, "tri": tri, "u": u, "v": v,
             "steps": steps}
 
 
 traverse_grid.launches = 0
+traverse_grid.split_launches = 0
 
 
 def traverse_grid_reference(grid, orig, dir, *, max_iters: int = 16384,
@@ -126,15 +143,23 @@ def traverse_grid_reference(grid, orig, dir, *, max_iters: int = 16384,
     the tested (ray, record) pairs, then of those that pass det > 0, then
     also the u test, then also the v test: the early exits of G1's pair
     test, which set the work these inputs need; then the table bytes G1's
-    loads read: 16 (the meta record) on a cell row and 48 (cols 0-11) for
-    each record of the cell's list the row holds."""
+    loads read: the cell's meta, 16 (its record) on an inline cell row or
+    8 (quad start and count) on a split cell's first quad row, and 48
+    (cols 0-11) for each record of the cell's list the row holds."""
     n = orig.shape[0]
     dev = orig.device
     rx, ry, rz = grid.res
     ncells = rx * ry * rz
-    table = grid.table
-    nrows = table.shape[0]
-    recs = table.reshape(nrows * 8, 16)
+    split = grid.table is None
+    if split:
+        quads = grid.quads.reshape(-1, QBLOCK, 16)
+        nrows = quads.shape[0]
+        width = QBLOCK            # records a step tests
+    else:
+        table = grid.table
+        nrows = table.shape[0]
+        recs = table.reshape(nrows * 8, 16)
+        width = 8
     glo, ghi, gh = grid.lo[None], grid.hi[None], grid.h[None]
 
     # slab entry into the grid's box; a dir == 0 axis gets the origin-in-
@@ -176,35 +201,45 @@ def traverse_grid_reference(grid, orig, dir, *, max_iters: int = 16384,
     best_tri = zi - 1
     best_u = torch.zeros((n,), device=dev)
     best_v = torch.zeros((n,), device=dev)
-    j = torch.arange(8, device=dev)
+    j = torch.arange(width, device=dev)
     res_t = torch.tensor(grid.res, dtype=torch.int32, device=dev)
 
     for _ in range(max_iters):
         if not bool(act.any()):
             break
-        ridx = row.clamp(0, nrows - 1).long()
-        at_cell = row < ncells
-        meta = table[ridx, 0:2]
-        count = torch.where(at_cell, meta[:, 1].to(torch.int32), count)
-        spill = torch.where(at_cell, meta[:, 0].to(torch.int32), spill)
-        # a cell row tests its slots 1..7, a spill row 0..7
-        slots = ridx[:, None] * 8 + torch.where(
-            at_cell[:, None], torch.clamp(j + 1, max=7), j)
-        blk = recs[slots]                                       # [n, 8, 16]
+        if split:
+            # the cell's meta row, then its quad row at offset // 4
+            cid = (cell[:, 0] * ry + cell[:, 1]) * rz + cell[:, 2]
+            meta = grid.cells[cid.clamp(0, ncells - 1).long(), 0:2]
+            count = meta[:, 1].to(torch.int32)
+            qidx = meta[:, 0].to(torch.int32) + offset // QBLOCK
+            blk = quads[qidx.clamp(0, nrows - 1).long()]          # [n, 4, 16]
+            held = ((offset[:, None] + j) < count[:, None]) & act[:, None]
+            fresh, meta_bytes = act & (offset == 0), 8
+        else:
+            ridx = row.clamp(0, nrows - 1).long()
+            at_cell = row < ncells
+            meta = table[ridx, 0:2]
+            count = torch.where(at_cell, meta[:, 1].to(torch.int32), count)
+            spill = torch.where(at_cell, meta[:, 0].to(torch.int32), spill)
+            # a cell row tests its slots 1..7, a spill row 0..7
+            slots = ridx[:, None] * 8 + torch.where(
+                at_cell[:, None], torch.clamp(j + 1, max=7), j)
+            blk = recs[slots]                                   # [n, 8, 16]
+            held = (((offset[:, None] + j) < count[:, None]) & act[:, None]
+                    & (~at_cell[:, None] | (j < 7)))
+            fresh, meta_bytes = act & at_cell, 16
         tid = blk[..., 9].to(torch.int32)
-        valid = (((offset[:, None] + j) < count[:, None]) & (tid >= 0)
-                 & act[:, None] & (~at_cell[:, None] | (j < 7)))
+        valid = held & (tid >= 0)
         ok, t, u, v = _mt_pre(blk[..., 0:3], blk[..., 3:6], blk[..., 6:9],
                               orig[:, None, :], dir[:, None, :])
         if tally is not None:
             tally[:4] += _mt_exits(blk, orig, dir, valid)
-            held = (((offset[:, None] + j) < count[:, None]) & act[:, None]
-                    & (~at_cell[:, None] | (j < 7)))
-            tally[4] += 16 * (act & at_cell).sum() + 48 * held.sum()
+            tally[4] += meta_bytes * fresh.sum() + 48 * held.sum()
         t_m = torch.where(ok & valid, t, BIG)
         # the row's last minimum, taken on <= over the rows before it
         bt = t_m.amin(dim=1)
-        k = (7 - torch.argmin(t_m.flip(1), dim=1))[:, None]
+        k = (width - 1 - torch.argmin(t_m.flip(1), dim=1))[:, None]
         take = (bt < BIG) & (bt <= best_t)
         if t_max is not None:
             take = take & (bt < t_max)
@@ -213,7 +248,8 @@ def traverse_grid_reference(grid, orig, dir, *, max_iters: int = 16384,
         best_u = torch.where(take, u.gather(1, k)[:, 0], best_u)
         best_v = torch.where(take, v.gather(1, k)[:, 0], best_v)
 
-        offset_next = offset + torch.where(at_cell, 7, 8).to(torch.int32)
+        offset_next = offset + (QBLOCK if split else torch.where(
+            at_cell, 7, 8).to(torch.int32))
         cell_done = offset_next >= count
         t_exit = t_next.amin(dim=1)
         settled = (best_tri >= 0) & (best_t <= t_exit)
@@ -229,9 +265,10 @@ def traverse_grid_reference(grid, orig, dir, *, max_iters: int = 16384,
         adv = act & cell_done
         cell = torch.where(adv[:, None], c_new, cell)
         t_next = torch.where(adv[:, None], tn_new, t_next)
-        cid_new = (c_new[:, 0] * ry + c_new[:, 1]) * rz + c_new[:, 2]
-        row_stay = spill + (offset_next - 7) // 8
-        row = torch.where(adv, cid_new, torch.where(act, row_stay, row))
+        if not split:
+            cid_new = (c_new[:, 0] * ry + c_new[:, 1]) * rz + c_new[:, 2]
+            row_stay = spill + (offset_next - 7) // 8
+            row = torch.where(adv, cid_new, torch.where(act, row_stay, row))
         offset = torch.where(act & ~cell_done, offset_next, 0)
         steps = steps + act.to(torch.int32)
         act = act & ~(cell_done & (settled | out))

@@ -145,6 +145,28 @@ def so_affine_tables(tris16: torch.Tensor) -> torch.Tensor:
     return torch.where(tid[None] < 0.0, 0.0, tabs)
 
 
+def so_rows(tris16: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
+    """The SO records [S, 16] for one shared ray origin [3], computed per
+    frame from the MT records tris16 [S, 16] (clpathtracer_tpu/ops/
+    packet.py::so_rows): the record layout of so_affine_tables, built
+    from a = v0 - o first, so the crosses are Moller-Trumbore's own
+    intermediates (w1 = a x e1, w2 = a x e2, n = e1 x e2; ab = w1,
+    bc = w2 - w1 + n, ca = -w2, d0 = a.n) and keep its conditioning.
+    Sentinel rows (tri_id < 0) are all zero. The route of a tree without
+    SO tables; so_combine of the tables is the route of a tree with them."""
+    o = origin.to(torch.float32).reshape(1, 3)
+    v0, e1, e2, tid = (tris16[:, 0:3], tris16[:, 3:6], tris16[:, 6:9],
+                       tris16[:, 9:10])
+    a = v0 - o
+    w1 = vm.cross(a, e1)
+    w2 = vm.cross(a, e2)
+    nrm = vm.cross(e1, e2)
+    out = torch.cat([w1, w2 - w1 + nrm, -w2, vm.dot(a, nrm)[:, None], tid,
+                     torch.zeros((tris16.shape[0], 5), dtype=tris16.dtype,
+                                 device=tris16.device)], dim=1)
+    return torch.where(tid < 0.0, 0.0, out)
+
+
 def so_combine(so_base: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
     """The per-frame SO records [S, 16] for one shared ray origin [3]:
     B0 + ox*B1 + oy*B2 + oz*B3, summed left to right (the combine that
@@ -1650,26 +1672,30 @@ def stream_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
     order.
 
     The SO form runs when shared_origin (the caller's promise that every
-    origin equals orig[0]) and the tree has SO tables; otherwise the MT
-    form. Strips mode (strips=True) runs on fully active unjittered
-    (grid_dirs) shared-origin pixel frames with window tables, with
-    512-lane gates when tile >= 1024; else the AABB cull (chunk_cull), with
-    the corner frustum (frustum=True) on such frames."""
+    origin equals orig[0]), its records so_combine of the tree's SO tables
+    or, on a tree without them, so_rows of its records (the JAX package's
+    per-frame pass); otherwise the MT form. Strips mode (strips=True) runs
+    on fully active unjittered (grid_dirs) shared-origin pixel frames with
+    window tables, with 512-lane gates when tile >= 1024; else the AABB
+    cull (chunk_cull), with the corner frustum (frustum=True) on such
+    frames."""
     n = orig.shape[0]
     blocks = _pixel_blocks(image_shape, tile)
     blocked = blocks is not None
     h, w, th, tw = blocks if blocked else (None, None, *tile_shape(tile))
     cbnd = tree.chunk_bnd if chunk_cull else None
-    so = shared_origin and tree.so_base is not None
     act = (torch.ones((n,), dtype=torch.float32, device=orig.device)
            if active is None else active.to(torch.float32))
-    if so:
+    if not shared_origin:
+        rows = pad_records(tree.tris)
+    elif tree.so_base is not None:
         rows = so_combine(tree.so_base, orig[0].to(torch.float32))
     else:
-        rows = pad_records(tree.tris)
+        rows = pad_records(so_rows(tree.tris, orig[0]), pad_value=0.0)
     nodes_i, nodes_f = stream_nodes(tree)
-    kw = dict(tile=tile, so=so)
-    if (so and blocked and grid_dirs and active is None and cbnd is not None
+    kw = dict(tile=tile, so=shared_origin)
+    if (shared_origin and blocked and grid_dirs and active is None
+            and cbnd is not None
             and th % 8 == 0 and tw % 16 == 0 and tile % 128 == 0
             and strips):
         bh, bw = ((16, 32) if tile >= 1024 and th % 16 == 0 and tw % 32 == 0
@@ -1690,7 +1716,7 @@ def stream_kernel_args(tree, orig, dir, image_shape=None, tile: int = TILE,
             orig_b, dir_b, layout = orig, dir.to(torch.float32), None
         if cbnd is not None:
             kw["cbnd"] = cbnd
-            if so and blocked and grid_dirs and frustum:
+            if shared_origin and blocked and grid_dirs and frustum:
                 kw["frustum"] = _frustum_rows(dir_b, orig[0], tile, th, tw)
     args = (nodes_i, nodes_f, rows, orig_b.T.to(torch.float32).contiguous(),
             dir_b.T.contiguous(), act.contiguous())
@@ -1728,8 +1754,9 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
     the MT records and the active mask and ignore precision (they compute
     in f32), shared_origin, grid_dirs, strips, frustum and chunk_cull, as
     in the JAX package. "queue" runs K5 with the SO form
-    when shared_origin and the tree has SO tables, the AABB cull when it
-    has window tables (and chunk_cull), never strips or the frustum.
+    when shared_origin (so_combine of the tree's SO tables, or the
+    per-frame so_rows on a tree without them, as K3), the AABB cull when
+    it has window tables (and chunk_cull), never strips or the frustum.
     "legacy" runs K6a or K6b by the JAX package's byte rule (packet_mode)
     and "wide" K9 (the JAX package's CLPT_WIDE=1); as in the JAX package
     they take the MT records of every lane and ignore active,

@@ -37,7 +37,12 @@ Pipeline:
     ops/csrc/plist_subgate.cu: K11); their plain torch versions
     (plist_*_reference) on the CPU.
   * resolve: one row gather of the winner's fused record, an exact
-    Moller-Trumbore re-resolve of t/u/v, and the shade attributes.
+    Moller-Trumbore re-resolve of t/u/v, and the shade attributes; without
+    fused rows (resolve_rows None, the JAX package's default) the winner's
+    geometry record alone, the shade attributes left to the integrator.
+    The wave resolves whole: the JAX package's chunked resolve
+    (CLPT_RESOLVE_CHUNK) bounds TPU memory and is not ported (ROADMAP.md
+    queue 1 item 7).
 
 Lists are flat [G, L] tensors (key f32, ids, bits and payloads i32) and
 slots are int32 rows of the [S, 16] record array. The JAX package's
@@ -1044,8 +1049,9 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
         > 0 raises ValueError (the JAX package runs single-phase
         quietly).
 
-    Returns the hit record: hit, t, tri, u, v, snormal, salbedo, semission
-    ([H*W] / [H*W, 3]) and tile_stats [G, 5]."""
+    Returns the hit record: hit, t, tri, u, v ([H*W]), with fused resolve
+    rows attached also snormal, salbedo, semission ([H*W, 3]), and
+    tile_stats [G, 5]."""
     h, w = image_shape
     n = orig.shape[0]
     if n != h * w or h % GH or w % GW:
@@ -1255,32 +1261,39 @@ def _resolve_winners(mwin: MortonWindows, best_slot, orig, dir,
                      tile_stats):
     """Re-resolve the kernel's winner slots (caller's ray order) to the hit
     record: the winner's exact f32 t/u/v from one Moller-Trumbore per ray
-    (the kernel carries only the slot) and its shade attributes, all from
-    one fused resolve-row gather."""
+    (the kernel carries only the slot), with fused resolve rows attached
+    also its shade attributes, from one resolve-row gather
+    (_resolve_winners_body)."""
     out = _resolve_winners_body(mwin, best_slot, orig, dir)
     out["tile_stats"] = tile_stats
     return out
 
 
 def _resolve_winners_body(mwin: MortonWindows, best_slot, orig, dir):
-    if mwin.resolve_rows is None:
-        raise NotImplementedError(
-            "winner resolution without fused resolve rows (attach_resolve) "
-            "is not ported yet: ROADMAP queue 1 item 3")
+    """One Moller-Trumbore per ray on the winner's record: hit, t, tri, u,
+    v. With fused resolve rows (attach_resolve) the record and the
+    triangle's shade attributes come from one row, and snormal, salbedo
+    and semission are added (render/shading.py::resolve_tri_hits' baked
+    arithmetic); without them the record comes from mwin.tris and the
+    integrator's _surface gathers the shade attributes itself, as the JAX
+    package's _resolve_winners_body does."""
     hit = best_slot >= 0
-    slot = best_slot.clamp(0, mwin.resolve_rows.shape[0] - 1).long()
-    rows = mwin.resolve_rows[slot]                               # [n, 32]
+    fused = mwin.resolve_rows is not None
+    recs = mwin.resolve_rows if fused else mwin.tris
+    slot = best_slot.clamp(0, recs.shape[0] - 1).long()
+    rows = recs[slot]                                  # [n, 32] or [n, 16]
     _, t, u, v = _mt_pre(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], orig, dir)
-    w = torch.stack([1.0 - u - v, u, v], dim=-1)
-    nrm = (w[:, 0:1] * rows[:, 10:13] + w[:, 1:2] * rows[:, 13:16]
-           + w[:, 2:3] * rows[:, 16:19])
-    return {
+    out = {
         "hit": hit,
         "t": torch.where(hit, t, BIG),
         "tri": torch.where(hit, mwin.tri_id[slot], -1),
         "u": torch.where(hit, u, 0.0),
         "v": torch.where(hit, v, 0.0),
-        "snormal": vm.normalize(nrm, eps=1e-30),
-        "salbedo": rows[:, 19:22],
-        "semission": rows[:, 22:25],
     }
+    if fused:
+        w = torch.stack([1.0 - u - v, u, v], dim=-1)
+        nrm = (w[:, 0:1] * rows[:, 10:13] + w[:, 1:2] * rows[:, 13:16]
+               + w[:, 2:3] * rows[:, 16:19])
+        out.update(snormal=vm.normalize(nrm, eps=1e-30),
+                   salbedo=rows[:, 19:22], semission=rows[:, 22:25])
+    return out

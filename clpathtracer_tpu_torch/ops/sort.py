@@ -45,9 +45,14 @@ def ray_sort_keys(orig, dir, alive=None, bits: int = 7) -> torch.Tensor:
 def sort_rays(orig, dir, alive=None, bits: int = 7):
     """Returns (perm, inv_perm), int64: x[perm] reorders the wave
     coherently, results[inv_perm] restores wave order. The sort is
-    stable, so rays with equal keys keep their wave order."""
+    stable, so rays with equal keys keep their wave order.
+    `sort_rays.calls` counts the calls."""
+    sort_rays.calls += 1
     keys = ray_sort_keys(orig, dir, alive, bits)
     perm = torch.argsort(keys, stable=True)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.shape[0], device=perm.device)
     return perm, inv
+
+
+sort_rays.calls = 0

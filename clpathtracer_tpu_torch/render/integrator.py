@@ -15,12 +15,13 @@ Three shading modes:
   (opts.nee) each vertex also samples an emitter (_sample_light) and casts
   a shadow ray (_occluded); emitters then count on the primary hit only.
 
-The structures are explicit arguments: `mwin` (MortonWindows with
-shared-origin tables and fused resolve rows), `tree` (accel/sah.py::
-FlatKdTree), `grid` (accel/grid.py::UniformGrid, the counterpart of the
-JAX package's tree.grid) and `shadow` (the walk-tuned second tree of
-accel/sah.py::build_shadow_tree, the counterpart of tree.shadow).
-intersect_scene routes each wave as the JAX package does
+The structures are explicit arguments: `mwin` (MortonWindows, with
+shared-origin tables and, optionally, fused resolve rows: without them the
+winner's shade attributes come from resolve_tri_hits in _surface), `tree`
+(accel/sah.py::FlatKdTree), `grid` (accel/grid.py::UniformGrid, the
+counterpart of the JAX package's tree.grid) and `shadow` (the walk-tuned
+second tree of accel/sah.py::build_shadow_tree, the counterpart of
+tree.shadow). intersect_scene routes each wave as the JAX package does
 (render/integrator.py:144-362):
 
 * coherent waves (the frame's primaries): the windows' shared-origin
@@ -33,7 +34,11 @@ intersect_scene routes each wave as the JAX package does
 * scattered waves (bounces): the grid DDA (kernel G1) with a grid and
   opts.bounce_grid; else W1 on the shadow tree with opts.bounce_walk; else
   Morton-sorted 512-ray bundles on the windows (K1'); else on the tree K3
-  sorted (intersector="packet") or W1;
+  sorted (intersector="packet") or W1. opts.sort_bounces=False (the JAX
+  package's unsorted waves): with intersector="packet" on a tri_block 4
+  tree K3 takes the wave unsorted first, in pixel-blocked tiles when it
+  is the frame; the windows' bundles are skipped (the tree's branch
+  follows; windows alone raise ValueError);
 * a tree of another tri_block takes the walk in its ops/traverse.py::
   traverse form, W1 with the tree's block size;
 * a parallel/treelet.py::ShardedTree takes intersect_ring for every wave
@@ -144,6 +149,12 @@ class RenderOptions:
     plist_kcap: int = 0        # windows route with a grid, "super" schedule:
     #   > 0 runs the primary gates' two-phase engine, K1 capped at kcap
     #   entries a gate, then G1 (the JAX package's CLPT_PLIST_KCAP)
+    sort_bounces: bool = True  # scattered waves: Morton-sort into coherent
+    #   bundles or tiles (K1', sorted K3). False: with intersector="packet"
+    #   on a tri_block 4 tree, K3 takes them unsorted (pixel-blocked tiles
+    #   when the wave is the frame) before the grid and shadow-tree
+    #   branches; the windows' bundles are skipped (windows alone raise
+    #   ValueError); NEE's shadow waves ignore it, as in the JAX package
 
 
 def _whole_gates(opts: RenderOptions) -> bool:
@@ -218,36 +229,53 @@ def _walk(tree, orig, dir, opts: RenderOptions, active=None):
                     active=active)
 
 
+def _record(rec, inv=None):
+    """The hit record's keys of a route's output (the shade attributes
+    where the route carries them), put back in wave order by inv."""
+    return {k: rec[k] if inv is None else rec[k][inv]
+            for k in _REC_KEYS if k in rec}
+
+
 def _intersect_tris(scene, mwin, orig, dir, opts, coherent, active,
                     jitter_px, tree, grid, shadow):
-    keys = _REC_KEYS[:5]
+    n = orig.shape[0]
     if coherent and mwin is not None and _whole_gates(opts):
-        rec = traverse_plist(mwin, orig, dir, (opts.height, opts.width),
-                             dilate_px=jitter_px,
-                             supers=opts.plist_schedule != "window",
-                             gathered=opts.plist_schedule == "gathered",
-                             kcap=opts.plist_kcap, grid=grid)
-        return {k: rec[k] for k in _REC_KEYS}
+        return _record(traverse_plist(
+            mwin, orig, dir, (opts.height, opts.width), dilate_px=jitter_px,
+            supers=opts.plist_schedule != "window",
+            gathered=opts.plist_schedule == "gathered",
+            kcap=opts.plist_kcap, grid=grid))
     if isinstance(tree, ShardedTree):
-        rec = intersect_ring(tree, orig, dir, active=active,
-                             max_iters=MAX_ITERS)
-        return {k: rec[k] for k in keys}
+        return _record(intersect_ring(tree, orig, dir, active=active,
+                                      max_iters=MAX_ITERS))
+    packet = (opts.intersector == "packet" and tree is not None
+              and tree.tri_block == 4 and n % opts.packet_tile == 0)
     if not coherent:
+        if packet and not opts.sort_bounces:
+            # unsorted: pixel-blocked tiles when the wave is the frame
+            frame = n == opts.width * opts.height
+            return _record(traverse_packet(
+                tree, orig, dir, (opts.height, opts.width) if frame else None,
+                tile=opts.packet_tile, active=active,
+                precision=opts.precision))
         if grid is not None and opts.bounce_grid:
-            rec = traverse_grid(grid, orig, dir, active=active,
-                                max_iters=MAX_ITERS)
-            return {k: rec[k] for k in keys}
+            return _record(traverse_grid(grid, orig, dir, active=active,
+                                         max_iters=MAX_ITERS))
         if shadow is not None and opts.bounce_walk:
-            rec = _walk(shadow, orig, dir, opts, active)
-            return {k: rec[k] for k in keys}
-        if mwin is not None:
+            return _record(_walk(shadow, orig, dir, opts, active))
+        if mwin is not None and opts.sort_bounces:
             inv, orig, dir, active = sort_wave(orig, dir, active)
-            rec = traverse_plist_bundle(mwin, orig, dir, active=active)
-            return {k: rec[k][inv] for k in _REC_KEYS}
+            return _record(traverse_plist_bundle(mwin, orig, dir,
+                                                 active=active), inv)
+        if mwin is not None and tree is None:
+            raise ValueError(
+                "sort_bounces=False: the windows carry scattered waves in "
+                "sorted bundles only (the JAX package has no unsorted "
+                "bundle route); pass the scene's kd-tree as tree=, or a "
+                "grid or shadow tree for the bounce waves")
     if tree is None:
         return flat_scan(scene, orig, dir)
-    if (opts.intersector == "packet" and tree.tri_block == 4
-            and orig.shape[0] % opts.packet_tile == 0):
+    if packet:
         if coherent:
             rec = traverse_packet(tree, orig, dir, (opts.height, opts.width),
                                   tile=opts.packet_tile, shared_origin=True,
@@ -255,13 +283,12 @@ def _intersect_tris(scene, mwin, orig, dir, opts, coherent, active,
                                   strips=opts.packet_strips,
                                   frustum=opts.packet_frustum,
                                   precision=opts.precision)
-            return {k: rec[k] for k in keys}
+            return _record(rec)
         inv, orig, dir, active = sort_wave(orig, dir, active)
-        rec = traverse_packet(tree, orig, dir, tile=opts.packet_tile,
-                              active=active, precision=opts.precision)
-        return {k: rec[k][inv] for k in keys}
-    rec = _walk(tree, orig, dir, opts, active)
-    return {k: rec[k] for k in keys}
+        return _record(traverse_packet(tree, orig, dir,
+                                       tile=opts.packet_tile, active=active,
+                                       precision=opts.precision), inv)
+    return _record(_walk(tree, orig, dir, opts, active))
 
 
 def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
@@ -270,8 +297,8 @@ def intersect_scene(scene, mwin, orig, dir, opts: RenderOptions,
                     shadow=None):
     """Nearest hit. Returns hit [N], t [N], tri [N], u/v [N], with spheres
     in the scene sphere [N] (-1 where the nearest hit is not a sphere),
-    and on the windows route's kernels the fused shade attributes
-    snormal/salbedo/semission [N, 3].
+    and on the windows route's kernels, when the windows carry fused
+    resolve rows, the shade attributes snormal/salbedo/semission [N, 3].
 
     coherent: the wave is the frame's shared-origin pixel-grid primaries
     (jittered by up to jitter_px pixels); otherwise it is scattered, and
@@ -493,7 +520,9 @@ def _occluded(scene, orig, dir, dist, opts: RenderOptions, active=None, *,
     flat scan W2 with no structure) and its t below the bound. Spheres are
     ORed in on the walks' routes (intersect_scene carries them on the
     last). The sorted-bundle route behind CLPT_SHADOW_BUNDLE is a measured
-    negative and is not ported."""
+    negative and is not ported. opts.sort_bounces does not apply to the
+    shadow wave (the JAX package reads it here only behind that switch),
+    so the windows' bundles stay sorted."""
     t_max = dist - SHADOW_EPS
     if isinstance(tree, ShardedTree):
         rec = intersect_ring(tree, orig, dir, active=active,
@@ -510,8 +539,9 @@ def _occluded(scene, orig, dir, dist, opts: RenderOptions, active=None, *,
                             dir, max_iters=MAX_ITERS, t_max=t_max,
                             active=active, any_hit=True)["hit"]
     else:
-        rec = intersect_scene(scene, mwin, orig, dir, opts, coherent=False,
-                              active=active, tree=tree)
+        rec = intersect_scene(scene, mwin, orig, dir,
+                              dataclasses.replace(opts, sort_bounces=True),
+                              coherent=False, active=active, tree=tree)
         return rec["hit"] & (rec["t"] < t_max)
     if scene.num_spheres:
         occ = occ | (nearest_sphere(scene, orig, dir)[0] < t_max)
@@ -739,18 +769,18 @@ def render_image(scene, camera, opts: RenderOptions, mwin=None, *,
                  tree=None, grid=None, shadow=None, lights=None,
                  generator: torch.Generator = None, jitter=None, bounce=None,
                  light=None):
-    """Render an [H, W, 3] image. Each structure is optional (none: the
-    flat scan, W2). mwin: the scene's MortonWindows with shared-origin
-    tables and fused resolve rows attached (ops/plist.py::
+    """Render an [H, W, 3] image. Each structure is optional (none: the flat
+    scan, W2). mwin: the scene's MortonWindows with shared-origin tables
+    and, optionally, fused resolve rows attached (ops/plist.py::
     build_morton_windows, attach_so, attach_resolve); tree: its kd-tree
-    (accel/sah.py::build_kd_tree; with SO tables, attach_so_tables, for
-    intersector="packet"), the route of frames that are not whole gates
-    and, without windows, of every wave; or a parallel/treelet.py::
-    ShardedTree, whose ring (intersect_ring, W1 on each block) then
-    carries every wave the windows do not, shadow rays included; grid: a
-    uniform grid of the same
-    triangles (accel/grid.py::build_grid), the counterpart of the JAX
-    package's accel/sah.py::attach_grid, for NEE, the bounce waves
+    (accel/sah.py::build_kd_tree; for intersector="packet" with SO tables,
+    attach_so_tables, or without them the per-frame so_rows), the route of
+    frames that are not whole gates and, without windows, of every wave;
+    or a parallel/treelet.py::ShardedTree, whose ring (intersect_ring, W1
+    on each block) then carries every wave the windows do not, shadow rays
+    included; grid: a uniform grid of the same triangles
+    (accel/grid.py::build_grid), the counterpart of the JAX package's
+    accel/sah.py::attach_grid, for NEE, the bounce waves
     (opts.bounce_grid) and the two-phase primaries (opts.plist_kcap);
     shadow: the walk-tuned tree (accel/sah.py::build_shadow_tree), the
     counterpart of attach_shadow_tree, for NEE without a grid and the

@@ -75,8 +75,21 @@ def test_cornell_box_matches_jax():
 
 
 def test_split_layout_raises(soup):
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        tgrid.build_grid(soup["tv"], layout="split", device=CPU)
+    """The split layout (meta rows and quad rows) is built bit for bit as
+    the JAX package builds it, with the inline layout's cells and entries;
+    an unknown layout raises."""
+    a = jgrid.build_grid(soup["tv"], layout="split")
+    b = tgrid.build_grid(soup["tv"], layout="split", device=CPU)
+    assert b.layout == "split" and b.table is None and b.res == a.res
+    for k in ("cells", "quads", "lo", "hi", "h"):
+        np.testing.assert_array_equal(getattr(b, k).numpy(),
+                                      np.asarray(getattr(a, k)), k)
+    assert b.stats() == a.stats()
+    inline = soup["tg"].stats()
+    assert (b.stats()["cells"], b.stats()["entries"]) == (
+        inline["cells"], inline["entries"])
+    with pytest.raises(ValueError, match="layout"):
+        tgrid.build_grid(soup["tv"], layout="packed", device=CPU)
 
 
 def _both(grid_pair, o, d, compact=True, **kw):

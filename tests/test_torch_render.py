@@ -145,13 +145,14 @@ def test_outside_the_slice_raises(port_scene, case):
 def test_traverse_plist_without_tables_raises(port_scene):
     """Without shared-origin tables the gates run K1' on the raw records
     (the same image up to edge flips and tie winners); without fused
-    resolve rows the render raises."""
+    resolve rows the winners resolve from the records and _surface
+    gathers their shading: the frame equals the fused frame exactly."""
     scene, mwin = port_scene
     cam = Camera.create(POS, FWD, device=CPU)
     opts = RenderOptions(width=64, height=64)
     so = render_image(scene, cam, opts, mwin).numpy()
     mt = render_image(scene, cam, opts, mwin.replace(so_base=None)).numpy()
     assert (np.abs(mt - so).max(axis=-1) > 1e-5).mean() < 1.5e-2
-    with pytest.raises(NotImplementedError):
-        render_image(scene, cam, RenderOptions(width=64, height=64),
-                     mwin.replace(resolve_rows=None))
+    unfused = render_image(scene, cam, RenderOptions(width=64, height=64),
+                           mwin.replace(resolve_rows=None)).numpy()
+    np.testing.assert_array_equal(unfused, so)
