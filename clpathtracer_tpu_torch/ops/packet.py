@@ -51,6 +51,7 @@ import torch
 
 from clpathtracer_tpu_torch.accel.sah import CHUNK_ROWS
 from clpathtracer_tpu_torch.core import vecmath as vm
+from clpathtracer_tpu_torch.utils.profiling import span
 
 BIG = 3.4e38        # "no hit" distance (f32-representable)
 INV_BIG = 1e30      # clamp for 1/d of a zero direction component
@@ -1808,9 +1809,10 @@ def traverse_packet(tree, orig, dir, image_shape=None, tile: int = TILE,
         # frustum; the SO form only in f32
         strips = frustum = False
         shared_origin = shared_origin and precision == "f32"
-    args, kw, layout = stream_kernel_args(
-        tree, orig, dir, image_shape, tile, active, shared_origin, grid_dirs,
-        strips, frustum, chunk_cull)
+    with span("prepass"):
+        args, kw, layout = stream_kernel_args(
+            tree, orig, dir, image_shape, tile, active, shared_origin,
+            grid_dirs, strips, frustum, chunk_cull)
     if mode == "queue":
         _, best_slot, tile_stats = packet_queue(*args, **kw)
     else:

@@ -69,6 +69,7 @@ from clpathtracer_tpu_torch.ops.packet import (
     BIG, INV_BIG, _blockify, _blockify_strips, _frustum_rows, _unblockify,
     _unblockify_strips, mt_pairs, so_affine_tables, so_combine, so_pairs)
 from clpathtracer_tpu_torch.ops.traverse_fast import _mt_pre
+from clpathtracer_tpu_torch.utils.profiling import span
 
 GATE = 512        # rays per gate: a GH x GW pixel block
 GH = 16
@@ -1072,39 +1073,47 @@ def traverse_plist(mwin: MortonWindows, orig, dir, image_shape,
                          "form")
     o = orig[0]
     wr = mwin.win_rows
-    dir_b = _blockify(dir, h, w, GH, GW).to(torch.float32)
-    dir_t = dir_b.T.contiguous()
-    t0 = torch.full((n,), BIG, device=dir.device)
-    rows = so_combine(mwin.so_base, o) if so else mwin.tris
-    orig_t = (None if so else
-              _blockify(orig, h, w, GH, GW).to(torch.float32).T.contiguous())
-    key_w = _win_keys(mwin.win_bnd, dir_b.reshape(-1, GATE, 3), o, GH, GW,
-                      dilate_px)
+    with span("prepass"):
+        dir_b = _blockify(dir, h, w, GH, GW).to(torch.float32)
+        dir_t = dir_b.T.contiguous()
+        t0 = torch.full((n,), BIG, device=dir.device)
+        rows = so_combine(mwin.so_base, o) if so else mwin.tris
+        orig_t = (None if so else _blockify(orig, h, w, GH, GW)
+                  .to(torch.float32).T.contiguous())
+        key_w = _win_keys(mwin.win_bnd, dir_b.reshape(-1, GATE, 3), o, GH,
+                          GW, dilate_px)
+        if gathered:
+            kmax, cwin = gathered_sizes(wr, kmax, cwin)
+            key, wid = _sort_windows(key_w)
+            fits = not bool(_overflows(key, kmax))
+            if fits:
+                table, ids, ten = _gather_table(key, wid, rows, wr, kmax)
+            elif whole:
+                lists = _super_pack(key_w)
+        elif kcap > 0 or (supers and whole):
+            lists = _super_pack(key_w)
+        else:
+            key, wid = _sort_windows(key_w)
     if gathered:
-        kmax, cwin = gathered_sizes(wr, kmax, cwin)
-        key, wid = _sort_windows(key_w)
-        if not bool(_overflows(key, kmax)):
-            table, ids, ten = _gather_table(key, wid, rows, wr, kmax)
+        if fits:
             out = plist_gathered(ten, ids, table, dir_t, t0, win_rows=wr,
                                  cwin=cwin)
         elif whole:
-            out = plist_super(*_super_pack(key_w), rows, dir_t, t0,
-                              win_rows=wr)
+            out = plist_super(*lists, rows, dir_t, t0, win_rows=wr)
         else:
             out = plist_window(key, wid, rows, dir_t, t0, win_rows=wr)
     elif kcap > 0:
-        out = _plist_two_phase(mwin, grid, _super_pack(key_w), rows, o,
-                               dir_b, dir_t, orig_t, t0, kcap)
+        out = _plist_two_phase(mwin, grid, lists, rows, o, dir_b, dir_t,
+                               orig_t, t0, kcap)
     elif supers and whole:
         if so:
-            out = plist_super(*_super_pack(key_w), rows, dir_t, t0,
-                              win_rows=wr)
+            out = plist_super(*lists, rows, dir_t, t0, win_rows=wr)
         else:
-            out = plist_super_mt(*_super_pack(key_w), rows, orig_t, dir_t,
-                                 t0, win_rows=wr)
+            out = plist_super_mt(*lists, rows, orig_t, dir_t, t0,
+                                 win_rows=wr)
     else:
-        out = plist_window(*_sort_windows(key_w), rows, dir_t, t0,
-                           win_rows=wr, orig_t=orig_t)
+        out = plist_window(key, wid, rows, dir_t, t0, win_rows=wr,
+                           orig_t=orig_t)
     _, best_slot, tile_stats = out
     best_slot = _unblockify(best_slot, h, w, GH, GW)
     return _resolve_winners(mwin, best_slot, orig, dir, tile_stats)
@@ -1195,16 +1204,19 @@ def traverse_plist4(mwin: MortonWindows, orig, dir, image_shape):
             f"traverse_plist4 needs windows and an {h}x{w} frame of {n} "
             f"rays that divides into {GH}x{GW} gates")
     o = orig[0]
-    dir_b = _blockify_strips(dir, h, w, GH, GW, SBH, SBW).to(torch.float32)
-    key, pay = gate_lists4(mwin.win_bnd, dir_b, o)
-    if mwin.so_base is not None:
-        out = plist_subgate(key, pay, so_combine(mwin.so_base, o),
-                            dir_b.T.contiguous(), win_rows=mwin.win_rows)
-    else:
-        orig_b = _blockify_strips(orig, h, w, GH, GW, SBH, SBW)
-        out = plist_subgate(key, pay, mwin.tris, dir_b.T.contiguous(),
-                            win_rows=mwin.win_rows,
-                            orig_t=orig_b.to(torch.float32).T.contiguous())
+    with span("prepass"):
+        dir_b = _blockify_strips(dir, h, w, GH, GW, SBH, SBW).to(
+            torch.float32)
+        key, pay = gate_lists4(mwin.win_bnd, dir_b, o)
+        dir_t = dir_b.T.contiguous()
+        if mwin.so_base is not None:
+            rows, orig_t = so_combine(mwin.so_base, o), None
+        else:
+            rows = mwin.tris
+            orig_t = _blockify_strips(orig, h, w, GH, GW, SBH, SBW).to(
+                torch.float32).T.contiguous()
+    out = plist_subgate(key, pay, rows, dir_t, win_rows=mwin.win_rows,
+                        orig_t=orig_t)
     _, best_slot, tile_stats = out
     best_slot = _unblockify_strips(best_slot, h, w, GH, GW, SBH, SBW)
     return _resolve_winners(mwin, best_slot, orig, dir, tile_stats)
@@ -1244,17 +1256,19 @@ def bundle_kernel_args(mwin: MortonWindows, orig, dir, active=None,
         raise ValueError(f"traverse_plist_bundle: {n} rays are not whole "
                          f"{GATE}-ray bundles, or the windows are not whole "
                          "supers")
-    dirm = (torch.where(active[:, None], dir, 0.0) if active is not None
-            else dir).to(torch.float32)
-    orig = orig.to(torch.float32)
-    key, sid, bits = _bundle_lists(mwin.win_bnd, orig.reshape(-1, GATE, 3),
-                                   dirm.reshape(-1, GATE, 3))
-    t0 = (torch.full((n,), BIG, device=orig.device) if t_max is None
-          else t_max.to(torch.float32))
-    if active is not None:
-        t0 = torch.where(active, t0, 0.0)
-    return (key, sid, bits, mwin.tris, orig.T.contiguous(),
-            dirm.T.contiguous(), t0.contiguous())
+    with span("prepass"):
+        dirm = (torch.where(active[:, None], dir, 0.0) if active is not None
+                else dir).to(torch.float32)
+        orig = orig.to(torch.float32)
+        key, sid, bits = _bundle_lists(mwin.win_bnd,
+                                       orig.reshape(-1, GATE, 3),
+                                       dirm.reshape(-1, GATE, 3))
+        t0 = (torch.full((n,), BIG, device=orig.device) if t_max is None
+              else t_max.to(torch.float32))
+        if active is not None:
+            t0 = torch.where(active, t0, 0.0)
+        return (key, sid, bits, mwin.tris, orig.T.contiguous(),
+                dirm.T.contiguous(), t0.contiguous())
 
 
 def _resolve_winners(mwin: MortonWindows, best_slot, orig, dir,
@@ -1264,7 +1278,8 @@ def _resolve_winners(mwin: MortonWindows, best_slot, orig, dir,
     (the kernel carries only the slot), with fused resolve rows attached
     also its shade attributes, from one resolve-row gather
     (_resolve_winners_body)."""
-    out = _resolve_winners_body(mwin, best_slot, orig, dir)
+    with span("resolve"):
+        out = _resolve_winners_body(mwin, best_slot, orig, dir)
     out["tile_stats"] = tile_stats
     return out
 

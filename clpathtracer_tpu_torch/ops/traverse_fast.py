@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from clpathtracer_tpu_torch.core import vecmath as vm
+from clpathtracer_tpu_torch.utils.profiling import span
 
 BIG = 3.4e38
 EXIT_EPS = 0.001  # reference early-exit slack (src/kernel.cl:381)
@@ -314,7 +315,8 @@ def _record(tree, out, orig, dir, any_hit):
                "tri": torch.where(hit, 0, -1).to(torch.int32), "u": zero,
                "v": zero}
     else:
-        rec = resolve_slot(tree.tris, best_slot, orig, dir)
+        with span("resolve"):
+            rec = resolve_slot(tree.tris, best_slot, orig, dir)
     rec["steps"] = steps
     return rec
 

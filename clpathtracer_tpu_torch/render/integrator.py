@@ -98,6 +98,7 @@ from clpathtracer_tpu_torch.render.shading import (cosine_sample_hemisphere,
                                                    normal_color,
                                                    resolve_sphere_hits,
                                                    resolve_tri_hits)
+from clpathtracer_tpu_torch.utils.profiling import span
 
 MODES = ("normal", "mirror", "path")
 PLIST_SCHEDULES = ("super", "window", "gathered")
@@ -326,9 +327,10 @@ def sort_wave(orig, dir, active=None):
     """Morton-sort a scattered wave into bundle order, dead lanes to the
     tail: (inv, orig, dir, active) with the rays, and the mask if given, in
     that order; rec[inv] puts a bundle-order record back in wave order."""
-    perm, inv = sort_rays(orig, dir, alive=active)
-    return (inv, orig[perm], dir[perm],
-            None if active is None else active[perm])
+    with span("prepass"):
+        perm, inv = sort_rays(orig, dir, alive=active)
+        return (inv, orig[perm], dir[perm],
+                None if active is None else active[perm])
 
 
 def _surface(scene, rec, orig, dir, allow_baked: bool = True):
@@ -355,6 +357,11 @@ def _surface(scene, rec, orig, dir, allow_baked: bool = True):
     return (point, *at)
 
 
+def _kind(coherent: bool) -> str:
+    """A wave span's kind: the frame's primaries or a scattered wave."""
+    return "primary" if coherent else "bounce"
+
+
 def shade_normal(scene, mwin, orig, dir, opts: RenderOptions, tree=None,
                  grid=None, shadow=None, first_rec=None,
                  first_coherent: bool = True, first_active=None):
@@ -365,13 +372,16 @@ def shade_normal(scene, mwin, orig, dir, opts: RenderOptions, tree=None,
     live mask first_active."""
     rec = first_rec
     if rec is None:
-        rec = intersect_scene(scene, mwin, orig, dir, opts,
-                              coherent=first_coherent, active=first_active,
-                              tree=tree, grid=grid, shadow=shadow)
-    _, normal, _, _ = _surface(scene, rec, orig, dir,
-                               not opts.differentiable)
-    return torch.where(rec["hit"][:, None], normal_color(normal),
-                       opts.background)
+        with span("wave", kind=_kind(first_coherent), b=0):
+            rec = intersect_scene(scene, mwin, orig, dir, opts,
+                                  coherent=first_coherent,
+                                  active=first_active, tree=tree, grid=grid,
+                                  shadow=shadow)
+    with span("shade", b=0):
+        _, normal, _, _ = _surface(scene, rec, orig, dir,
+                                   not opts.differentiable)
+        return torch.where(rec["hit"][:, None], normal_color(normal),
+                           opts.background)
 
 
 def mirror_wave(scene, rec, orig, dir, alive, allow_baked: bool = True):
@@ -394,29 +404,33 @@ def shade_mirror(scene, mwin, orig, dir, opts: RenderOptions, tree=None,
     str *= 0.2; reflect about the normal (mirror_wave). On a miss or after
     the last bounce: col = (1-str) col + str background."""
     n = orig.shape[0]
-    col = torch.zeros((n, 3), device=orig.device)
-    strength = torch.ones((n,), device=orig.device)
-    alive = torch.ones((n,), dtype=torch.bool, device=orig.device)
+    with span("shade", b=0):
+        col = torch.zeros((n, 3), device=orig.device)
+        strength = torch.ones((n,), device=orig.device)
+        alive = torch.ones((n,), dtype=torch.bool, device=orig.device)
     o, d = orig, dir
     for b in range(opts.bounces):
-        rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
-                              active=None if b == 0 else alive, tree=tree,
-                              grid=grid, shadow=shadow)
-        hit, o, d, normal = mirror_wave(scene, rec, o, d, alive,
-                                        not opts.differentiable)
-        st = strength[:, None]
-        col = torch.where(hit[:, None], (1.0 - st) * col
-                          + st * normal_color(normal), col)
-        strength = torch.where(hit, strength * 0.2, strength)
-        # rays that were alive but missed: blend toward the background
-        missed = alive & ~rec["hit"]
-        col = torch.where(missed[:, None],
-                          (1.0 - st) * col + st * opts.background, col)
-        alive = hit
+        with span("wave", kind=_kind(b == 0), b=b):
+            rec = intersect_scene(scene, mwin, o, d, opts, coherent=(b == 0),
+                                  active=None if b == 0 else alive,
+                                  tree=tree, grid=grid, shadow=shadow)
+        with span("shade", b=b):
+            hit, o, d, normal = mirror_wave(scene, rec, o, d, alive,
+                                            not opts.differentiable)
+            st = strength[:, None]
+            col = torch.where(hit[:, None], (1.0 - st) * col
+                              + st * normal_color(normal), col)
+            strength = torch.where(hit, strength * 0.2, strength)
+            # rays that were alive but missed: blend toward the background
+            missed = alive & ~rec["hit"]
+            col = torch.where(missed[:, None],
+                              (1.0 - st) * col + st * opts.background, col)
+            alive = hit
     # the last bounce's still-alive rays (the reference's depth == 0 branch)
-    st = strength[:, None]
-    return torch.where(alive[:, None],
-                       (1.0 - st) * col + st * opts.background, col)
+    with span("shade", b=opts.bounces):
+        st = strength[:, None]
+        return torch.where(alive[:, None],
+                           (1.0 - st) * col + st * opts.background, col)
 
 
 def light_cdf(scene):
@@ -570,46 +584,54 @@ def shade_path(scene, mwin, orig, dir, opts: RenderOptions, bounce_u,
     shade_normal takes it; first_active also starts the live mask."""
     n = orig.shape[0]
     dev = orig.device
-    radiance = torch.zeros((n, 3), device=dev)
-    throughput = torch.ones((n, 3), device=dev)
-    alive = (torch.ones((n,), dtype=torch.bool, device=dev)
-             if first_active is None else first_active)
+    with span("shade", b=0):
+        radiance = torch.zeros((n, 3), device=dev)
+        throughput = torch.ones((n, 3), device=dev)
+        alive = (torch.ones((n,), dtype=torch.bool, device=dev)
+                 if first_active is None else first_active)
     if opts.nee and lights is None:
-        lights = light_cdf(scene)
+        with span("light"):
+            lights = light_cdf(scene)
     o, d = orig, dir
     for b in range(opts.bounces):
         if b == 0 and first_rec is not None:
             rec = first_rec
         else:
-            rec = intersect_scene(
-                scene, mwin, o, d, opts, coherent=b == 0 and first_coherent,
-                active=first_active if b == 0 else alive,
-                jitter_px=jitter_px if b == 0 else 0.0, tree=tree, grid=grid,
-                shadow=shadow)
-        point, normal, albedo, emission = _surface(scene, rec, o, d,
-                                                   not opts.differentiable)
-        # one-sided emitters: front faces only
-        cos_in = vm.dot(normal, d)
-        front = cos_in < 0.0
-        normal = torch.where(cos_in[:, None] > 0, -normal, normal)
-        hit = rec["hit"] & alive
-        if not opts.nee or b == 0:
-            radiance = radiance + torch.where((hit & front)[:, None],
-                                              throughput * emission, 0.0)
-        missed = alive & ~rec["hit"]
-        radiance = radiance + torch.where(
-            missed[:, None], throughput * opts.background, 0.0)
-        alive = hit
+            coherent = b == 0 and first_coherent
+            with span("wave", kind=_kind(coherent), b=b):
+                rec = intersect_scene(
+                    scene, mwin, o, d, opts, coherent=coherent,
+                    active=first_active if b == 0 else alive,
+                    jitter_px=jitter_px if b == 0 else 0.0, tree=tree,
+                    grid=grid, shadow=shadow)
+        with span("shade", b=b):
+            point, normal, albedo, emission = _surface(
+                scene, rec, o, d, not opts.differentiable)
+            # one-sided emitters: front faces only
+            cos_in = vm.dot(normal, d)
+            front = cos_in < 0.0
+            normal = torch.where(cos_in[:, None] > 0, -normal, normal)
+            hit = rec["hit"] & alive
+            if not opts.nee or b == 0:
+                radiance = radiance + torch.where((hit & front)[:, None],
+                                                  throughput * emission, 0.0)
+            missed = alive & ~rec["hit"]
+            radiance = radiance + torch.where(
+                missed[:, None], throughput * opts.background, 0.0)
+            alive = hit
         if opts.nee and lights["any"]:
-            radiance = radiance + _direct_light(
-                scene, point, normal, albedo, throughput, hit, light_u[b],
-                opts, lights, mwin=mwin, tree=tree, grid=grid, shadow=shadow)
-        throughput = torch.where(hit[:, None], throughput * albedo,
-                                 throughput)
-        u12 = bounce_u[b]
-        newdir = cosine_sample_hemisphere(normal, u12[:, 0], u12[:, 1])
-        o = torch.where(hit[:, None], point + normal * BOUNCE_EPS, o)
-        d = torch.where(hit[:, None], newdir, d)
+            with span("light", b=b):
+                radiance = radiance + _direct_light(
+                    scene, point, normal, albedo, throughput, hit,
+                    light_u[b], opts, lights, b, mwin=mwin, tree=tree,
+                    grid=grid, shadow=shadow)
+        with span("shade", b=b):
+            throughput = torch.where(hit[:, None], throughput * albedo,
+                                     throughput)
+            u12 = bounce_u[b]
+            newdir = cosine_sample_hemisphere(normal, u12[:, 0], u12[:, 1])
+            o = torch.where(hit[:, None], point + normal * BOUNCE_EPS, o)
+            d = torch.where(hit[:, None], newdir, d)
     return radiance
 
 
@@ -641,14 +663,16 @@ def nee_wave(scene, point, normal, hit, light_u, stride, lights):
 
 
 def _direct_light(scene, point, normal, albedo, throughput, hit, light_u,
-                  opts, lights, **structures):
+                  opts, lights, b: int, **structures):
     """NEE's contribution at one vertex (JAX render/integrator.py:656-691):
     throughput * albedo / pi * emission * cos_s * cos_l / dist^2 / pdf
     where the hit sees the sampled light point unoccluded (nee_wave,
-    _occluded, traced on detached rays with no graph)."""
+    _occluded, traced on detached rays with no graph). b: the bounce, the
+    shadow wave span's."""
     w = nee_wave(scene, point, normal, hit, light_u, opts.nee_light_stride,
                  lights)
-    with torch.no_grad():   # visibility is discrete: no gradient
+    with torch.no_grad(), span("wave", kind="shadow", b=b):
+        # visibility is discrete: no gradient
         occ = _occluded(scene, w["orig"].detach(), w["dir"].detach(),
                         w["dist"].detach(), opts, active=w["live"],
                         **structures)
@@ -696,15 +720,17 @@ def shade_edgeaware(scene, mwin, orig, dir, opts: RenderOptions,
         raise ValueError(f"edge_aware: a wave of {n} rays is not whole rows "
                          f"of {opts.width} pixels")
     kw = dict(tree=tree, grid=grid, shadow=shadow)
-    rec1 = intersect_scene(scene, mwin, orig, dir, opts, jitter_px=jitter_px,
-                           **kw)
-    u, v = rec1["u"], rec1["v"]
-    m = torch.where(rec1["tri"] >= 0,
-                    torch.minimum(torch.minimum(u, v), 1.0 - u - v), 1.0)
-    alpha = _clip01(m / _edge_band(m, n // opts.width, opts.width))
-    t_det = rec1["t"].detach()
-    step = torch.where(rec1["hit"], t_det * 1e-3 + BOUNCE_EPS, 0.0)
-    o2 = orig + (t_det + step)[:, None] * dir
+    with span("wave", kind="primary", b=0):
+        rec1 = intersect_scene(scene, mwin, orig, dir, opts,
+                               jitter_px=jitter_px, **kw)
+    with span("shade", b=0):
+        u, v = rec1["u"], rec1["v"]
+        m = torch.where(rec1["tri"] >= 0,
+                        torch.minimum(torch.minimum(u, v), 1.0 - u - v), 1.0)
+        alpha = _clip01(m / _edge_band(m, n // opts.width, opts.width))
+        t_det = rec1["t"].detach()
+        step = torch.where(rec1["hit"], t_det * 1e-3 + BOUNCE_EPS, 0.0)
+        o2 = orig + (t_det + step)[:, None] * dir
     if opts.mode == "path":
         c1 = shade_path(scene, mwin, orig, dir, opts, bounce_u, jitter_px,
                         light_u=light_u, lights=lights, first_rec=rec1, **kw)
@@ -715,8 +741,9 @@ def shade_edgeaware(scene, mwin, orig, dir, opts: RenderOptions,
         c1 = shade_normal(scene, mwin, orig, dir, opts, first_rec=rec1, **kw)
         c2 = shade_normal(scene, mwin, o2, dir, opts, first_coherent=False,
                           first_active=rec1["hit"], **kw)
-    a = alpha[:, None]
-    return torch.where(rec1["hit"][:, None], a * c1 + (1.0 - a) * c2, c1)
+    with span("shade", b=0):
+        a = alpha[:, None]
+        return torch.where(rec1["hit"][:, None], a * c1 + (1.0 - a) * c2, c1)
 
 
 def render_rays(scene, mwin, orig, dir, opts: RenderOptions, bounce_u=None,
@@ -846,60 +873,71 @@ def render_lanes(scene, camera, opts: RenderOptions, lane0: int, n: int,
     edge_aware's band over that one row (the JAX shade_edgeaware's `cols
     = n`), the draws of n pixels. Structures, draws and rays as
     render_rows'."""
-    width, height = opts.width, opts.height
-    if n < 1 or lane0 < 0 or lane0 + n > width * height:
-        raise ValueError(f"pixels [{lane0}, {lane0 + n}) of a frame of "
-                         f"{width * height}")
-    if lane0 % width == 0 and n % width == 0:
-        block = dataclasses.replace(opts, height=n // width)
-    else:
-        block = dataclasses.replace(opts, height=1, width=n)
-    _check_supported(scene, block, mwin, tree, grid, shadow)
-    if opts.differentiable and lights is not None:
-        raise ValueError("differentiable: lights= is a table of the scene as "
-                         "it was built; the frame builds it from the live "
-                         "scene: pass lights=None")
-    device = camera.position.device
-    cam_inv = cam_matrix(camera, height)
-    lanes = slice(lane0, lane0 + n)
-    kw = dict(tree=tree, grid=grid, shadow=shadow)
-    if rays is None and (opts.mode != "path" or opts.spp <= 1):
-        rays = generate_rays(cam_inv, width, height)
-    if opts.mode != "path":
-        orig, dir = rays
-        return render_rays(scene, mwin, orig[lanes], dir[lanes], block, **kw)
-    if bounce is None:
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        jitter, bounce, light = path_draws(block, generator, device)
-    s = opts.spp if opts.spp > 1 else 1
-    m = -(-n // opts.nee_light_stride)
-    if tuple(bounce.shape) != (s, opts.bounces, n, 2) or (
-            s > 1 and (jitter is None or tuple(jitter.shape) != (s, n, 2))
-    ) or (opts.nee and (light is None
-                        or tuple(light.shape) != (s, opts.bounces, m, 3))):
-        raise ValueError(
-            f"path draws: bounce {tuple(bounce.shape)}, jitter "
-            f"{None if jitter is None else tuple(jitter.shape)}, light "
-            f"{None if light is None else tuple(light.shape)}; want "
-            f"{(s, opts.bounces, n, 2)}, for spp > 1 {(s, n, 2)} and with "
-            f"NEE {(s, opts.bounces, m, 3)}")
-    if opts.nee and lights is None:
-        lights = light_cdf(scene)
-    samples = []
-    for i in range(s):
-        if s == 1:
-            o, d = rays
+    with span("frame"):
+        width, height = opts.width, opts.height
+        if n < 1 or lane0 < 0 or lane0 + n > width * height:
+            raise ValueError(f"pixels [{lane0}, {lane0 + n}) of a frame of "
+                             f"{width * height}")
+        if lane0 % width == 0 and n % width == 0:
+            block = dataclasses.replace(opts, height=n // width)
         else:
-            jit = jitter[i:i + 1]
-            if n < width * height:   # the block's jitter in the full frame
-                jit = jit.new_zeros((1, width * height, 2))
-                jit[0, lanes] = jitter[i]
-            o, d = generate_rays_jittered(cam_inv, width, height, jit)
-            o, d = o[0], d[0]
-        samples.append(render_rays(
-            scene, mwin, o[lanes], d[lanes], block, bounce[i],
-            jitter_px=JITTER_PX if s > 1 else 0.0,
-            light_u=None if light is None else light[i], lights=lights,
-            **kw))
-    return samples[0] if s == 1 else torch.stack(samples).mean(dim=0)
+            block = dataclasses.replace(opts, height=1, width=n)
+        _check_supported(scene, block, mwin, tree, grid, shadow)
+        if opts.differentiable and lights is not None:
+            raise ValueError("differentiable: lights= is a table of the "
+                             "scene as it was built; the frame builds it "
+                             "from the live scene: pass lights=None")
+        device = camera.position.device
+        lanes = slice(lane0, lane0 + n)
+        kw = dict(tree=tree, grid=grid, shadow=shadow)
+        with span("rays"):
+            cam_inv = cam_matrix(camera, height)
+            if rays is None and (opts.mode != "path" or opts.spp <= 1):
+                rays = generate_rays(cam_inv, width, height)
+        if opts.mode != "path":
+            orig, dir = rays
+            return render_rays(scene, mwin, orig[lanes], dir[lanes], block,
+                               **kw)
+        if bounce is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            with span("rays"):
+                jitter, bounce, light = path_draws(block, generator, device)
+        s = opts.spp if opts.spp > 1 else 1
+        m = -(-n // opts.nee_light_stride)
+        if tuple(bounce.shape) != (s, opts.bounces, n, 2) or (
+                s > 1 and (jitter is None
+                           or tuple(jitter.shape) != (s, n, 2))
+        ) or (opts.nee and (light is None or tuple(light.shape)
+                            != (s, opts.bounces, m, 3))):
+            raise ValueError(
+                f"path draws: bounce {tuple(bounce.shape)}, jitter "
+                f"{None if jitter is None else tuple(jitter.shape)}, light "
+                f"{None if light is None else tuple(light.shape)}; want "
+                f"{(s, opts.bounces, n, 2)}, for spp > 1 {(s, n, 2)} and "
+                f"with NEE {(s, opts.bounces, m, 3)}")
+        if opts.nee and lights is None:
+            with span("light"):
+                lights = light_cdf(scene)
+        samples = []
+        for i in range(s):
+            if s == 1:
+                o, d = rays
+            else:
+                with span("rays"):
+                    jit = jitter[i:i + 1]
+                    if n < width * height:   # the block's jitter in the frame
+                        jit = jit.new_zeros((1, width * height, 2))
+                        jit[0, lanes] = jitter[i]
+                    o, d = generate_rays_jittered(cam_inv, width, height,
+                                                  jit)
+                    o, d = o[0], d[0]
+            samples.append(render_rays(
+                scene, mwin, o[lanes], d[lanes], block, bounce[i],
+                jitter_px=JITTER_PX if s > 1 else 0.0,
+                light_u=None if light is None else light[i], lights=lights,
+                **kw))
+        if s == 1:
+            return samples[0]
+        with span("shade"):   # the samples' mean
+            return torch.stack(samples).mean(dim=0)

@@ -361,7 +361,7 @@ def test_checked_and_validate_image():
     assert torch.is_anomaly_enabled() == prev
 
 
-def test_profiling_matches_jax_format(capsys, tmp_path):
+def test_profiling_matches_jax_format():
     for mod in (profiling, jprof):
         t = mod.StageTimer()
         with t.stage("a"):
@@ -369,16 +369,6 @@ def test_profiling_matches_jax_format(capsys, tmp_path):
         with t.stage("a"):
             pass
         assert list(t.report()) == ["a"] and t.report()["a"] >= 0
-    rec = profiling.emit_metric("rays/s", 1e6, "rays/s", vs_baseline=0.005,
-                                cell="x")
-    got = capsys.readouterr().out
-    jrec = jprof.emit_metric("rays/s", 1e6, "rays/s", vs_baseline=0.005,
-                             cell="x")
-    assert got == capsys.readouterr().out and rec == jrec
-    path = str(tmp_path / "trace.json")
-    with profiling.trace(path) as prof:
-        torch.ones(8).sum()
-    assert prof is not None and os.path.getsize(path) > 0
     inv = tdevice.device_inventory()
     assert inv[-1]["platform"] == "cpu"
     assert tdevice.pick_device("cpu") == tdevice.host_cpu() == CPU
